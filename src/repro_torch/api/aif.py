@@ -1,0 +1,166 @@
+"""The AIF agent adapted onto the :class:`repro_torch.api.router.Router`
+protocol.
+
+The spec wraps the agent config, the observation discretization and the
+utilization-scrape edges and cadence.  The port runs the fused per-tick
+path only: ``fused=True`` is the default, ``fused=False`` (the vmapped
+single-agent path, ROADMAP A3) and ``mega=True`` (the whole-window
+megakernel, A7) raise ``NotImplementedError``.  The reference's
+``use_pallas`` switch has no counterpart: the tensors' device decides
+between the CUDA kernel and its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.api.router import Router, RouterObs, TickInfo
+from repro_torch.core import agent as agent_mod
+from repro_torch.core import fleet as fleet_mod
+from repro_torch.core import generative, spaces
+
+
+@dataclasses.dataclass(frozen=True)
+class AifRouter(Router):
+    """Fleet spec of the Active Inference router (paper §4).
+
+    Args:
+      cfg: agent hyper-parameters; ``cfg.topology`` fixes every shape.
+      disc: observation discretization (None = paper defaults).
+      util_edges: raw-utilization level edges (None = the topology's).
+      util_period: windows between utilization scrapes.
+      fused: must be True (the fused belief→EFE fleet tick).
+      mega: must be False (the megakernel path is not ported yet).
+    """
+
+    cfg: generative.AifConfig = dataclasses.field(
+        default_factory=generative.AifConfig)
+    disc: spaces.DiscretizationConfig | None = None
+    util_edges: tuple[float, ...] | None = None
+    util_period: int = 10
+    fused: bool = True
+    mega: bool = False
+
+    name = "aif"
+
+    def __post_init__(self):
+        if not self.fused:
+            raise NotImplementedError(
+                "fused=False (the vmapped single-agent path) is not ported "
+                "yet: ROADMAP item A3; run fused=True")
+        if self.mega:
+            raise NotImplementedError(
+                "mega=True (the whole-window megakernel path) is not ported "
+                "yet: ROADMAP item A7")
+        topo = self.cfg.topology
+        disc = self.resolved_disc
+        if len(disc.modality_edges()) != topo.n_modalities:
+            raise ValueError(
+                f"DiscretizationConfig covers {len(disc.modality_edges())} "
+                f"modalities but the topology declares {topo.n_modalities} "
+                f"({topo.modalities})")
+        if len(self.resolved_util_edges) != topo.n_levels - 1:
+            raise ValueError(
+                f"util_edges needs {topo.n_levels - 1} edges for "
+                f"{topo.n_levels}-level state factors, got "
+                f"{self.resolved_util_edges}")
+        if "error" not in topo.modalities:
+            raise ValueError(
+                f"topology modalities {topo.modalities} lack 'error': the "
+                f"adaptive-preference EMA (paper §4.2) is driven by it")
+
+    # ------------------------------------------------------- engine hints
+    @property
+    def n_tiers(self) -> int:
+        return self.cfg.topology.n_tiers
+
+    @property
+    def n_modalities(self) -> int:
+        return self.cfg.topology.n_modalities
+
+    @property
+    def period(self) -> int:
+        return max(int(self.cfg.slow_period_s / self.cfg.fast_period_s), 1)
+
+    @property
+    def dwell(self) -> int:
+        return max(int(self.cfg.action_dwell_s / self.cfg.fast_period_s), 1)
+
+    @property
+    def has_slow(self) -> bool:
+        return True
+
+    @property
+    def resolved_disc(self) -> spaces.DiscretizationConfig:
+        return self.disc or spaces.DiscretizationConfig()
+
+    @property
+    def resolved_util_edges(self) -> tuple[float, ...]:
+        topo = self.cfg.topology
+        return (topo.util_edges if self.util_edges is None
+                else tuple(self.util_edges))
+
+    def clock_phase(self, carry) -> int | None:
+        vals = torch.unique(carry.t)
+        # mixed clocks -> None: the engine falls back to per-tick slow gating
+        return int(vals[0]) % self.period if vals.numel() == 1 else None
+
+    # --------------------------------------------------------- transitions
+    def init_carry(self, r: int, device: str | torch.device = "cuda"
+                   ) -> agent_mod.AgentState:
+        return fleet_mod.init_fleet_state(self.cfg, r, device)
+
+    def _observe(self, obs: RouterObs):
+        """Discretize the published telemetry and the 10 s utilization
+        scrape (tier order -> state-factor order)."""
+        topo = self.cfg.topology
+        obs_bins = spaces.discretize_observation(obs.raw_obs,
+                                                 self.resolved_disc)
+        edges = torch.tensor(self.resolved_util_edges, dtype=torch.float32,
+                             device=obs.raw_obs.device)
+        util_hml = torch.flip(obs.tier_utilization, dims=(-1,))
+        util_bins = torch.sum(util_hml[..., None] >= edges, dim=-1)
+        util_valid = (obs.t_idx % self.util_period) == 0 and obs.t_idx > 0
+        err_ix = topo.modalities.index("error")   # pinned by __post_init__
+        return obs_bins, util_bins, util_valid, obs.raw_obs[:, err_ix]
+
+    def _watchdog(self, carry):
+        """Quarantine-and-reinit diverged cells on the incoming carry,
+        before their state flows into this tick's belief/EFE math.  Returns
+        (carry, (R,) float 0/1 events)."""
+        bad = fleet_mod.fleet_watchdog_bad(carry)
+        if bool(bad.any()):
+            carry = fleet_mod.fleet_quarantine(carry, bad, self.cfg)
+        return carry, bad.to(torch.float32)
+
+    def step(self, carry, obs, obs_mask, noise):
+        wd = None
+        if self.cfg.watchdog:
+            carry, wd = self._watchdog(carry)
+        obs_bins, util_bins, util_valid, raw_err = self._observe(obs)
+        r = obs_bins.shape[0]
+        gumbel = noise.gumbel(obs.t_idx, (r, self.cfg.n_actions))
+        carry, info = fleet_mod.fleet_fast_step(
+            carry, obs_bins, raw_err, gumbel, self.cfg, util_bins,
+            util_valid, obs_mask)
+        return carry, info.routing_weights, TickInfo(action=info.action,
+                                                     unstable=info.unstable,
+                                                     watchdog=wd)
+
+    def light_step(self, carry, obs, obs_mask):
+        wd = None
+        if self.cfg.watchdog:
+            carry, wd = self._watchdog(carry)
+        obs_bins, util_bins, util_valid, raw_err = self._observe(obs)
+        carry, info = fleet_mod.fleet_light_step(
+            carry, obs_bins, raw_err, self.cfg, util_bins, util_valid,
+            obs_mask)
+        return carry, info.routing_weights, TickInfo(action=info.action,
+                                                     unstable=info.unstable,
+                                                     watchdog=wd)
+
+    def slow_step(self, carry, noise, t: int):
+        idx = noise.replay_indices(t, carry.replay.size,
+                                   self.cfg.replay_batch)
+        return fleet_mod.fleet_slow_step(carry, idx, self.cfg)

@@ -1,0 +1,139 @@
+"""The AIF-Router agent state and its control-step pieces (paper §4, Fig. 1).
+
+All mutable state lives in an :class:`AgentState` of tensors with a leading
+router axis R (the fleet); every transition below is elementwise over that
+axis.  Fast loop (1 s): observe → adapt preferences → belief update (Eq. 2)
+→ EFE action selection (Eq. 1) → record transition, composed by
+:mod:`repro_torch.core.fleet`.  Slow loop (10 s): :func:`slow_step`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import efe as efe_mod
+from repro_torch.core import generative, learning, policies, preferences
+
+
+class AgentState(NamedTuple):
+    model: generative.GenerativeModel
+    # Quasi-static normalized model (refreshed by slow_step only).
+    cache: generative.ModelCache
+    belief: torch.Tensor             # (..., S) current posterior q(s_t)
+    replay: learning.ReplayBuffer
+    prev_action: torch.Tensor        # (...) int64 — action currently applied
+    dt_since_change: torch.Tensor    # (...) float32 — s since action change
+    error_ema: torch.Tensor          # (...) float32 — smoothed error rate
+    unstable: torch.Tensor           # (...) bool — adaptive-preference mode
+    t: torch.Tensor                  # (...) int64 — fast steps elapsed
+
+
+class StepInfo(NamedTuple):
+    """Diagnostics emitted by each fast step."""
+
+    action: torch.Tensor
+    routing_weights: torch.Tensor    # (..., K) applied weights
+    efe: efe_mod.EfeBreakdown
+    belief_entropy: torch.Tensor
+    unstable: torch.Tensor
+    obs_bins: torch.Tensor
+    obs_mask: torch.Tensor           # (..., M) validity of this tick's evidence
+
+
+def init_agent_state(cfg: generative.AifConfig,
+                     device: torch.device | str) -> AgentState:
+    """One fresh agent (no router axis; see ``fleet.init_fleet_state``)."""
+    model = generative.init_generative_model(cfg, device)
+    return AgentState(
+        model=model,
+        cache=generative.derive_cache(model, cfg.topology),
+        belief=model.d_prior.clone(),
+        replay=learning.init_replay(cfg.replay_capacity, cfg.topology,
+                                    device),
+        prev_action=torch.tensor(policies.BALANCED_ACTION, device=device),
+        dt_since_change=torch.zeros((), device=device),
+        error_ema=torch.zeros((), device=device),
+        unstable=torch.zeros((), dtype=torch.bool, device=device),
+        t=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def all_valid_mask(obs_bins: torch.Tensor) -> torch.Tensor:
+    """(..., M) all-ones validity mask matching a batch of observation bins."""
+    return torch.ones(obs_bins.shape, device=obs_bins.device)
+
+
+def masked_error_ema(prev_ema: torch.Tensor,
+                     raw_error_rate: torch.Tensor,
+                     cfg: generative.AifConfig,
+                     obs_mask: torch.Tensor | None) -> torch.Tensor:
+    """Adaptive-preference error EMA that respects the telemetry mask: a
+    masked error modality is treated as no sample and the EMA holds."""
+    new = preferences.ema_update(prev_ema, raw_error_rate, cfg)
+    if obs_mask is None:
+        return new
+    try:
+        err_ix = cfg.topology.modalities.index("error")
+    except ValueError:
+        return new
+    return torch.where(obs_mask[..., err_ix] > 0, new, prev_ema)
+
+
+def dwell_gate(t: torch.Tensor,
+               prev_action: torch.Tensor,
+               dt_since_change: torch.Tensor,
+               sampled: torch.Tensor,
+               cfg: generative.AifConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dwell-gate a sampled action against the agent clock.
+
+    Returns (applied action (int64), new dt_since_change).
+    """
+    dwell_ticks = max(int(cfg.action_dwell_s / cfg.fast_period_s), 1)
+    do_select = (t % dwell_ticks) == 0
+    action = torch.where(do_select, sampled, prev_action)
+    changed = action != prev_action
+    dt = torch.where(changed, 0.0, dt_since_change + cfg.fast_period_s)
+    return action.long(), dt
+
+
+def apply_action(state: AgentState,
+                 model: generative.GenerativeModel,
+                 q_next: torch.Tensor,
+                 replay: learning.ReplayBuffer,
+                 error_ema: torch.Tensor,
+                 unstable: torch.Tensor,
+                 sampled: torch.Tensor,
+                 cfg: generative.AifConfig) -> tuple[AgentState, torch.Tensor]:
+    """Dwell-gate the sampled action and assemble the next AgentState.
+
+    Returns (new_state, applied action).
+    """
+    action, dt = dwell_gate(state.t, state.prev_action, state.dt_since_change,
+                            sampled, cfg)
+    new_state = AgentState(
+        model=model,
+        cache=state.cache,
+        belief=q_next,
+        replay=replay,
+        prev_action=action,
+        dt_since_change=dt,
+        error_ema=error_ema,
+        unstable=unstable,
+        t=state.t + 1,
+    )
+    return new_state, action
+
+
+def slow_step(state: AgentState, idx: torch.Tensor,
+              cfg: generative.AifConfig,
+              learn: torch.Tensor | None = None) -> AgentState:
+    """One 10-second model-learning step (replay batch update of A and B).
+
+    ``idx`` is the (R, batch) replay draw.  The only in-loop writer of the
+    pseudo-counts (in place); refreshing the normalized cache here keeps the
+    fast loop's cached tensors consistent by construction.
+    """
+    model = learning.slow_update(state.model, state.replay, idx, cfg, learn)
+    return state._replace(model=model,
+                          cache=generative.derive_cache(model, cfg.topology))

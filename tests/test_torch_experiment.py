@@ -1,0 +1,171 @@
+"""The port's slice end to end: ``Experiment(router="aif", fused=True)``
+against the reference on the same draws, plus the package contracts
+(device default, import isolation, the paths that wait).
+
+The reference runs its fused path with the Pallas kernel in interpret mode;
+the port runs on the CPU (the plain PyTorch version of its CUDA kernel) with
+the reference's key chain replayed by ``JaxChainNoise``.  Actions must be
+equal on every tick of every cell.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro import api as ref_api
+from repro_torch import api
+from repro_torch.core import policies
+from torch_port_ref import (JaxChainNoise, assert_close, assert_tree_close,
+                            t2n)
+
+SLICES = [("paper-burst", 3, 30), ("flaky-telemetry", 2, 22)]
+
+
+@pytest.mark.parametrize("scenario,r,t", SLICES,
+                         ids=[s[0] for s in SLICES])
+def test_fused_experiment_matches_reference(scenario, r, t):
+    seed = 0
+    ref = ref_api.run(ref_api.Experiment(
+        router="aif", scenario=scenario, n_cells=r, n_windows=t, seed=seed,
+        fused=True, use_pallas=True))
+    port = api.run(api.Experiment(router="aif", scenario=scenario,
+                                  n_cells=r, n_windows=t, seed=seed,
+                                  device="cpu"),
+                   noise=JaxChainNoise(seed, r, t))
+    np.testing.assert_array_equal(t2n(port.trace.actions),
+                                  np.asarray(ref.trace.actions))
+    for field in ("success_pct", "p50_ms", "p95_ms", "obs_frac", "restarts"):
+        assert_close(getattr(port, field), getattr(ref, field),
+                     err_msg=field)
+    assert_close(port.tier_share, ref.tier_share)
+    assert_close(port.routed_share, ref.routed_share)
+    assert_close(port.trace.obs_frac, ref.trace.obs_frac)
+    assert_close(port.final_carry.belief, ref.final_carry.belief)
+    assert_close(port.final_carry.model.b_counts,
+                 ref.final_carry.model.b_counts)
+    assert_tree_close(port.final_carry.model, ref.final_carry.model)
+    assert_tree_close(port.final_carry.replay, ref.final_carry.replay)
+    assert_tree_close(port.trace.env, ref.trace.env)
+    assert port.watchdog_events == ref.watchdog_events == 0.0
+
+
+def test_uniform_router_rollout_matches_reference():
+    """The engine's flat path (no slow cadence, dwell 1)."""
+    r, t, seed = 3, 20, 4
+    ref = ref_api.run(ref_api.Experiment(router="uniform",
+                                         scenario="flaky-telemetry",
+                                         n_cells=r, n_windows=t, seed=seed))
+    port = api.run(api.Experiment(router="uniform",
+                                  scenario="flaky-telemetry", n_cells=r,
+                                  n_windows=t, seed=seed, device="cpu"),
+                   noise=JaxChainNoise(seed, r, t))
+    assert_tree_close(port.trace.env, ref.trace.env)
+    assert_close(port.success_pct, ref.success_pct)
+    assert_close(port.p95_ms, ref.p95_ms)
+
+
+def test_generator_noise_run_is_deterministic_and_healthy():
+    e = api.Experiment(router="aif", scenario="paper-burst", n_cells=2,
+                       n_windows=12, seed=3, device="cpu")
+    a, b = api.run(e), api.run(e)
+    np.testing.assert_array_equal(t2n(a.trace.actions), t2n(b.trace.actions))
+    assert a.success_pct == b.success_pct
+    acts = t2n(a.trace.actions)
+    assert acts.min() >= 0 and acts.max() < 20
+    # dwell 5: actions change only on selecting ticks
+    assert (acts[1:5] == acts[0]).all() and (acts[6:10] == acts[5]).all()
+    assert np.isfinite([a.success_pct, a.p50_ms, a.p95_ms]).all()
+    q = t2n(a.final_carry.belief)
+    np.testing.assert_allclose(q.sum(-1), 1.0, rtol=1e-5)
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card contract "
+                    "cannot be observed")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.run(api.Experiment(n_cells=2, n_windows=5))
+    with pytest.raises(RuntimeError):
+        api.AifRouter().init_carry(2)
+
+
+def test_waiting_paths_raise_not_implemented():
+    with pytest.raises(NotImplementedError, match="A3"):
+        api.AifRouter(fused=False)
+    with pytest.raises(NotImplementedError, match="A7"):
+        api.AifRouter(mega=True)
+    with pytest.raises(NotImplementedError, match="A3"):
+        api.run(api.Experiment(fused=False, n_cells=2, n_windows=5,
+                               device="cpu"))
+    with pytest.raises(NotImplementedError, match="A5"):
+        api.run(api.Experiment(router="thompson", n_cells=2, n_windows=5,
+                               device="cpu"))
+
+
+def test_uniform_router_weights_are_the_balanced_row():
+    r = api.UniformRouter()
+    obs = api.RouterObs(raw_obs=torch.zeros(2, 4),
+                        tier_utilization=torch.zeros(2, 3),
+                        tier_up=torch.ones(2, 3),
+                        tier_queue=torch.zeros(2, 3), t_idx=0)
+    _, w, _ = r.step((), obs, None, None)
+    np.testing.assert_array_equal(
+        t2n(w), np.tile(policies.balanced_weights(3).astype(np.float32),
+                        (2, 1)))
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.dirname(src)!r})\n"
+        "import chip_smoke\n"
+        "import repro_torch, repro_torch.api, repro_torch.noise\n"
+        "import repro_torch.core.fleet, repro_torch.kernels.efe.ops\n"
+        "import repro_torch.kernels.build, repro_torch.envsim\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_name_neither_jax_nor_the_reference():
+    """Lazy imports inside functions too: no import statement of the port
+    or of chip_smoke.py names ``jax`` or ``repro``."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    files = [os.path.join(root, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

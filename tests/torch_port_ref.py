@@ -1,0 +1,142 @@
+"""Reference-side helpers shared by the PyTorch port's parity tests.
+
+The port (``repro_torch``) never reproduces JAX's threefry draws; it takes
+every random draw as an operand.  :class:`JaxChainNoise` replays the JAX
+reference engine's per-tick key chain (``repro/api/engine.py::_key_block``:
+``k, k_env, k_agents = split(k, 3)``, an R-way per-cell split, then a
+fast/slow split per cell) and hands the port exactly the numbers the
+reference draws from it:
+
+* the Gumbel noise of the action categorical at ``k_fast``
+  (``jax.random.categorical`` is ``argmax(logits + gumbel(key))``),
+* the replay indices of ``sample_batch`` at the boundary tick's ``k_slow``,
+* the two restart uniforms of ``fluid_window_step`` at ``split(k_env)``.
+
+The rest converts between the packages: topologies, reference pytrees to
+the dicts of numpy leaves that ``repro_torch``'s ``*_from_numpy`` take, and
+port tensors back to numpy.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.core import topology as ref_topology
+from repro_torch.core import topology as port_topology
+
+# The test runner starts several workers on one machine.
+torch.set_num_threads(1)
+
+#: Parity tolerance: both sides compute in float32 but sum in different
+#: orders (XLA vs PyTorch reductions), so floats agree to rounding, not bits.
+RTOL, ATOL = 1e-4, 1e-6
+
+
+def two_tier_ref() -> ref_topology.Topology:
+    return ref_topology.Topology(tier_names=("edge", "cloud"),
+                                 tier_classes=("edge-light", "server"))
+
+
+def port_topo(topo: ref_topology.Topology) -> port_topology.Topology:
+    """The port's :class:`Topology` with the same fields as ``topo``."""
+    spec = port_topology.PolicySpec(
+        **{f.name: getattr(topo.policy_spec, f.name)
+           for f in dataclasses.fields(topo.policy_spec)})
+    fields = {f.name: getattr(topo, f.name) for f in dataclasses.fields(topo)}
+    fields["policy_spec"] = spec
+    return port_topology.Topology(**fields)
+
+
+def ref_topologies() -> list[ref_topology.Topology]:
+    """K = 2, 3 (the paper's testbed) and 5."""
+    return [two_tier_ref(), ref_topology.default_topology(),
+            ref_topology.five_tier_topology()]
+
+
+def to_numpy(tree):
+    """A reference pytree of NamedTuples as nested dicts of numpy arrays."""
+    if hasattr(tree, "_asdict"):
+        return {k: to_numpy(v) for k, v in tree._asdict().items()}
+    return np.asarray(tree)
+
+
+def t2n(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def assert_close(port, ref, rtol=RTOL, atol=ATOL, err_msg=""):
+    port = t2n(port) if isinstance(port, torch.Tensor) else np.asarray(port)
+    np.testing.assert_allclose(port, np.asarray(ref), rtol=rtol, atol=atol,
+                               err_msg=err_msg)
+
+
+def assert_tree_close(port, ref, rtol=RTOL, atol=ATOL, path="state"):
+    """Leaf-by-leaf comparison of a port NamedTuple with the reference's;
+    integer and bool leaves must be equal."""
+    if hasattr(ref, "_asdict"):
+        for k, v in ref._asdict().items():
+            if v is None:
+                continue
+            assert_tree_close(getattr(port, k), v, rtol, atol, f"{path}.{k}")
+        return
+    r = np.asarray(ref)
+    p = t2n(port) if isinstance(port, torch.Tensor) else np.asarray(port)
+    if r.dtype.kind in "biu":
+        np.testing.assert_array_equal(p.astype(r.dtype), r, err_msg=path)
+    else:
+        np.testing.assert_allclose(p, r, rtol=rtol, atol=atol, err_msg=path)
+
+
+class JaxChainNoise:
+    """The reference engine's draws, as a ``repro_torch.noise`` source.
+
+    Replays the per-tick key chain from ``jax.random.key(seed)`` for
+    ``n_steps`` ticks of an ``r``-cell fleet.  Call it in the same PRNG mode
+    as the reference run it is compared with.
+    """
+
+    def __init__(self, seed: int, r: int, n_steps: int):
+        k = jax.random.key(seed)
+        self.k_env, self.k_fast, self.k_slow = [], [], []
+        for _ in range(n_steps):
+            k, k_env, k_agents = jax.random.split(k, 3)
+            ks = jax.vmap(jax.random.split)(jax.random.split(k_agents, r))
+            self.k_env.append(k_env)
+            self.k_fast.append(ks[:, 0])
+            self.k_slow.append(ks[:, 1])
+
+    def gumbel(self, t, shape):
+        a = shape[-1]
+        g = jax.vmap(lambda k: jax.random.gumbel(k, (a,)))(self.k_fast[t])
+        return torch.tensor(np.asarray(g))
+
+    def replay_indices(self, t, size, batch):
+        sizes = jnp.asarray(t2n(size), jnp.int32)
+        idx = jax.vmap(lambda k, n: jax.random.randint(
+            k, (batch,), 0, jnp.maximum(n, 1)))(self.k_slow[t], sizes)
+        return torch.tensor(np.asarray(idx), dtype=torch.int64)
+
+    def env_uniforms(self, t, shape):
+        return env_uniforms(self.k_env[t], shape)
+
+
+def env_uniforms(key, shape):
+    """``fluid_window_step``'s restart uniforms for ``key``, as tensors."""
+    k_fire, k_dur = jax.random.split(key)
+    return (torch.tensor(np.asarray(jax.random.uniform(k_fire, shape))),
+            torch.tensor(np.asarray(jax.random.uniform(k_dur, shape))))
+
+
+class RunFluidNoise:
+    """``repro.envsim.batched.run_fluid``'s per-window env keys
+    (``split(key, T)``) as a noise source of restart uniforms."""
+
+    def __init__(self, key, n_steps: int):
+        self.keys = jax.random.split(key, n_steps)
+
+    def env_uniforms(self, t, shape):
+        return env_uniforms(self.keys[t], shape)
