@@ -9,18 +9,31 @@ failure raising (exit code != 0):
 1. device — the card, as ``nvidia-smi`` names it, and its power limit;
 2. build — compiles every CUDA source of the port with ``nvcc`` (one
    process per library, started together);
-3. kernel vs plain — each kernel at full width (paper-3tier, R=1024) on
-   seeded inputs shaped like a real model cache, against its plain PyTorch
-   version on the same inputs on the card;
-4. small slice — ``Experiment(R=4, T=30)`` on the card and on the CPU with
-   the same draws: actions equal, metrics within 1e-4;
+3. kernel vs plain — B1 and B2 at full width (paper-3tier, R=1024) on
+   seeded inputs shaped like a real model cache, against their plain
+   PyTorch versions on the same inputs on the card;
+4. small slice — the fused ``Experiment(R=4, T=30)`` on the card and on the
+   CPU with the same draws: actions equal, metrics within 1e-4;
 5. the slice — ``repro_torch.api.run(Experiment(router="aif",
    scenario="paper-burst", n_cells=1024, n_windows=300))`` on the card, with
    every kernel's launch count read around it;
    then the per-call times of the held-tick posterior and the slow step on
    its final state;
-6. times — each kernel's ms per launch (CUDA events, warmed up, median)
-   beside its bound and its plain version's ms.
+6. mega kernel vs plain — B3 (one whole window) at R=1024 and full width
+   from a mid-run state (t0=100), float32 and bfloat16 slots on
+   paper-burst (both then timed) and float32 slots on the two
+   masked-telemetry scenarios, against its plain version
+   ``core.mega.mega_window`` on the same inputs on the card;
+7. mega small slice — ``Experiment(mega=True, R=4, T=23)`` on the card and
+   on the CPU with the same draws: actions equal;
+8. mega slice — ``Experiment(mega=True, n_cells=4096, n_windows=300)`` on
+   paper-burst, every kernel's launch count read around it (B3: one launch
+   per window, 30); then the per-call times of its slow step and watchdog;
+9. times — each kernel's ms per launch (CUDA events, warmed up, median)
+   beside its bound and its plain version's ms; B3 at the mega slice's
+   R=4096 from its states at window starts t0 = 0, 150 and 290, each
+   first held against its plain version like phase 6 (the kernels line
+   reports t0=150).
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -46,8 +59,12 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 R_FULL, T_FULL = 1024, 300
+R_MEGA, T0_MEGA = 4096, 150   # the mega slice's fleet; B3's timed window
 DEVICE = "cuda"
 G_TOL, Q_TOL = 1e-4, 1e-5     # kernel vs plain version, max abs error
+# B3 vs its plain version: every float output within MEGA_TOL·max(1, |plain|)
+# (absolute on probabilities, relative on the env's growing request sums)
+MEGA_TOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -88,14 +105,18 @@ def phase_device() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.efe import efe
-    libraries = {"efe_fleet": efe.SOURCES}
+    from repro_torch.kernels.efe import mega as mega_kernel
+    libraries = {"efe_fleet": (efe.SOURCES, ()),
+                 "mega_window": (mega_kernel.SOURCES,
+                                 mega_kernel.EXTRA_FLAGS)}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
-        futs = {name: pool.submit(build.build, name, srcs)
-                for name, srcs in libraries.items()}
+        futs = {name: pool.submit(build.build, name, *spec)
+                for name, spec in libraries.items()}
         paths = {name: f.result() for name, f in futs.items()}
     secs = time.perf_counter() - t0
-    efe.library()               # load once, so later timings exclude it
+    efe.library()               # load once, so later timings exclude them
+    mega_kernel.library()
     ptxas = {name: [ln.strip() for ln in
                     (p.parent / "ptxas.log").read_text().splitlines()
                     if "Used" in ln or "spill" in ln]
@@ -202,12 +223,16 @@ class MirroredNoise:
                                                                      shape))
 
 
-def phase_small_slice() -> None:
+def phase_small_slice(mega: bool = False) -> None:
+    """The card's path against the CPU's on a small slice, same draws:
+    the fused path (R=4, T=30) or the mega path (R=4, T=23, ending in a
+    remainder window)."""
     from repro_torch import api
     runs = {}
+    t = 23 if mega else 30
     for dev in (DEVICE, "cpu"):
         e = api.Experiment(router="aif", scenario="paper-burst", n_cells=4,
-                           n_windows=30, seed=1, device=dev)
+                           n_windows=t, seed=1, mega=mega, device=dev)
         runs[dev] = api.run(e, noise=MirroredNoise(1, dev))
     gpu, cpu = runs[DEVICE], runs["cpu"]
     same_actions = bool(torch.equal(gpu.trace.actions.cpu(),
@@ -217,25 +242,41 @@ def phase_small_slice() -> None:
            for k in ("success_pct", "p50_ms", "p95_ms")}
     belief_err = (gpu.final_carry.belief.cpu()
                   - cpu.final_carry.belief).abs().max().item()
-    emit("small_slice", n_cells=4, n_windows=30, actions_equal=same_actions,
-         rel_err=rel, belief_max_abs_err=belief_err)
+    emit("mega_small_slice" if mega else "small_slice", n_cells=4,
+         n_windows=t, actions_equal=same_actions, rel_err=rel,
+         belief_max_abs_err=belief_err)
     if not same_actions or max(rel.values()) > 1e-4 or belief_err > 1e-5:
         raise AssertionError("the CUDA path disagrees with the CPU path on "
                              "the small slice")
 
 
-def phase_slice() -> dict:
-    from repro_torch import api
+def all_kernels() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its launches
+    in ``.launches``)."""
     from repro_torch.kernels.efe import efe
-    kernels = {"belief_efe_fleet": efe.belief_efe_fleet,
-               "efe_fleet": efe.efe_fleet}
-    e = api.Experiment(router="aif", scenario="paper-burst", n_cells=R_FULL,
-                       n_windows=T_FULL, seed=0, device=DEVICE)
-    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.kernels.efe import mega as mega_kernel
+    return {"belief_efe_fleet": efe.belief_efe_fleet,
+            "efe_fleet": efe.efe_fleet,
+            "mega_window": mega_kernel.mega_window_cuda}
+
+
+def run_counted(e):
+    """``api.run(e)`` with every kernel's count set to 0 just before and
+    read just after: (result, launches by kernel)."""
+    from repro_torch import api
+    kernels = all_kernels()
     for k in kernels.values():
         k.launches = 0
     res = api.run(e)
-    launches = {name: k.launches for name, k in kernels.items()}
+    return res, {name: k.launches for name, k in kernels.items()}
+
+
+def phase_slice() -> dict:
+    from repro_torch import api
+    e = api.Experiment(router="aif", scenario="paper-burst", n_cells=R_FULL,
+                       n_windows=T_FULL, seed=0, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = run_counted(e)
     selecting = math.ceil(T_FULL / api.AifRouter().dwell)
     metrics = dict(success_pct=res.success_pct, p50_ms=res.p50_ms,
                    p95_ms=res.p95_ms)
@@ -249,10 +290,9 @@ def phase_slice() -> dict:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          actions_shape=list(res.trace.actions.shape), beliefs_ok=belief_ok,
          **metrics)
-    if launches["belief_efe_fleet"] != selecting:
-        raise AssertionError(f"belief_efe_fleet launched "
-                             f"{launches['belief_efe_fleet']} times, "
-                             f"expected {selecting}")
+    if launches["belief_efe_fleet"] != selecting or launches["mega_window"]:
+        raise AssertionError(f"the fused slice launched {launches}, "
+                             f"expected {selecting} belief_efe_fleet")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite slice metrics {metrics}")
     if tuple(res.trace.actions.shape) != (T_FULL, R_FULL) or not belief_ok:
@@ -304,6 +344,300 @@ def bound(d, name: str) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# ------------------------------------------------------------ mega path
+def mega_midrun(r: int, t0: int, slot: str, scenario: str = "paper-burst",
+                horizon: int = T_FULL, seed: int = 0):
+    """The mega path on the card stopped at tick ``t0`` of a ``horizon``-tick
+    run: (router, env_step, state, env state, obs carry, noise)."""
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.core import mega
+    from repro_torch.envsim import batched
+    from repro_torch.noise import GeneratorNoise
+    e = api.Experiment(router="aif", scenario=scenario, n_cells=r,
+                       n_windows=horizon, seed=seed, mega=True,
+                       mega_slot_dtype=slot, device=DEVICE)
+    scfg, params, env_step = experiment._build_world(
+        e.resolve_topology(), e.scenario, r, horizon, e.window_s, seed,
+        torch.device(DEVICE))
+    router = e.resolve_router(scfg)
+    noise = GeneratorNoise(seed, DEVICE)
+    est = batched.init_fluid_state(params)
+    if t0 == 0:                 # the first window starts on a fresh fleet
+        dtype = torch.bfloat16 if slot == "bfloat16" else torch.float32
+        state = mega.init_mega_state(router.cfg, r, horizon, dtype, DEVICE)
+        obs = engine._fresh_obs_carry(r, router.n_modalities,
+                                      router.n_tiers, torch.device(DEVICE))
+    else:
+        state, est, _, obs = engine.mega_rollout(router, est, env_step, t0,
+                                                 noise, n_total=horizon)
+    return router, env_step, state, est, obs, noise
+
+
+def mega_window_inputs(router, env_step, noise, r: int, t0: int):
+    """(positional args after the carries, keyword args) of one window."""
+    fl = env_step.fluid
+    ticks = range(t0, t0 + router.period)
+    k = fl.params.n_tiers
+    gumbel = torch.stack([noise.gumbel(t, (r, router.cfg.n_actions))
+                          for t in ticks])
+    uniforms = torch.stack([torch.stack(noise.env_uniforms(t, (r, k)))
+                            for t in ticks])
+    sl = slice(t0, t0 + router.period)
+    ov = None if fl.obs_valid is None else fl.obs_valid[sl]
+    args = (fl.params, fl.arrival_rate[sl], fl.hazard_scale[sl], ov,
+            uniforms, gumbel, t0)
+    kw = dict(cfg=router.cfg, disc=router.resolved_disc,
+              util_edges=router.resolved_util_edges,
+              util_period=router.util_period, dt=fl.dt,
+              scrape_every=fl.scrape_every,
+              restart_blackout=fl.restart_blackout,
+              emits_mask=bool(env_step.emits_mask))
+    return args, kw
+
+
+def clone_state(st):
+    """A copy of a MegaFleetState (the windows push into the tape in
+    place)."""
+    from repro_torch.core import mega
+    return mega.MegaFleetState(
+        a_counts=st.a_counts.clone(),
+        slots=mega.MegaSlots(*(x.clone() for x in st.slots)),
+        cache=mega.MegaCache(*(None if x is None else x.clone()
+                               for x in st.cache)),
+        **{f: getattr(st, f).clone() for f in mega.MegaFleetState._fields[3:]})
+
+
+def mega_errors(out_k, out_p, t0: int) -> dict:
+    """B3's outputs against its plain version's: whether every integer
+    output (actions, pushed bins and actions) is equal, the max abs error
+    of the probabilities (posterior, pushed slot rows) and the max of
+    |kernel - plain| / max(1, |plain|) over every float output."""
+    (sk, ek, ok, yk), (sp, ep, op, yp) = out_k, out_p
+    w = yk[0].shape[0]
+    cols = slice(t0, t0 + w)
+    ints = [(yk[0], yp[0]), (sk.prev_action, sp.prev_action),
+            (sk.slots.obs_bins[:, cols], sp.slots.obs_bins[:, cols]),
+            (sk.slots.action[:, cols], sp.slots.action[:, cols]),
+            (yk[3], yp[3]), (sk.unstable, sp.unstable)]
+    probs = [(sk.belief, sp.belief),
+             (sk.slots.q_prev[:, cols], sp.slots.q_prev[:, cols]),
+             (sk.slots.q_next[:, cols], sp.slots.q_next[:, cols])]
+    floats = probs + [
+        (sk.dt_since_change, sp.dt_since_change),
+        (sk.error_ema, sp.error_ema),
+        (sk.slots.obs_mask[:, cols], sp.slots.obs_mask[:, cols]),
+        (sk.slots.dt_since_change[:, cols], sp.slots.dt_since_change[:, cols])]
+    floats += list(zip(ek, ep)) + list(zip(ok, op))
+    floats += [(yk[i], yp[i]) for i in (1, 2, 4)]   # weights, raw, frac
+    floats += list(zip(yk[5], yp[5]))
+
+    def f(x):
+        return x.float()
+
+    finite = all(bool(torch.isfinite(f(a)).all()) for a, _ in floats)
+    return dict(
+        ints_equal=all(torch.equal(a, b) for a, b in ints),
+        finite=finite,
+        max_abs_err=max((f(a) - f(b)).abs().max().item() for a, b in probs),
+        max_scaled_err=max(
+            ((f(a) - f(b)).abs() / f(b).abs().clamp(min=1.0)).max().item()
+            for a, b in floats))
+
+
+def mega_check(router, env_step, state, est, obs, noise, r: int, t0: int,
+               **fields) -> float:
+    """One B3 window against its plain version on copies of the same
+    state: every integer output equal, every float finite and within
+    MEGA_TOL of the plain version's; returns the max abs error."""
+    from repro_torch.core import mega
+    from repro_torch.kernels.efe import mega as mega_kernel
+    args, kw = mega_window_inputs(router, env_step, noise, r, t0)
+    out_k = mega_kernel.mega_window_cuda(clone_state(state), est, obs,
+                                         *args, **kw)
+    out_p = mega.mega_window(clone_state(state), est, obs, *args, **kw)
+    torch.cuda.synchronize()
+    err = mega_errors(out_k, out_p, t0)
+    weighted = int((state.cache.coefw[:, :t0] != 0).sum())
+    emit("mega_kernel_vs_plain", r=r, t0=t0,
+         slot=router.mega_slot_dtype, **fields,
+         weighted_slots_per_router=weighted / r, tol=MEGA_TOL, **err)
+    if not (err["ints_equal"] and err["finite"]
+            and err["max_scaled_err"] <= MEGA_TOL):
+        raise AssertionError(f"mega_window (R={r}, t0={t0}, {fields}, "
+                             f"{router.mega_slot_dtype} slots) disagrees "
+                             f"with its plain version: {err}")
+    return err["max_abs_err"]
+
+
+def phase_mega_kernel_vs_plain() -> float:
+    """B3 against its plain version, one window at R=1024 from t0=100:
+    paper-burst with float32 and bf16 slots (then timed), and the two
+    masked-telemetry scenarios (dropout, restart blackout) with float32
+    slots."""
+    from repro_torch.kernels.efe import mega as mega_kernel
+    worst, t0 = 0.0, 100
+    for scenario, slot in (("paper-burst", "float32"),
+                           ("paper-burst", "bfloat16"),
+                           ("flaky-telemetry", "float32"),
+                           ("scrape-blackout", "float32")):
+        router, env_step, state, est, obs, noise = mega_midrun(
+            R_FULL, t0, slot, scenario)
+        worst = max(worst, mega_check(router, env_step, state, est, obs,
+                                      noise, R_FULL, t0, scenario=scenario))
+        if scenario == "paper-burst":
+            args, kw = mega_window_inputs(router, env_step, noise, R_FULL,
+                                          t0)
+            emit("times", kernel="mega_window", r=R_FULL, t0=t0, slot=slot,
+                 ms=time_ms(lambda: mega_kernel.mega_window_cuda(
+                     state, est, obs, *args, **kw)))
+            del args
+        del state, est, obs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_mega_slice() -> dict:
+    from repro_torch import api
+    e = api.Experiment(router="aif", scenario="paper-burst", n_cells=R_MEGA,
+                       n_windows=T_FULL, seed=0, mega=True, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = run_counted(e)
+    windows = math.ceil(T_FULL / api.AifRouter().period)
+    metrics = dict(success_pct=res.success_pct, p50_ms=res.p50_ms,
+                   p95_ms=res.p95_ms)
+    q = res.final_carry.belief
+    belief_ok = bool(torch.isfinite(q).all()) and float(
+        (q.sum(-1) - 1).abs().max()) < 1e-4
+    emit("mega_slice", scenario=e.scenario, n_cells=R_MEGA,
+         n_windows=T_FULL, wall_s=res.wall_s, launches=launches,
+         windows=windows, tier_share=[float(x) for x in res.tier_share],
+         obs_frac=res.obs_frac, watchdog_events=res.watchdog_events,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         actions_shape=list(res.trace.actions.shape), beliefs_ok=belief_ok,
+         **metrics)
+    if launches != {"belief_efe_fleet": 0, "efe_fleet": 0,
+                    "mega_window": windows}:
+        raise AssertionError(f"the mega slice launched {launches}, expected "
+                             f"{windows} mega_window launches only")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite mega slice metrics {metrics}")
+    if tuple(res.trace.actions.shape) != (T_FULL, R_MEGA) or not belief_ok:
+        raise AssertionError("mega slice outputs have the wrong shape or "
+                             "unnormalized beliefs")
+    mega_layer_times(res.final_carry)
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mega_layer_times(state) -> None:
+    """Per-window times of the mega loop's other parts at the slice's
+    shapes, on its final state: the slow step, the watchdog (with its
+    host sync) and the window's noise block."""
+    from repro_torch import api
+    from repro_torch.core import mega
+    from repro_torch.noise import GeneratorNoise
+    cfg = api.AifRouter().cfg
+    r, j = state.slots.action.shape
+    noise = GeneratorNoise(1, DEVICE)
+    idx = noise.replay_indices(j - 1, torch.clamp(state.t, max=j),
+                               cfg.replay_batch)
+    slow_ms = time_ms(lambda: mega.mega_slow_step(state, idx, cfg),
+                      warmup=1, iters=5)
+    watchdog_ms = time_ms(lambda: bool(mega.mega_watchdog_bad(state).any()))
+    noise_ms = time_ms(lambda: [
+        (noise.gumbel(t, (r, cfg.n_actions)), noise.env_uniforms(t, (r, 3)))
+        for t in range(10)])
+    emit("mega_layers", n_cells=r, slow_step_ms=slow_ms,
+         watchdog_ms=watchdog_ms, noise_block_ms=noise_ms)
+
+
+def mega_bound(state, args, t0: int, dwell: int) -> tuple[float, float]:
+    """Least times for one B3 window, (bytes ms, operations ms).  Bytes:
+    inputs read once (the tape, qnproj and sumqn rows of the slots that
+    carry weight, the coefact rows below t0 that decide which do, the rest
+    of the cache, carries, params, schedules and noise) and outputs written
+    once (pushes, traces, carries).  Operations: fp32, counted with every
+    weighted slot in every prior (an upper bound; the prior skips the
+    other actions' slots)."""
+    params, arrival, hazard, ov, uniforms, gumbel, _ = args
+    sl, c = state.slots, state.cache
+    r, j, s = sl.q_prev.shape
+    elt = sl.q_prev.element_size()
+    a_n, p = c.coefact.shape[2], c.proj.shape[1]
+    m, k, w = sl.obs_bins.shape[2], params.n_tiers, gumbel.shape[0]
+    n_w = int((c.coefw[:, :t0] != 0).sum())
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    ins = (n_w * (2 * s * elt + 4 * p + 4) + r * t0 * a_n * 4
+           + nbytes(c.colsum, c.proj, c.projsum, c.logna, state.belief,
+                    state.prev_action, state.dt_since_change,
+                    state.error_ema, state.t, arrival, hazard, ov,
+                    uniforms, gumbel)
+           + r * 4 * (12 * k + 8 * k + 9 + 3 * m + k))
+    outs = (w * r * (2 * s * elt + m * 8 + m * 4 + 8 + 4)
+            + w * r * (8 + 8 * k * 4 + 4 * 4 + 3 * m * 4)
+            + r * (s * 4 + 8 + 8) + r * 4 * (8 * k + 9 + 3 * m + k))
+    n_sel = math.ceil(w / dwell)            # selecting ticks: the EFE runs
+    flops = (w * (4 * s * n_w + 20 * s * r)
+             + n_sel * (2 * s * n_w + 2 * n_w * (p + 1)
+                        + r * (2 * a_n * p * s + 2 * a_n * s)))
+    return (1e3 * (ins + outs) / HBM_BYTES_PER_S,
+            1e3 * flops / FP32_FLOP_PER_S)
+
+
+def mega_times(errs: dict, launches: dict) -> dict:
+    """B3 at the mega slice's fleet (R=4096) from the slice's own states at
+    window starts t0 = 0, 150 and 290: held against its plain version on
+    each (the main path's shapes), then its ms per launch beside its plain
+    version's and its bound.  The kernels line reports t0=150; the three
+    times, interpolated linearly over the slice's 30 window starts, give
+    an estimate of B3's total time in the slice."""
+    from repro_torch.core import mega
+    from repro_torch.kernels.efe import mega as mega_kernel
+    row, by_t0 = None, {}
+    for t0 in (0, T0_MEGA, T_FULL - 10):
+        router, env_step, state, est, obs, noise = mega_midrun(
+            R_MEGA, t0, "float32")
+        errs["mega_window"] = max(errs["mega_window"], mega_check(
+            router, env_step, state, est, obs, noise, R_MEGA, t0,
+            scenario="paper-burst"))
+        args, kw = mega_window_inputs(router, env_step, noise, R_MEGA, t0)
+        kern = lambda: mega_kernel.mega_window_cuda(state, est, obs, *args,
+                                                    **kw)
+        plain = lambda: mega.mega_window(state, est, obs, *args, **kw)
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, warmup=1, iters=3)
+        ms2 = time_ms(kern)
+        bytes_ms, ops_ms = mega_bound(state, args, t0, router.dwell)
+        b_ms = max(bytes_ms, ops_ms)
+        b_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        emit("times", kernel="mega_window", r=R_MEGA, t0=t0, ms=ms,
+             ms_repeat=ms2, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             bytes_ms=bytes_ms, ops_ms=ops_ms,
+             weighted_slots_per_router=float(
+                 (state.cache.coefw[:, :t0] != 0).sum()) / R_MEGA)
+        by_t0[t0] = ms
+        if t0 == T0_MEGA:
+            row = {"name": "mega_window", "route": "cuda",
+                   "source": "src/repro_torch/csrc/mega_window.cu",
+                   "replaces": "src/repro/kernels/efe/mega.py:85",
+                   "launches": launches["mega_window"],
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+        del state, est, obs, args, kern, plain
+        torch.cuda.empty_cache()
+    starts = np.arange(0, T_FULL, router.period)
+    est_ms = float(np.interp(starts, list(by_t0), list(by_t0.values())).sum())
+    emit("mega_window_in_slice", windows=len(starts), ms_by_t0=by_t0,
+         total_ms_interpolated=est_ms)
+    row["max_abs_err"] = row["max_err"] = errs["mega_window"]
+    return row
+
+
 def phase_times(errs: dict, launches: dict) -> list:
     d = full_width_operands(masked=False)
     rows = []
@@ -325,6 +659,9 @@ def phase_times(errs: dict, launches: dict) -> list:
                      "max_abs_err": errs[name], "max_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
+    del d
+    torch.cuda.empty_cache()
+    rows.append(mega_times(errs, launches))
     return rows
 
 
@@ -339,6 +676,9 @@ def main() -> int:
     errs = phase_kernel_vs_plain()
     phase_small_slice()
     launches = phase_slice()
+    errs["mega_window"] = phase_mega_kernel_vs_plain()
+    phase_small_slice(mega=True)
+    launches["mega_window"] = phase_mega_slice()["mega_window"]
     rows = phase_times(errs, launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

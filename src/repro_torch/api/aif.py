@@ -2,12 +2,13 @@
 protocol.
 
 The spec wraps the agent config, the observation discretization and the
-utilization-scrape edges and cadence.  The port runs the fused per-tick
-path only: ``fused=True`` is the default, ``fused=False`` (the vmapped
-single-agent path, ROADMAP A3) and ``mega=True`` (the whole-window
-megakernel, A7) raise ``NotImplementedError``.  The reference's
-``use_pallas`` switch has no counterpart: the tensors' device decides
-between the CUDA kernel and its plain PyTorch version.
+utilization-scrape edges and cadence.  Two engine paths are ported: the
+fused per-tick path (``fused=True``, the default) and the whole-window
+path (``mega=True``, run by :func:`repro_torch.api.engine.mega_rollout`).
+``fused=False`` (the vmapped single-agent path, ROADMAP A3) raises
+``NotImplementedError``.  The reference's ``use_pallas`` switch has no
+counterpart: the tensors' device decides between the CUDA kernel and its
+plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -31,7 +32,11 @@ class AifRouter(Router):
       util_edges: raw-utilization level edges (None = the topology's).
       util_period: windows between utilization scrapes.
       fused: must be True (the fused belief→EFE fleet tick).
-      mega: must be False (the megakernel path is not ported yet).
+      mega: run the whole-window engine path (factored fleet state, one
+        fused launch per slow period); needs the dwell to divide the slow
+        period and ``novelty_weight == 0``.
+      mega_slot_dtype: storage of the mega path's transition slots,
+        ``"float32"`` or ``"bfloat16"`` (float32 accumulation either way).
     """
 
     cfg: generative.AifConfig = dataclasses.field(
@@ -41,6 +46,7 @@ class AifRouter(Router):
     util_period: int = 10
     fused: bool = True
     mega: bool = False
+    mega_slot_dtype: str = "float32"
 
     name = "aif"
 
@@ -49,10 +55,6 @@ class AifRouter(Router):
             raise NotImplementedError(
                 "fused=False (the vmapped single-agent path) is not ported "
                 "yet: ROADMAP item A3; run fused=True")
-        if self.mega:
-            raise NotImplementedError(
-                "mega=True (the whole-window megakernel path) is not ported "
-                "yet: ROADMAP item A7")
         topo = self.cfg.topology
         disc = self.resolved_disc
         if len(disc.modality_edges()) != topo.n_modalities:
@@ -69,6 +71,20 @@ class AifRouter(Router):
             raise ValueError(
                 f"topology modalities {topo.modalities} lack 'error': the "
                 f"adaptive-preference EMA (paper §4.2) is driven by it")
+        if self.mega:
+            if self.period % self.dwell != 0:
+                raise ValueError(
+                    f"mega=True needs the dwell ({self.dwell} ticks) to "
+                    f"divide the slow period ({self.period} ticks): every "
+                    f"window starts on a selecting tick")
+            if self.cfg.novelty_weight != 0.0:
+                raise ValueError(
+                    "mega=True does not implement the novelty bonus "
+                    "(novelty_weight != 0); the fused kernels drop it")
+        if self.mega_slot_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"mega_slot_dtype must be 'float32' or 'bfloat16', got "
+                f"{self.mega_slot_dtype!r}")
 
     # ------------------------------------------------------- engine hints
     @property

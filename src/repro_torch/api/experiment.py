@@ -12,8 +12,9 @@ engine rollout, summary metrics)::
 Differences from the reference's ``repro.api.Experiment``: ``fused=True`` is
 the default (``fused=False`` is ROADMAP A3), ``use_pallas`` is gone (the
 device decides between kernel and plain version), and ``device`` defaults to
-``"cuda"``.  The registry holds ``aif`` and ``uniform``; the other baselines
-and ``compare``/``table1_grid`` are A5, sharding A10, checkpointing A8 and
+``"cuda"``.  ``mega=True`` runs the whole-window engine path.  The
+registry holds ``aif`` and ``uniform``; the other baselines and
+``compare``/``table1_grid`` are A5, sharding A10, checkpointing A8 and
 graphs A9.
 """
 from __future__ import annotations
@@ -39,13 +40,15 @@ from repro_torch.noise import Noise
 _EPS = 1e-9
 
 
-def _make_aif(topo: Topology, scfg: SimConfig, fused: bool,
-              mega: bool) -> AifRouter:
+def _make_aif(topo: Topology, scfg: SimConfig, fused: bool, mega: bool,
+              mega_slot_dtype: str = "float32") -> AifRouter:
     return AifRouter(cfg=generative.AifConfig(topology=topo),
-                     disc=discretization_for(scfg), fused=fused, mega=mega)
+                     disc=discretization_for(scfg), fused=fused, mega=mega,
+                     mega_slot_dtype=mega_slot_dtype)
 
 
-#: Router registry: name -> (topology, sim config, fused, mega) -> Router.
+#: Router registry: name -> (topology, sim config, fused, mega,
+#: mega_slot_dtype) -> Router.
 ROUTERS: dict[str, Callable[..., router_mod.Router]] = {
     "aif": _make_aif,
     "uniform": lambda topo, scfg, *_: router_mod.UniformRouter(
@@ -68,8 +71,17 @@ class Experiment:
       n_cells / n_windows: fleet size R and horizon T.
       seed: drives the scenario schedules and the rollout's noise.
       window_s: control-window length in seconds.
-      fused / mega: AIF execution path (ignored for baselines); the port
-        runs ``fused=True, mega=False`` only.
+      fused / mega: AIF execution path (ignored for baselines): the fused
+        per-tick path, or with ``mega=True`` the whole-window path (the run
+        owns its carry: a fresh :class:`~repro_torch.core.mega.MegaFleetState`
+        with one slot per control window, so ``n_windows`` must fit the
+        replay capacity).  ``fused=False`` is ROADMAP A3.
+      mega_slot_dtype: storage of the mega path's transition slots
+        (``"float32"`` or ``"bfloat16"``).
+      launch_periods: mega only, accepted for the reference's signature
+        and otherwise ignored: the reference splits its one-launch rollout
+        into launches of this many periods, and here every window is a
+        launch of its own already.
       device: where the run's tensors live (``"cuda"`` by default; raises
         without a card unless ``"cpu"`` is asked for).
     """
@@ -83,6 +95,8 @@ class Experiment:
     window_s: float = 1.0
     fused: bool = True
     mega: bool = False
+    mega_slot_dtype: str = "float32"
+    launch_periods: int | None = None
     device: str = "cuda"
 
     def resolve_topology(self) -> Topology:
@@ -100,7 +114,8 @@ class Experiment:
         except KeyError:
             raise KeyError(f"unknown router {self.router!r}; "
                            f"available: {sorted(ROUTERS)}") from None
-        return make(self.resolve_topology(), scfg, self.fused, self.mega)
+        return make(self.resolve_topology(), scfg, self.fused, self.mega,
+                    self.mega_slot_dtype)
 
     @property
     def name(self) -> str:
@@ -170,8 +185,18 @@ def run(experiment: Experiment, noise: Noise | None = None) -> RunResult:
         raise ValueError(
             f"router {router.name!r} routes over {router.n_tiers} tiers but "
             f"topology {topo.tier_names} has {topo.n_tiers}")
+    if e.launch_periods is not None:
+        if not getattr(router, "mega", False):
+            raise ValueError(
+                "launch_periods only applies to mega routers (the per-tick "
+                "engine has no launch granularity); set mega=True or drop it")
+        if int(e.launch_periods) < 1:
+            raise ValueError(
+                f"launch_periods must be >= 1, got {e.launch_periods}")
 
-    carry = router.init_carry(e.n_cells, dev)
+    # a mega router owns its carry (fresh factored state sized to the run)
+    carry = (None if getattr(router, "mega", False)
+             else router.init_carry(e.n_cells, dev))
     est = batched.init_fluid_state(params, env_step.n_obs_modalities)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

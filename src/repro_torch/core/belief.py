@@ -17,6 +17,10 @@ import torch
 from repro_torch.core import spaces
 from repro_torch.core.topology import Topology
 
+#: Misreading probability of the utilization scrape (paper §3): the scrape
+#: reads a tier's level right with probability ``1 - UTIL_SCRAPE_EPS``.
+UTIL_SCRAPE_EPS = 0.15
+
 
 def log_likelihood_from_normalized(na: torch.Tensor,
                                    obs_bins: torch.Tensor,
@@ -42,7 +46,7 @@ def log_likelihood_from_normalized(na: torch.Tensor,
 
 
 def util_log_likelihood(util_bins: torch.Tensor, topo: Topology,
-                        eps: float = 0.15) -> torch.Tensor:
+                        eps: float = UTIL_SCRAPE_EPS) -> torch.Tensor:
     """Log-likelihood of the 10-second per-tier utilization scrape (paper §3).
 
     The per-tier state factors are the discretized utilizations, so the

@@ -1,5 +1,6 @@
 """Batched fluid engine and scenario library of the port."""
-from repro_torch.envsim.batched import (N_OBS_MODALITIES, FluidParams,
+from repro_torch.envsim.batched import (N_OBS_MODALITIES,
+                                        FluidIngredients, FluidParams,
                                         FluidResult, FluidState, WindowInfo,
                                         fluid_params_from_numpy,
                                         fluid_state_from_numpy,
@@ -15,7 +16,7 @@ from repro_torch.envsim.scenarios import (SCENARIOS, Profile, ScenarioBatch,
                                           compose, scrape_blackout,
                                           stale_replay, telemetry_dropout)
 
-__all__ = ["N_OBS_MODALITIES", "FluidParams", "FluidResult", "FluidState",
+__all__ = ["N_OBS_MODALITIES", "FluidIngredients", "FluidParams", "FluidResult", "FluidState",
            "WindowInfo", "fluid_params_from_numpy", "fluid_state_from_numpy",
            "fluid_window_step", "init_fluid_state", "make_env_step",
            "make_scenario_env_step", "params_from_config", "run_fluid",

@@ -476,6 +476,25 @@ def run_fluid(params: FluidParams,
     return state, stack_infos(infos)
 
 
+class FluidIngredients(NamedTuple):
+    """Everything :func:`make_env_step` closes over, as data.
+
+    The whole-window (mega) engine path advances a full slow period per
+    launch and needs the schedules as slices, not one-row lookups; it
+    reads these from ``env_step.fluid`` so it drives exactly the same
+    world (params, schedules, mask semantics) as the per-tick engine.
+    The reference's fault schedules and graph fields wait for A8 and A9.
+    """
+
+    params: FluidParams
+    arrival_rate: torch.Tensor         # (T, R)
+    hazard_scale: torch.Tensor         # (T, R, K)
+    dt: float
+    scrape_every: int
+    obs_valid: torch.Tensor | None     # (T, R, M) or None
+    restart_blackout: bool
+
+
 def make_env_step(params: FluidParams,
                   arrival_rate: torch.Tensor,
                   hazard_scale: torch.Tensor,
@@ -490,8 +509,9 @@ def make_env_step(params: FluidParams,
 
     Returns ``env_step(env_state, weights, t_idx, uniforms) -> (env_state,
     WindowInfo)`` over the scenario schedules.  The closure's ``emits_mask``
-    tells mask-aware consumers whether degradation is configured, and
-    ``n_obs_modalities`` the telemetry width.
+    tells mask-aware consumers whether degradation is configured,
+    ``n_obs_modalities`` the telemetry width and ``fluid`` the
+    :class:`FluidIngredients` for whole-window consumers.
     """
     if forced_down is not None or speed is not None:
         raise _waiting("forced_down/speed (fault schedules)", "A8")
@@ -516,6 +536,10 @@ def make_env_step(params: FluidParams,
 
     env_step.emits_mask = obs_valid is not None or restart_blackout
     env_step.n_obs_modalities = N_OBS_MODALITIES
+    env_step.fluid = FluidIngredients(
+        params=params, arrival_rate=arrival_rate, hazard_scale=hazard_scale,
+        dt=dt, scrape_every=scrape_every, obs_valid=obs_valid,
+        restart_blackout=restart_blackout)
     return env_step
 
 

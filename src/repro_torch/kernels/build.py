@@ -39,26 +39,29 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def library_path(name: str, sources: tuple[str, ...]) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, sources: tuple[str, ...],
+                 extra_flags: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for src in sources:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
-def build(name: str, sources: tuple[str, ...]) -> Path:
+def build(name: str, sources: tuple[str, ...],
+          extra_flags: tuple[str, ...] = ()) -> Path:
     """Compile ``sources`` (relative to ``csrc``) into ``lib<name>.so``
-    unless a library of the same hash exists; returns its path.  The
-    compiler's register/shared-memory report goes to ``ptxas.log`` beside
-    the library."""
-    out = library_path(name, sources)
+    with :data:`NVCC_FLAGS` plus ``extra_flags`` unless a library of the
+    same hash exists; returns its path.  The compiler's
+    register/shared-memory report goes to ``ptxas.log`` beside the
+    library."""
+    out = library_path(name, sources, extra_flags)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
            *(str(CSRC / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
@@ -70,10 +73,11 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
     return out
 
 
-def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+def load(name: str, sources: tuple[str, ...],
+         extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load a library once per process."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name, sources)))
+        lib = ctypes.CDLL(str(build(name, sources, extra_flags)))
         _LOADED[name] = lib
     return lib

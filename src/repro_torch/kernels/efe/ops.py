@@ -9,17 +9,20 @@
   ``fleet_belief_efe`` also fuses the belief update (Eq. 2) into the same
   launch.
 * ``fleet_belief_posterior`` is the belief update alone (held ticks).
+* ``mega_window`` runs W fused ticks of the whole-window engine path.
 
 The device of the tensors decides between the CUDA kernel and its plain
-PyTorch version (see :mod:`repro_torch.kernels.efe.efe`).  The whole-window
-``mega_window`` dispatch of the reference is ROADMAP item A7.
+PyTorch version (see :mod:`repro_torch.kernels.efe.efe` and
+:mod:`repro_torch.kernels.efe.mega`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import generative, policies
+from repro_torch.core import mega as mega_core
 from repro_torch.kernels.efe import efe, ref
+from repro_torch.kernels.efe import mega as mega_kernel
 
 
 def _cost(cfg: generative.AifConfig, device: torch.device) -> torch.Tensor:
@@ -103,3 +106,30 @@ def fleet_efe(a_counts: torch.Tensor, b_counts: torch.Tensor,
         amb = generative.masked_ambiguity(amb_m, obs_mask)
     return fleet_efe_cached(nb, na, logc, amb, beliefs, cfg,
                             obs_mask=obs_mask)
+
+
+def mega_window(state, est, obs_carry, params,
+                arrival: torch.Tensor, hazard: torch.Tensor,
+                obs_valid: torch.Tensor | None, uniforms: torch.Tensor,
+                gumbel: torch.Tensor, t0: int, *,
+                cfg: generative.AifConfig, disc, util_edges,
+                util_period: int, dt: float, scrape_every: int,
+                restart_blackout: bool, emits_mask: bool,
+                forced_down=None, speed=None, row_block=None, graph=None):
+    """One whole window: W fused fast ticks of the mega engine path.
+
+    Arguments and results are those of
+    :func:`repro_torch.core.mega.mega_window`.  CPU tensors run that plain
+    version; CUDA tensors run kernel B3
+    (:func:`repro_torch.kernels.efe.mega.mega_window_cuda`), which raises on
+    what it does not take — a CUDA tensor never reaches the plain version.
+    """
+    kw = dict(cfg=cfg, disc=disc, util_edges=util_edges,
+              util_period=util_period, dt=dt, scrape_every=scrape_every,
+              restart_blackout=restart_blackout, emits_mask=emits_mask,
+              forced_down=forced_down, speed=speed, row_block=row_block,
+              graph=graph)
+    fn = (mega_core.mega_window if state.belief.device.type == "cpu"
+          else mega_kernel.mega_window_cuda)
+    return fn(state, est, obs_carry, params, arrival, hazard, obs_valid,
+              uniforms, gumbel, t0, **kw)

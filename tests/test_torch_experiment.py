@@ -18,7 +18,7 @@ import torch
 
 from repro import api as ref_api
 from repro_torch import api
-from repro_torch.core import policies
+from repro_torch.core import mega, policies
 from torch_port_ref import (JaxChainNoise, assert_close, assert_tree_close,
                             t2n)
 
@@ -96,8 +96,15 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 def test_waiting_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="A3"):
         api.AifRouter(fused=False)
-    with pytest.raises(NotImplementedError, match="A7"):
-        api.AifRouter(mega=True)
+    # warm promotion of a dense per-tick carry onto the mega path
+    router = api.AifRouter(mega=True)
+    warm = router.init_carry(2, "cpu")
+    warm = warm._replace(t=torch.full_like(warm.t, 10))
+    with pytest.raises(NotImplementedError, match="A14"):
+        mega.init_mega_state(router.cfg, 2, 20, device="cpu",
+                             from_agent_state=warm)
+    with pytest.raises(NotImplementedError, match="A14"):
+        api.rollout(router, warm, None, None, 10)
     with pytest.raises(NotImplementedError, match="A3"):
         api.run(api.Experiment(fused=False, n_cells=2, n_windows=5,
                                device="cpu"))

@@ -58,14 +58,18 @@ def ref_topologies() -> list[ref_topology.Topology]:
 
 
 def to_numpy(tree):
-    """A reference pytree of NamedTuples as nested dicts of numpy arrays."""
+    """A reference pytree of NamedTuples as nested dicts of numpy arrays
+    (None leaves stay None)."""
+    if tree is None:
+        return None
     if hasattr(tree, "_asdict"):
         return {k: to_numpy(v) for k, v in tree._asdict().items()}
     return np.asarray(tree)
 
 
 def t2n(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def assert_close(port, ref, rtol=RTOL, atol=ATOL, err_msg=""):
@@ -84,6 +88,8 @@ def assert_tree_close(port, ref, rtol=RTOL, atol=ATOL, path="state"):
             assert_tree_close(getattr(port, k), v, rtol, atol, f"{path}.{k}")
         return
     r = np.asarray(ref)
+    if r.dtype.name == "bfloat16":
+        r = r.astype(np.float32)
     p = t2n(port) if isinstance(port, torch.Tensor) else np.asarray(port)
     if r.dtype.kind in "biu":
         np.testing.assert_array_equal(p.astype(r.dtype), r, err_msg=path)
@@ -140,3 +146,51 @@ class RunFluidNoise:
 
     def env_uniforms(self, t, shape):
         return env_uniforms(self.keys[t], shape)
+
+
+def port_to_numpy(tree):
+    """A port NamedTuple of tensors as nested dicts of numpy arrays (bf16
+    leaves widen to float32, None leaves stay None)."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_asdict"):
+        return {k: port_to_numpy(v) for k, v in tree._asdict().items()}
+    return t2n(tree)
+
+
+def mega_state_to_port(state, cfg, slot_dtype=None):
+    """The reference's :class:`repro.core.mega.MegaFleetState` (or a dict
+    of numpy leaves) as the port's, on the CPU; ``slot_dtype`` None keeps
+    the source's slot type."""
+    from repro_torch.core import mega
+    arrays = state if isinstance(state, dict) else to_numpy(state)
+    return mega.mega_state_from_numpy(arrays, cfg, "cpu", slot_dtype)
+
+
+def mega_state_to_ref(arrays: dict, slot_dtype=jnp.float32):
+    """A :func:`port_to_numpy` dict of the port's ``MegaFleetState`` as the
+    reference's (int32 indices, ``slot_dtype`` slot planes)."""
+    from repro.core import mega as ref_mega
+
+    def f32(x):
+        return jnp.asarray(x, jnp.float32)
+
+    def i32(x):
+        return jnp.asarray(x, jnp.int32)
+
+    sl = arrays["slots"]
+    slots = ref_mega.MegaSlots(
+        q_prev=jnp.asarray(sl["q_prev"], slot_dtype),
+        q_next=jnp.asarray(sl["q_next"], slot_dtype),
+        obs_bins=i32(sl["obs_bins"]), obs_mask=f32(sl["obs_mask"]),
+        action=i32(sl["action"]), dt_since_change=f32(sl["dt_since_change"]),
+        wcount=f32(sl["wcount"]))
+    cache = ref_mega.MegaCache(
+        **{k: f32(v) for k, v in arrays["cache"].items() if k != "b_base"},
+        b_base=None)
+    return ref_mega.MegaFleetState(
+        a_counts=f32(arrays["a_counts"]), slots=slots, cache=cache,
+        belief=f32(arrays["belief"]), prev_action=i32(arrays["prev_action"]),
+        dt_since_change=f32(arrays["dt_since_change"]),
+        error_ema=f32(arrays["error_ema"]),
+        unstable=jnp.asarray(arrays["unstable"], bool), t=i32(arrays["t"]))
