@@ -29,11 +29,32 @@ failure raising (exit code != 0):
 8. mega slice — ``Experiment(mega=True, n_cells=4096, n_windows=300)`` on
    paper-burst, every kernel's launch count read around it (B3: one launch
    per window, 30); then the per-call times of its slow step and watchdog;
-9. times — each kernel's ms per launch (CUDA events, warmed up, median)
+9. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
+   against their plain versions ``mha_ref``/``decode_ref`` on the card:
+   internlm2-1.8b's heads (Hq=16, Hkv=8, D=128) at b=1, Sq=Skv=1024 causal
+   in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
+   heads (Hq=4, Hkv=1, D=256) with window 512, B5 at B=8, S=2048 with
+   ragged positions that include 0 and S-1 in bf16 and f32, and the other
+   head dims (16, 32, 64) at small shapes;
+10. serve small — internlm2-1.8b's widths at 2 layers in f32, one
+   ``ServingEngine`` on the card and one on the CPU with the same weights,
+   4 prompts of 64 tokens, 8 new tokens each: tokens equal, first prefill's
+   logits within 1e-4 relative;
+11. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
+   max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
+   1000-1024 prompt tokens with 64 new tokens each, every kernel's count
+   read around it (B4: 24 per request, B5: 24 per decode wave);
+12. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
+   engines sharing the serve phase's weights (max_batch 2/3/8,
+   steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
+   128-token prompts with 16 new tokens, counts read around it;
+13. times — each kernel's ms per launch (CUDA events, warmed up, median)
    beside its bound and its plain version's ms; B3 at the mega slice's
    R=4096 from its states at window starts t0 = 0, 150 and 290, each
    first held against its plain version like phase 6 (the kernels line
-   reports t0=150).
+   reports t0=150); B4 and B5 at the serve phase's shapes beside
+   ``scaled_dot_product_attention``'s time on the same inputs (a yardstick
+   the port never calls).
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -43,6 +64,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,10 +76,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense fp32
-# rate outside the tensor cores.
+# NVIDIA H100 SXM data sheet: HBM rate, dense fp32 rate outside the tensor
+# cores and dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 R_FULL, T_FULL = 1024, 300
 R_MEGA, T0_MEGA = 4096, 150   # the mega slice's fleet; B3's timed window
 DEVICE = "cuda"
@@ -65,6 +88,9 @@ G_TOL, Q_TOL = 1e-4, 1e-5     # kernel vs plain version, max abs error
 # B3 vs its plain version: every float output within MEGA_TOL·max(1, |plain|)
 # (absolute on probabilities, relative on the env's growing request sums)
 MEGA_TOL = 1e-4
+# B4/B5 vs their plain versions, max abs error: the reference's kernel bar
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE_ARCH = "internlm2-1.8b"
 
 
 def emit(phase: str, **fields) -> None:
@@ -104,11 +130,13 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    from repro_torch.kernels.attention import flash
     from repro_torch.kernels.efe import efe
     from repro_torch.kernels.efe import mega as mega_kernel
     libraries = {"efe_fleet": (efe.SOURCES, ()),
                  "mega_window": (mega_kernel.SOURCES,
-                                 mega_kernel.EXTRA_FLAGS)}
+                                 mega_kernel.EXTRA_FLAGS),
+                 "flash_attn": (flash.SOURCES, ())}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futs = {name: pool.submit(build.build, name, *spec)
@@ -117,11 +145,36 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     efe.library()               # load once, so later timings exclude them
     mega_kernel.library()
-    ptxas = {name: [ln.strip() for ln in
-                    (p.parent / "ptxas.log").read_text().splitlines()
-                    if "Used" in ln or "spill" in ln]
+    flash.library()
+    ptxas = {name: ptxas_summary((p.parent / "ptxas.log").read_text())
              for name, p in paths.items()}
-    emit("build", seconds=secs, libraries=sorted(libraries), ptxas=ptxas)
+    smem = {f"{kern}_d{d}" + (f"_g{g}" if kern == "decode" else ""):
+            flash.smem_bytes(kern, d, g)
+            for kern, g in (("prefill", 1), ("decode", 2), ("decode", 4))
+            for d in flash.HEAD_DIMS}
+    emit("build", seconds=secs, libraries=sorted(libraries), ptxas=ptxas,
+         flash_attn_dynamic_smem_bytes=smem)
+
+
+def ptxas_summary(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output as {kernel<template args>: "N registers,
+    S bytes spill stores, L bytes spill loads"}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"(?<=\d)([A-Za-z_]+_kernel)(I\w*?E)?Ev",
+                          m.group(1))
+            name = (k.group(1) + (k.group(2) or "")) if k else m.group(1)[:60]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if name and spill:
+            out[name] = f"{spill.group(1)} B spill stores, " \
+                        f"{spill.group(2)} B spill loads"
+        if name and regs:
+            out[name] = f"{regs.group(1)} registers, " + out.get(name, "")
+    return out
 
 
 def full_width_operands(masked: bool, seed: int = 0):
@@ -253,22 +306,34 @@ def phase_small_slice(mega: bool = False) -> None:
 def all_kernels() -> dict:
     """Every kernel wrapper of the port, by name (each counts its launches
     in ``.launches``)."""
+    from repro_torch.kernels.attention import flash
     from repro_torch.kernels.efe import efe
     from repro_torch.kernels.efe import mega as mega_kernel
     return {"belief_efe_fleet": efe.belief_efe_fleet,
             "efe_fleet": efe.efe_fleet,
-            "mega_window": mega_kernel.mega_window_cuda}
+            "mega_window": mega_kernel.mega_window_cuda,
+            "flash_prefill": flash.flash_prefill,
+            "flash_decode": flash.flash_decode}
 
 
-def run_counted(e):
-    """``api.run(e)`` with every kernel's count set to 0 just before and
-    read just after: (result, launches by kernel)."""
-    from repro_torch import api
+def counted(fn):
+    """``fn()`` with every kernel's count set to 0 just before and read
+    just after: (result, launches by kernel)."""
     kernels = all_kernels()
     for k in kernels.values():
         k.launches = 0
-    res = api.run(e)
+    res = fn()
     return res, {name: k.launches for name, k in kernels.items()}
+
+
+def run_counted(e):
+    """``api.run(e)`` with every kernel's count read around it."""
+    from repro_torch import api
+    return counted(lambda: api.run(e))
+
+
+NO_LAUNCHES = {"belief_efe_fleet": 0, "efe_fleet": 0, "mega_window": 0,
+               "flash_prefill": 0, "flash_decode": 0}
 
 
 def phase_slice() -> dict:
@@ -290,7 +355,7 @@ def phase_slice() -> dict:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          actions_shape=list(res.trace.actions.shape), beliefs_ok=belief_ok,
          **metrics)
-    if launches["belief_efe_fleet"] != selecting or launches["mega_window"]:
+    if launches != dict(NO_LAUNCHES, belief_efe_fleet=selecting):
         raise AssertionError(f"the fused slice launched {launches}, "
                              f"expected {selecting} belief_efe_fleet")
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -516,8 +581,7 @@ def phase_mega_slice() -> dict:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          actions_shape=list(res.trace.actions.shape), beliefs_ok=belief_ok,
          **metrics)
-    if launches != {"belief_efe_fleet": 0, "efe_fleet": 0,
-                    "mega_window": windows}:
+    if launches != dict(NO_LAUNCHES, mega_window=windows):
         raise AssertionError(f"the mega slice launched {launches}, expected "
                              f"{windows} mega_window launches only")
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -638,6 +702,365 @@ def mega_times(errs: dict, launches: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------- attention and serving
+def attn_operands(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                  dtype: torch.dtype, seed: int = 0):
+    """Seeded q (b, sq, hq, d) and k/v (b, skv, hkv, d) on the card."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                             (b, skv, hkv, d)))
+    return q, k, v
+
+
+def ragged_positions(b: int, s: int, seed: int = 0) -> torch.Tensor:
+    """(b,) int32 decode positions on the card, the first two 0 and s-1."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, s, b)
+    pos[:2] = (0, s - 1)
+    return torch.from_numpy(pos.astype(np.int32)).to(DEVICE)
+
+
+def attn_cases():
+    """(name, kernel call, plain call, dtype) of every B4/B5 check, in bf16
+    and f32: the shapes the serve phase (b=1 Sq=1024 prefill, B=8 S=2048
+    decode) and the multitier phase (b=1 prefill at the 128-token bucket,
+    decode over max_len 512 lanes at the tiers' B = 2, 3, 8) give each
+    kernel, a chunked prefill (q_offset, ragged Sq), gemma3-1b's heads
+    (D=256, window 512), and the smoke configs' head dims (f32)."""
+    from repro_torch.kernels.attention import flash, ref
+
+    def prefill(name, b, sq, skv, hq, hkv, d, dtype, seed, **kw):
+        q, k, v = attn_operands(b, sq, skv, hq, hkv, d, dtype, seed)
+        return (f"prefill_{name}_{str(dtype)[6:]}",
+                lambda: flash.flash_prefill(q, k, v, **kw),
+                lambda: ref.mha_ref(q, k, v, **kw), dtype)
+
+    def decode(name, b, s, hq, hkv, d, dtype, seed, **kw):
+        q, k, v = attn_operands(b, 1, s, hq, hkv, d, dtype, seed)
+        pos = ragged_positions(b, s, seed)
+        return (f"decode_{name}_{str(dtype)[6:]}",
+                lambda: flash.flash_decode(q, k, v, position=pos, **kw),
+                lambda: ref.decode_ref(q, k, v, position=pos, **kw), dtype)
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [
+            prefill("internlm2_1024", 1, 1024, 1024, 16, 8, 128, dtype, 0),
+            decode("internlm2_b8_s2048", 8, 2048, 16, 8, 128, dtype, 1),
+            prefill("internlm2_bucket128", 1, 128, 128, 16, 8, 128, dtype, 7),
+            *(decode(f"internlm2_b{b}_s512", b, 512, 16, 8, 128, dtype, 8 + b)
+              for b in (2, 3, 8)),
+            prefill("chunk_q_offset_667_sq_333", 1, 333, 1000, 16, 8, 128,
+                    dtype, 2, q_offset=667),
+            prefill("gemma3_window512", 1, 1024, 1024, 4, 1, 256, dtype, 3,
+                    window=512),
+            decode("gemma3_window512", 8, 2048, 4, 1, 256, dtype, 4,
+                   window=512)]
+    for d in (16, 32, 64):                # the smoke configs' head dims
+        cases += [prefill(f"d{d}_window48", 2, 200, 200, 8, 2, d,
+                          torch.float32, d, window=48),
+                  decode(f"d{d}", 2, 200, 8, 2, d, torch.float32, d)]
+    return cases
+
+
+def phase_attn_kernel_vs_plain() -> dict:
+    """B4 and B5 against their plain versions on the same inputs on the
+    card; returns the max abs error of each kernel."""
+    errs = {"flash_prefill": 0.0, "flash_decode": 0.0}
+    for name, kern, plain, dtype in attn_cases():
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        finite = bool(torch.isfinite(out_k.float()).all())
+        emit("attn_kernel_vs_plain", case=name, max_abs_err=err,
+             tol=ATTN_TOL[dtype], plain_max_abs=out_p.abs().max().item(),
+             shape=list(out_k.shape))
+        if not (finite and out_k.dtype == out_p.dtype
+                and out_k.shape == out_p.shape and err <= ATTN_TOL[dtype]):
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version, max abs err {err}")
+        kernel = "flash_prefill" if name.startswith("prefill") else \
+            "flash_decode"
+        errs[kernel] = max(errs[kernel], err)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def serve_requests(engine, prompts, n_new: int):
+    """Submit ``prompts`` and step ``engine`` until all are answered:
+    (requests, wall seconds, synchronized)."""
+    from repro_torch.serving import Request
+    reqs = [Request(id=i, tokens=p, max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    while not all(r.finished_at for r in reqs):
+        engine.step()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def phase_serve_small() -> None:
+    """internlm2-1.8b's widths at 2 layers in f32: the card's engine
+    (kernels) against the CPU's (plain versions) with the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH).full, n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, 64)) for _ in range(4)]
+    outs, logits = {}, {}
+    for dev in (DEVICE, "cpu"):
+        eng = ServingEngine(cfg, weights, max_batch=4, max_len=128,
+                            device=dev)
+        logits[dev] = eng.model.prefill(torch.tensor(prompts[:1]))[0].cpu()
+        reqs, _ = serve_requests(eng, prompts, 8)
+        outs[dev] = [r.output for r in reqs]
+        del eng
+    rel = ((logits[DEVICE] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    emit("serve_small", arch=SERVE_ARCH, n_layers=2, dtype="float32",
+         tokens_equal=outs[DEVICE] == outs["cpu"], logits_rel_err=rel,
+         tokens=outs[DEVICE])
+    if outs[DEVICE] != outs["cpu"] or not rel <= 1e-4:
+        raise AssertionError(f"serve_small: the card's engine disagrees "
+                             f"with the CPU's (logits rel err {rel})")
+    torch.cuda.empty_cache()
+
+
+def phase_serve():
+    """The full internlm2-1.8b (24 layers, bf16) answering 8 long prompts;
+    returns (its weights, launches, decode positions of a mid-run wave)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ServingEngine
+    cfg = get_arch(SERVE_ARCH).full
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, max_batch=8, max_len=2048, seed=0,
+                        device=DEVICE)
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(1000, 1025, 8)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in lengths]
+    n_new = 64
+    (reqs, wall), launches = counted(
+        lambda: serve_requests(eng, prompts, n_new))
+    waves = eng.busy_steps
+    want = dict(NO_LAUNCHES, flash_prefill=cfg.n_layers * len(prompts),
+                flash_decode=cfg.n_layers * waves)
+    tokens = sum(len(r.output) for r in reqs)
+    ok = all(len(r.output) == n_new
+             and all(0 <= t < cfg.vocab_size for t in r.output)
+             for r in reqs)
+    emit("serve", arch=SERVE_ARCH, n_layers=cfg.n_layers,
+         params=cfg.param_count(), dtype=cfg.param_dtype, max_batch=8,
+         max_len=2048, prompt_lengths=[int(n) for n in lengths],
+         new_tokens=n_new, decode_waves=waves, wall_s=wall,
+         tokens_per_s=tokens / wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, expected_launches=want, outputs_ok=ok,
+         first_tokens=reqs[0].output[:8])
+    if launches != want or waves != n_new - 1 or not ok:
+        raise AssertionError(f"serve launched {launches} over {waves} "
+                             f"waves, expected {want}; outputs ok: {ok}")
+    serve_breakdown(eng, prompts[0], lengths)
+    weights = eng.model.state_dict()
+    del eng
+    torch.cuda.empty_cache()
+    return weights, launches, lengths
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Median wall ms of one synchronized call, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def device_ms(fn) -> dict:
+    """Device time of one call from a ``torch.profiler`` trace: all kernels
+    and copies, those of B4 (``prefill_kernel``) and B5
+    (``decode_kernel``), and the six kernels that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"all": 0.0, "b4": 0.0, "b5": 0.0}
+    by_kernel = []
+    for e in prof.key_averages():
+        # device-side events only: an operator's own entry repeats the time
+        # of the kernels it launched
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        ms = e.self_device_time_total / 1e3
+        out["all"] += ms
+        out["b4"] += ms if "prefill_kernel" in e.key else 0.0
+        out["b5"] += ms if "decode_kernel" in e.key else 0.0
+        if ms > 0:
+            by_kernel.append((ms, e.count, e.key[:80]))
+    out["top"] = sorted(by_kernel, reverse=True)[:6]
+    return out
+
+
+def serve_breakdown(eng, prompt, lengths) -> None:
+    """Where the serve phase's time goes: one 1024-token admission prefill
+    and one 8-slot decode wave (each slot at its prompt length + 31), host
+    wall (synchronized) beside the device time a profiler trace shows."""
+    model = eng.model
+    toks = torch.tensor([list(prompt) + [0] * (1024 - len(prompt))],
+                        device=DEVICE)
+    pos = torch.from_numpy(np.asarray(lengths, np.int64) + 31).to(DEVICE)
+    last = eng.last_tokens
+
+    def prefill():
+        return model.prefill(toks, max_len=eng.max_len,
+                             last_index=len(prompt) - 1)
+
+    def wave():
+        return model.decode_step(last, eng.caches, pos)
+
+    parts = {}
+    for name, fn in (("prefill", prefill), ("decode_wave", wave)):
+        wall = host_ms(fn)
+        dev = device_ms(fn)
+        parts[name] = dict(host_ms=wall, device_ms=dev["all"],
+                           b4_ms=dev["b4"], b5_ms=dev["b5"],
+                           top_kernels_ms_count_name=dev["top"],
+                           device_idle_share=(None if dev["all"] <= 0 else
+                                              max(0.0, 1 - dev["all"] / wall)))
+    emit("serve_breakdown", arch=SERVE_ARCH, **parts)
+
+
+def phase_multitier(weights) -> dict:
+    """AIF-routed multi-tier serving: three engines with the serve phase's
+    weights, 60 ticks of Poisson arrivals."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import DiscretizationConfig
+    from repro_torch.envsim.routers import AifRouter
+    from repro_torch.serving import (MultiTierServer, ServingEngine,
+                                     TierRuntime)
+    cfg = get_arch(SERVE_ARCH).full
+    tiers = [TierRuntime(ServingEngine(cfg, weights, max_batch=mb,
+                                       max_len=512, name=name,
+                                       device=DEVICE), steps_per_tick=st)
+             for name, mb, st in (("light", 2, 1), ("medium", 3, 1),
+                                  ("heavy", 8, 3))]
+    disc = DiscretizationConfig(latency_edges_s=(3.0, 6.0),
+                                rps_edges=(3.0, 6.0), queue_edges=(3.0, 10.0))
+    router = AifRouter(disc=disc, seed=0, device=DEVICE)
+    srv = MultiTierServer(tiers, router, slo_ticks=8, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: srv.run(
+        n_ticks=60, arrival_rate=4.0, prompt_len=128, max_new_tokens=16))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    admitted = sum(len(t.engine.completed) + t.engine.active_count
+                   for t in tiers)
+    waves = sum(t.engine.busy_steps for t in tiers)
+    want = dict(NO_LAUNCHES, flash_prefill=cfg.n_layers * admitted,
+                flash_decode=cfg.n_layers * waves)
+    routed = out["tier_routed"]
+    weights_ok = all(np.isfinite(w).all() and abs(w.sum() - 1) < 1e-9
+                     for w in srv.weights_trace)
+    emit("multitier", arch=SERVE_ARCH, n_ticks=60, completed=out["completed"],
+         p50_ticks=out["p50_ticks"], p95_ticks=out["p95_ticks"],
+         slo_violation_rate=out["slo_violation_rate"],
+         tier_share=[float(x) for x in routed / max(routed.sum(), 1)],
+         tier_completed=[int(x) for x in out["tier_completed"]],
+         mean_weights=[float(x) for x in out["mean_weights"]],
+         late_weights=[float(x) for x in out["late_weights"]],
+         wall_s=wall, admitted=admitted, decode_waves=waves,
+         launches=launches, expected_launches=want)
+    if launches != want or out["completed"] <= 0 or not weights_ok:
+        raise AssertionError(f"multitier: launches {launches} (expected "
+                             f"{want}), completed {out['completed']}, "
+                             f"weights ok {weights_ok}")
+    del tiers, srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def attn_bound(q, k, out, pairs: int) -> tuple[float, str]:
+    """Least time for one attention launch: q, the K/V rows it must read
+    and the output, each once, over the HBM rate, against 4·D·Hq FLOP per
+    visible (query, key) pair over the dense bf16 rate."""
+    d, hq, hkv = q.shape[3], q.shape[2], k.shape[2]
+    elt = q.element_size()
+    kv_rows = pairs if q.shape[1] == 1 else k.shape[0] * k.shape[1]
+    nbytes = (q.numel() + out.numel()) * elt + 2 * kv_rows * hkv * d * elt
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * d * hq * pairs / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def attn_times(errs: dict, launches: dict, lengths) -> list:
+    """B4 at the serve phase's prefill (b=1, Sq=1024) and B5 at its decode
+    (B=8, S=2048, each slot at its prompt length + 31, mid-run), bf16:
+    kernel, plain version and SDPA (with GQA; causal, or a per-slot
+    mask) on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import flash, ref
+    bf = torch.bfloat16
+    rows = []
+    q, k, v = attn_operands(1, 1024, 1024, 16, 8, 128, bf, seed=5)
+    calls = (lambda: flash.flash_prefill(q, k, v),
+             lambda: ref.mha_ref(q, k, v),
+             lambda: F.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 is_causal=True, enable_gqa=True))
+    pairs = 1024 * 1025 // 2
+    rows.append(("flash_prefill", "src/repro/kernels/attention/flash.py:94",
+                 calls, attn_bound(q, k, q, pairs), dict(b=1, sq=1024)))
+    qd, kd, vd = attn_operands(8, 1, 2048, 16, 8, 128, bf, seed=6)
+    pos = torch.from_numpy(np.asarray(lengths, np.int32) + 31).to(DEVICE)
+    mask = (torch.arange(2048, device=DEVICE)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    calls_d = (lambda: flash.flash_decode(qd, kd, vd, position=pos),
+               lambda: ref.decode_ref(qd, kd, vd, position=pos),
+               lambda: F.scaled_dot_product_attention(
+                   qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                   attn_mask=mask, enable_gqa=True))
+    pairs_d = int((pos.long() + 1).sum())
+    rows.append(("flash_decode", "src/repro/kernels/attention/flash.py:190",
+                 calls_d, attn_bound(qd, kd, qd, pairs_d),
+                 dict(b=8, s=2048, positions=[int(x) for x in pos])))
+    out = []
+    for name, replaces, (kern, plain, lib), (b_ms, b_by), shape in rows:
+        lib_err = (kern().float() - lib().transpose(1, 2).float()
+                   ).abs().max().item()
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(lib)
+        ms2 = time_ms(kern)
+        emit("times", kernel=name, dtype="bfloat16", **shape, ms=ms,
+             ms_repeat=ms2, plain_ms=plain_ms, library_ms=lib_ms,
+             library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by)
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attn.cu",
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "max_err": errs[name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms})
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_times(errs: dict, launches: dict) -> list:
     d = full_width_operands(masked=False)
     rows = []
@@ -679,7 +1102,13 @@ def main() -> int:
     errs["mega_window"] = phase_mega_kernel_vs_plain()
     phase_small_slice(mega=True)
     launches["mega_window"] = phase_mega_slice()["mega_window"]
+    errs.update(phase_attn_kernel_vs_plain())
+    phase_serve_small()
+    weights, serve_launches, lengths = phase_serve()
+    phase_multitier(weights)
+    del weights
     rows = phase_times(errs, launches)
+    rows += attn_times(errs, serve_launches, lengths)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

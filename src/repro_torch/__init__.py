@@ -2,10 +2,12 @@
 reference it is held against).
 
 Layout mirrors ``repro``: ``core`` (topology, policies, generative model,
-belief, learning, agent, fused fleet tick), ``kernels.efe`` (the fused
-belief→EFE kernel in CUDA C++ for sm_90a plus its plain PyTorch version),
-``envsim`` (batched fluid engine and scenario library) and ``api`` (Router
-protocol, closed-loop engine, declarative ``Experiment``).
+belief, learning, agent, fused fleet tick, whole-window mega path),
+``kernels.efe`` and ``kernels.attention`` (the CUDA C++ kernels for sm_90a
+beside their plain PyTorch versions), ``envsim`` (batched fluid engine,
+scenario library, the serving router), ``api`` (Router protocol,
+closed-loop engine, declarative ``Experiment``), and the LM serving stack:
+``models``, ``configs`` and ``serving``.
 
 Entry points that create tensors take ``device=`` (default ``"cuda"``) and
 raise ``RuntimeError`` when no card is present and ``device="cpu"`` was not

@@ -3,8 +3,14 @@
 All mutable state lives in an :class:`AgentState` of tensors with a leading
 router axis R (the fleet); every transition below is elementwise over that
 axis.  Fast loop (1 s): observe → adapt preferences → belief update (Eq. 2)
-→ EFE action selection (Eq. 1) → record transition, composed by
-:mod:`repro_torch.core.fleet`.  Slow loop (10 s): :func:`slow_step`.
+→ EFE action selection (Eq. 1) → record transition.  Slow loop (10 s):
+:func:`slow_step`.  The fused fleet composes these pieces with kernel B1
+(:mod:`repro_torch.core.fleet`); :func:`fast_step` and :func:`tick` are the
+reference's single-agent step (``repro/core/agent.py``) — belief update,
+the full EFE breakdown and a sample on every tick — on the same batched
+state (R=1 for one router).  Randomness is an operand: the Gumbel noise of
+the action categorical, and the replay indices of the slow step, which
+:func:`tick` asks of a ``repro_torch.noise`` source.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import belief as belief_mod
 from repro_torch.core import efe as efe_mod
 from repro_torch.core import generative, learning, policies, preferences
 
@@ -80,6 +87,34 @@ def masked_error_ema(prev_ema: torch.Tensor,
     return torch.where(obs_mask[..., err_ix] > 0, new, prev_ema)
 
 
+def pre_action(state: AgentState,
+               obs_bins: torch.Tensor,
+               raw_error_rate: torch.Tensor,
+               cfg: generative.AifConfig,
+               util_bins: torch.Tensor | None = None,
+               util_valid: bool | torch.Tensor = False,
+               obs_mask: torch.Tensor | None = None):
+    """Everything in a fast step *before* action selection: adaptive
+    preferences (paper §4.2) → belief update (Eq. 2) from the cached model →
+    replay push (in place).
+
+    Returns (model, q_next, replay, error_ema, unstable).
+    """
+    error_ema = masked_error_ema(state.error_ema, raw_error_rate, cfg,
+                                 obs_mask)
+    c_log, unstable = preferences.adapt_preferences(error_ema, cfg)
+    model = state.model._replace(c_log=c_log)
+    q_prev = state.belief
+    q_next = belief_mod.update_belief(model, q_prev, state.prev_action,
+                                      obs_bins, cfg.topology, util_bins,
+                                      util_valid, cache=state.cache,
+                                      obs_mask=obs_mask)
+    replay = learning.push_transition(
+        state.replay, q_prev, q_next, obs_bins, state.prev_action,
+        state.dt_since_change, obs_mask)
+    return model, q_next, replay, error_ema, unstable
+
+
 def dwell_gate(t: torch.Tensor,
                prev_action: torch.Tensor,
                dt_since_change: torch.Tensor,
@@ -137,3 +172,70 @@ def slow_step(state: AgentState, idx: torch.Tensor,
     model = learning.slow_update(state.model, state.replay, idx, cfg, learn)
     return state._replace(model=model,
                           cache=generative.derive_cache(model, cfg.topology))
+
+
+def fast_step(state: AgentState,
+              obs_bins: torch.Tensor,
+              raw_error_rate: torch.Tensor,
+              gumbel: torch.Tensor,
+              cfg: generative.AifConfig,
+              util_bins: torch.Tensor | None = None,
+              util_valid: bool | torch.Tensor = False,
+              obs_mask: torch.Tensor | None = None
+              ) -> tuple[AgentState, StepInfo]:
+    """One 1-second control step of the reference's single agent, for each
+    of the R routers of ``state``.
+
+    Args:
+      obs_bins: (R, M) int discretized observation.
+      raw_error_rate: (R,) undiscretized error rate (drives the EMA).
+      gumbel: (R, A) Gumbel noise of the action categorical.
+      util_bins: optional (R, K) utilization scrape in state-factor order.
+      util_valid: gate for ``util_bins`` (True on scrape ticks).
+      obs_mask: optional (R, M) float 0/1 telemetry-validity mask.
+    """
+    model, q_next, replay, error_ema, unstable = pre_action(
+        state, obs_bins, raw_error_rate, cfg, util_bins, util_valid, obs_mask)
+    sampled, bd = efe_mod.select_action(gumbel, model, q_next, cfg,
+                                        state.cache, obs_mask)
+    new_state, action = apply_action(state, model, q_next, replay, error_ema,
+                                     unstable, sampled, cfg)
+    info = StepInfo(
+        action=action,
+        routing_weights=policies.routing_weights(action, cfg.topology),
+        efe=bd,
+        belief_entropy=belief_mod.belief_entropy(q_next),
+        unstable=unstable,
+        obs_bins=obs_bins,
+        obs_mask=all_valid_mask(obs_bins) if obs_mask is None else obs_mask,
+    )
+    return new_state, info
+
+
+def tick(state: AgentState,
+         obs_bins: torch.Tensor,
+         raw_error_rate: torch.Tensor,
+         cfg: generative.AifConfig,
+         noise,
+         t: int,
+         util_bins: torch.Tensor | None = None,
+         util_valid: bool | torch.Tensor = False,
+         obs_mask: torch.Tensor | None = None
+         ) -> tuple[AgentState, StepInfo]:
+    """:func:`fast_step`, then the slow learning step for routers whose
+    clock lands on a slow-period boundary (timescale separation).
+
+    ``noise`` (the ``repro_torch.noise`` protocol) gives tick ``t``'s
+    Gumbel noise and, at a boundary, its replay indices, drawn after the
+    fast step's replay push (they depend on the ring's size).
+    """
+    r = state.belief.shape[0]
+    gumbel = noise.gumbel(t, (r, cfg.n_actions))
+    state, info = fast_step(state, obs_bins, raw_error_rate, gumbel, cfg,
+                            util_bins, util_valid, obs_mask)
+    period = max(int(cfg.slow_period_s / cfg.fast_period_s), 1)
+    learn = (state.t % period) == 0
+    if bool(learn.any()):
+        idx = noise.replay_indices(t, state.replay.size, cfg.replay_batch)
+        state = slow_step(state, idx, cfg, learn=learn)
+    return state, info

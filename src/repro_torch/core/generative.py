@@ -188,6 +188,13 @@ def normalize_b(b_counts: torch.Tensor) -> torch.Tensor:
     return b_counts / torch.clamp(denom, min=1e-30)
 
 
+def c_probs(c_log: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Normalized preference distribution σ(C) per modality (padded bins
+    carry zero mass)."""
+    mask = spaces.bins_mask(topo, c_log.device) > 0
+    return torch.softmax(torch.where(mask, c_log, float("-inf")), dim=-1)
+
+
 def masked_log_c(c_log: torch.Tensor, topo: Topology) -> torch.Tensor:
     """``log σ(C)`` per modality, padded bins clamped to a finite -60 floor
     (they carry zero predicted mass, so the value never contributes)."""

@@ -1,0 +1,26 @@
+"""Public attention entry points of the port (``repro/kernels/attention/ops.py``).
+
+The device of the tensors decides: CPU tensors run the plain versions
+(:mod:`.ref`), CUDA tensors launch kernel B4 (prefill) or B5 (decode) or
+raise (:mod:`.flash`).  Model code reaches attention only through here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.attention.flash import flash_decode, flash_prefill
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention: q (B, Sq, Hq, D) against k/v (B, Skv, Hkv, D)."""
+    return flash_prefill(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     position: int | torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """One-token decode attention at ``position`` (an int or (B,) tensor)."""
+    return flash_decode(q, k, v, position=position, window=window)

@@ -1,0 +1,159 @@
+"""Attention layer: GQA/MQA/MHA projections with RoPE, and the KV cache
+(the port of ``repro/models/attention.py``).
+
+The attention itself is reached only through
+:mod:`repro_torch.kernels.attention.ops`: kernel B4 (prefill) and B5
+(decode) on the card, their plain versions ``mha_ref``/``decode_ref`` on
+the CPU.  The reference's XLA ``blockwise_attention`` computes the same
+function (equal to ``mha_ref`` in float32) and has no second copy here.
+
+KV caches, one ``{"k", "v"}`` dict of (B, L, n_kv, head_dim) tensors per
+layer:
+  * full-attention layers keep L = the serving capacity;
+  * sliding-window / local layers keep a **ring buffer** of L =
+    ``min(S, window)`` slots — softmax is permutation-invariant over KV
+    entries and RoPE is applied at absolute positions before caching, so a
+    rotated ring needs no unrotation.  A warm ring holds exactly the window,
+    so its decode attends every slot: B5 at position L - 1 with no window.
+Decode writes each new token's K/V into its slot **in place**.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.attention import ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dtype = layers.dtype_of(cfg)
+        d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = layers.parameter((d, hq, hd), dtype, device)
+        self.wk = layers.parameter((d, hkv, hd), dtype, device)
+        self.wv = layers.parameter((d, hkv, hd), dtype, device)
+        self.wo = layers.parameter((hq, hd, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = layers.parameter((hq, hd), dtype, device)
+            self.bk = layers.parameter((hkv, hd), dtype, device)
+            self.bv = layers.parameter((hkv, hd), dtype, device)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        cfg = self.cfg
+        s = 1.0 / math.sqrt(cfg.d_model)
+        for w in (self.wq, self.wk, self.wv):
+            layers.fill_normal(w, s, gen)
+        layers.fill_normal(self.wo, 1.0 / math.sqrt(cfg.n_heads
+                                                    * cfg.head_dim), gen)
+        if cfg.qkv_bias:
+            for b in (self.bq, self.bk, self.bv):
+                b.zero_()
+
+    def _project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(B, S, D) x (D, H, hd) -> (B, S, H, hd)."""
+        d, h, hd = w.shape
+        return (x @ w.to(x.dtype).reshape(d, h * hd)).reshape(
+            x.shape[:-1] + (h, hd))
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hkv, hd), RoPE
+        applied at ``positions`` ((S,) or (B, S))."""
+        cfg = self.cfg
+        q = self._project(x, self.wq)
+        k = self._project(x, self.wk)
+        v = self._project(x, self.wv)
+        if cfg.qkv_bias:
+            q = q + self.bq.to(x.dtype)
+            k = k + self.bk.to(x.dtype)
+            v = v + self.bv.to(x.dtype)
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def output(self, o: torch.Tensor) -> torch.Tensor:
+        """(B, S, Hq, hd) -> (B, S, D)."""
+        hq, hd, d = self.wo.shape
+        return o.reshape(o.shape[:-2] + (hq * hd,)) @ self.wo.to(
+            o.dtype).reshape(hq * hd, d)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+def cache_len(cfg: ModelConfig, layer_idx: int, seq_len: int) -> int:
+    """Per-layer cache length: ring-bounded for windowed/local layers."""
+    if not cfg.serve_ring_caches:
+        return seq_len
+    if cfg.attn_type == "swa":
+        return min(seq_len, cfg.sliding_window)
+    if cfg.attn_type == "local_global" and not cfg.is_global_attn_layer(
+            layer_idx):
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               dtype: torch.dtype, device=None) -> dict:
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def fill_cache(k: torch.Tensor, v: torch.Tensor, clen: int) -> dict:
+    """The cache of capacity ``clen`` after a prefill of S = k.shape[1]
+    positions.  With clen <= S it is a ring: slot p % clen holds position
+    p, so the last clen positions land there rolled by S % clen.  Otherwise
+    the positions fill slots [0, S) and the rest stay zero."""
+    s = k.shape[1]
+    if clen <= s:
+        r = s % clen
+        return {"k": torch.roll(k[:, -clen:], r, dims=1).contiguous(),
+                "v": torch.roll(v[:, -clen:], r, dims=1).contiguous()}
+    shape = (k.shape[0], clen) + tuple(k.shape[2:])
+    cache = {"k": k.new_zeros(shape), "v": v.new_zeros(shape)}
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    return cache
+
+
+def cache_write_decode(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                       position: int | torch.Tensor) -> dict:
+    """Write one token's K/V at ``position % cache_len`` (ring semantics),
+    **in place**.  ``position`` is an int or a per-batch (B,) tensor
+    (continuous batching decodes different sequences at different
+    positions)."""
+    length = cache["k"].shape[1]
+    if isinstance(position, torch.Tensor) and position.ndim > 0:
+        slot = position.to(cache["k"].device).long() % length        # (B,)
+        bidx = torch.arange(cache["k"].shape[0], device=slot.device)
+        cache["k"][bidx, slot] = k_new[:, 0]
+        cache["v"][bidx, slot] = v_new[:, 0]
+    else:
+        slot = int(position) % length
+        cache["k"][:, slot] = k_new[:, 0]
+        cache["v"][:, slot] = v_new[:, 0]
+    return cache
+
+
+def decode_attend(cache: dict, q: torch.Tensor, *, full_ring: bool,
+                  position: int | torch.Tensor, window: int) -> torch.Tensor:
+    """Single-token attention against a (possibly ring) cache.
+
+    A warm ring cache holds only positions inside the window, so every slot
+    is attended (``full_ring=True``: B5 at position L - 1, no window).  A
+    full-length cache masks slots beyond ``position`` causally (and outside
+    the window, if any) by absolute position.
+    """
+    if full_ring:
+        return ops.decode_attention(q, cache["k"], cache["v"],
+                                    position=cache["k"].shape[1] - 1)
+    return ops.decode_attention(q, cache["k"], cache["v"], position=position,
+                                window=window)

@@ -1,0 +1,163 @@
+"""Slot-based serving engine with continuous batching (the port of
+``repro/serving/engine.py``).
+
+One engine wraps a model and maintains ``max_batch`` decode slots:
+
+  * requests are admitted from a FIFO queue into free slots — admission runs
+    a b=1 prefill of the prompt right-padded to a power-of-two bucket (at
+    least 16, at most ``max_len``) and splices the resulting caches into the
+    slot's batch lane in place;
+  * every ``step()`` runs ONE batched decode for all slots at their own
+    positions (a (B,) position tensor: kernel B5 masks each sequence at its
+    own length), greedy-samples, and retires slots that hit
+    ``max_new_tokens`` or the cache's end;
+  * the engine exports queue depth and utilization so an AIF router can sit
+    in front of a *fleet* of engines (:mod:`repro_torch.serving.multitier`).
+
+Ring KV caches are disabled inside the engine (``serve_ring_caches=False``)
+because admission right-pads prompts into full-length caches.  On the card
+every prefill attention is kernel B4 and every decode attention kernel B5;
+on the CPU their plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import model_from_state_dict
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    tokens: list
+    max_new_tokens: int = 16
+    submitted_at: float = 0.0
+    finished_at: float = 0.0
+    output: list = dataclasses.field(default_factory=list)
+
+    @property
+    def latency_s(self) -> float:
+        return self.finished_at - self.submitted_at
+
+
+class ServingEngine:
+    """``params``: a ``state_dict`` of the model (e.g. from
+    :func:`repro_torch.models.convert.params_from_numpy`, or another
+    engine's ``model.state_dict()``); its tensors become the model's
+    parameters, so engines built from one state dict on one device share
+    their weights.  Without it the engine draws random weights from its own
+    ``torch.Generator(seed)``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
+                 max_batch: int = 4, max_len: int = 256, seed: int = 0,
+                 name: str = "engine",
+                 device: str | torch.device = "cuda"):
+        cfg = dataclasses.replace(cfg, serve_ring_caches=False)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = (build_model(cfg, self.device, seed) if params is None
+                      else model_from_state_dict(cfg, params, self.device))
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.name = name
+
+        self.queue: deque[Request] = deque()
+        self.active: list[Optional[Request]] = [None] * max_batch
+        self.positions = np.zeros(max_batch, dtype=np.int32)
+        self.remaining = np.zeros(max_batch, dtype=np.int32)
+        self.caches = self.model.init_caches(max_batch, max_len)
+        self.last_tokens = torch.zeros((max_batch, 1), dtype=torch.int64,
+                                       device=self.device)
+        self.completed: list[Request] = []
+        self.steps = 0
+        self.busy_steps = 0
+
+    # ----------------------------------------------------------------- API
+    def submit(self, req: Request):
+        req.submitted_at = time.time()
+        self.queue.append(req)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    @property
+    def active_count(self) -> int:
+        return sum(r is not None for r in self.active)
+
+    def utilization(self) -> float:
+        return self.busy_steps / max(self.steps, 1)
+
+    # ------------------------------------------------------------ admission
+    def _bucket(self, n: int) -> int:
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.max_len)
+
+    def _admit(self, slot: int, req: Request):
+        n = len(req.tokens)
+        bucket = self._bucket(n)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :n] = req.tokens[:bucket]
+        logits, caches1 = self.model.prefill(
+            torch.from_numpy(toks).to(self.device), max_len=self.max_len,
+            last_index=n - 1)
+        first = torch.argmax(logits[:, -1], dim=-1)
+        _write_slot(self.caches, caches1, slot)
+        self.last_tokens[slot, 0] = first[0]
+        req.output.append(int(first[0]))
+        self.active[slot] = req
+        self.positions[slot] = n
+        self.remaining[slot] = req.max_new_tokens - 1
+
+    # ---------------------------------------------------------------- step
+    def step(self) -> list[Request]:
+        """Admit + one decode wave.  Returns requests finished this step."""
+        self.steps += 1
+        for slot in range(self.max_batch):
+            if self.active[slot] is None and self.queue:
+                self._admit(slot, self.queue.popleft())
+
+        if self.active_count == 0:
+            return []
+        self.busy_steps += 1
+
+        pos = torch.from_numpy(self.positions.copy()).to(self.device)
+        logits, self.caches = self.model.decode_step(self.last_tokens,
+                                                     self.caches, pos)
+        nxt = torch.argmax(logits[:, 0], dim=-1)
+        self.last_tokens = nxt[:, None]
+        nxt = nxt.cpu().numpy()
+        finished = []
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            req.output.append(int(nxt[slot]))
+            self.positions[slot] += 1
+            self.remaining[slot] -= 1
+            if (self.remaining[slot] <= 0
+                    or self.positions[slot] >= self.max_len - 1):
+                req.finished_at = time.time()
+                self.completed.append(req)
+                finished.append(req)
+                self.active[slot] = None
+        return finished
+
+
+def _write_slot(caches: list, caches1: list, slot: int) -> list:
+    """Write b=1 prefill caches into batch lane ``slot`` of the engine
+    caches, in place."""
+    for big, one in zip(caches, caches1):
+        for kv in ("k", "v"):
+            big[kv][slot].copy_(one[kv][0])
+    return caches

@@ -1,0 +1,145 @@
+"""The port's dense decoder-only LM against the reference's, on the five
+dense smoke configs in float32, with the reference's parameters carried
+across by ``repro_torch.models.convert.params_from_numpy``:
+
+* ``prefill`` logits and every layer's cache (ring caches included);
+* ``decode_step`` at a per-batch position vector, logits and caches;
+* the reference's own contract inside the port: prefill(S) + decode(S)
+  equals prefill(S + 1) at the last position (``tests/test_models.py``).
+
+Tolerance rtol 1e-4 / atol 1e-5: both sides compute in float32 but sum in
+different orders (XLA dots against PyTorch matmuls), through up to 8
+layers.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import all_archs as ref_all_archs
+from repro.models import build_model as ref_build_model
+from repro_torch.configs import REGISTRY, all_archs, get_arch
+from repro_torch.models import build_model, convert
+from torch_port_ref import lm_to_port, t2n
+
+DENSE = ["chameleon-34b", "gemma-2b", "gemma3-1b", "internlm2-1.8b",
+         "qwen1.5-32b"]
+RTOL, ATOL = 1e-4, 1e-5
+SEQ, MAX_LEN = 24, 32
+
+
+def _cfgs(arch_id):
+    def f32(c):
+        return dataclasses.replace(c, param_dtype="float32",
+                                   compute_dtype="float32")
+    ref_cfg = {a.arch_id: a for a in ref_all_archs()}[arch_id].smoke
+    return f32(ref_cfg), f32(get_arch(arch_id).smoke)
+
+
+def _tokens(cfg, seed, seq):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
+
+
+def _close(port, ref, msg=""):
+    np.testing.assert_allclose(t2n(port), np.asarray(ref, np.float32),
+                               rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+def _caches_close(port, ref_tree, cfg):
+    _, want = lm_to_port(cfg, caches=ref_tree)
+    assert len(port) == len(want) == cfg.n_layers
+    for i, (p, w) in enumerate(zip(port, want)):
+        for kv in ("k", "v"):
+            assert p[kv].shape == w[kv].shape, (i, kv)
+            _close(p[kv], t2n(w[kv]), f"layer {i} {kv}")
+
+
+@pytest.mark.parametrize("arch_id", DENSE)
+def test_prefill_and_ragged_decode_match_reference(arch_id):
+    ref_cfg, cfg = _cfgs(arch_id)
+    ref_model = ref_build_model(ref_cfg)
+    params = jax.jit(ref_model.init)(jax.random.key(1))
+    sd, _ = lm_to_port(cfg, params)
+    model = convert.model_from_state_dict(cfg, sd, "cpu")
+
+    toks = _tokens(cfg, 2, SEQ + 1)
+    lg_ref, c_ref = jax.jit(ref_model.prefill, static_argnames="max_len")(
+        params, {"tokens": jnp.asarray(toks[:, :SEQ])}, max_len=MAX_LEN)
+    lg, caches = model.prefill(torch.from_numpy(toks[:, :SEQ]),
+                               max_len=MAX_LEN)
+    _close(lg, lg_ref, "prefill logits")
+    _caches_close(caches, c_ref, cfg)
+
+    # continuous batching: each sequence decodes at its own position
+    pos = np.array([SEQ, SEQ - 5], np.int32)
+    lg2_ref, c2_ref = jax.jit(ref_model.decode_step)(
+        params, jnp.asarray(toks[:, SEQ:]), c_ref, jnp.asarray(pos))
+    lg2, caches2 = model.decode_step(torch.from_numpy(toks[:, SEQ:]), caches,
+                                     torch.from_numpy(pos))
+    _close(lg2, lg2_ref, "decode logits")
+    _caches_close(caches2, c2_ref, cfg)
+
+
+@pytest.mark.parametrize("arch_id", DENSE)
+def test_decode_matches_full_prefill(arch_id):
+    """prefill(S) + decode(S) == prefill(S + 1) at the last position, in
+    the port alone (random weights from its own generator)."""
+    _, cfg = _cfgs(arch_id)
+    model = build_model(cfg, "cpu", seed=1)
+    toks = torch.from_numpy(_tokens(cfg, 3, SEQ + 1))
+    lg_full, _ = model.prefill(toks)
+    _, caches = model.prefill(toks[:, :SEQ], max_len=SEQ + 8)
+    lg_dec, _ = model.decode_step(toks[:, SEQ:], caches, SEQ)
+    a, d = t2n(lg_full), t2n(lg_dec)
+    err = np.max(np.abs(a - d)) / (np.max(np.abs(a)) + 1e-9)
+    assert err < 1e-4, f"{arch_id}: rel err {err:.2e}"
+
+
+def test_prefill_last_index_picks_the_true_last_token():
+    """Right-padded prompts (the serving engine's buckets) read the logits
+    of their true last position."""
+    _, cfg = _cfgs("internlm2-1.8b")
+    model = build_model(cfg, "cpu", seed=0)
+    toks = torch.from_numpy(_tokens(cfg, 4, 16))
+    lg_short, _ = model.prefill(toks[:, :11])
+    padded = torch.cat([toks[:, :11], torch.zeros_like(toks[:, :5])], 1)
+    lg_pad, _ = model.prefill(padded, max_len=32, last_index=10)
+    np.testing.assert_allclose(t2n(lg_pad), t2n(lg_short), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_registry_and_configs_are_the_references():
+    ref_archs = {a.arch_id: a for a in ref_all_archs()}
+    assert sorted(REGISTRY) == sorted(ref_archs)
+    for a in all_archs():
+        r = ref_archs[a.arch_id]
+        assert dataclasses.asdict(a.full) == dataclasses.asdict(r.full)
+        assert dataclasses.asdict(a.smoke) == dataclasses.asdict(r.smoke)
+        assert a.full.param_count() == r.full.param_count()
+        assert a.full.active_param_count() == r.full.active_param_count()
+    full = get_arch("internlm2-1.8b").full
+    assert (full.n_layers, full.d_model, full.head_dim) == (24, 2048, 128)
+
+
+@pytest.mark.parametrize("arch_id,item", [
+    ("mixtral-8x7b", "A12c"), ("llama4-scout-17b-16e", "A12c"),
+    ("mamba2-2.7b", "A12b"), ("jamba-1.5-large-398b", "A12d"),
+    ("seamless-m4t-medium", "A12e")])
+def test_waiting_families_raise_naming_their_item(arch_id, item):
+    with pytest.raises(NotImplementedError, match=item):
+        build_model(get_arch(arch_id).smoke, "cpu")
+
+
+def test_model_from_state_dict_shares_the_tensors():
+    _, cfg = _cfgs("gemma-2b")
+    a = build_model(cfg, "cpu", seed=5)
+    b = convert.model_from_state_dict(cfg, a.state_dict(), "cpu")
+    assert b.layers[1].attn.wq.data_ptr() == a.layers[1].attn.wq.data_ptr()
+    c = build_model(cfg, "cpu", seed=5)
+    assert torch.equal(c.embed.table, a.embed.table)
+    assert not torch.equal(build_model(cfg, "cpu", seed=6).embed.table,
+                           a.embed.table)

@@ -1,0 +1,165 @@
+"""The port's serving stack against the reference's, on the CPU:
+
+* ``ServingEngine`` emits the reference engine's tokens (one request, and
+  concurrent requests in ragged lanes) with the same parameters, and equals
+  its own direct greedy decode (``tests/test_serving_checkpoint.py``);
+* ``MultiTierServer`` with the port's ``AifRouter`` over the three tiny
+  tiers of ``examples/serve_multitier.py``, with the reference router's key
+  chain replayed as its noise (``RouterKeyChainNoise``), gives the
+  reference run's results: the routing weights of every tick, tier routing,
+  completions, P50/P95 and every request's tokens.
+
+Tokens, routing and counts must be equal; the models run in float32.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import DiscretizationConfig as RefDisc
+from repro.envsim.routers import AifRouter as RefAifRouter
+from repro.models import ModelConfig as RefModelConfig
+from repro.models import build_model as ref_build_model
+from repro.serving import MultiTierServer as RefMultiTierServer
+from repro.serving import ServingEngine as RefServingEngine
+from repro.serving import TierRuntime as RefTierRuntime
+from repro_torch.core import DiscretizationConfig
+from repro_torch.envsim.routers import AifRouter
+from repro_torch.models import ModelConfig
+from repro_torch.serving import (MultiTierServer, Request, ServingEngine,
+                                 TierRuntime)
+from torch_port_ref import RouterKeyChainNoise, lm_to_port
+
+TINY = dict(name="tiny-serve", family="dense", n_layers=2, d_model=32,
+            n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=128,
+            param_dtype="float32", compute_dtype="float32")
+
+
+def _ref_params(kw):
+    """The reference model's parameters (``init`` under one jit: the
+    engine's own eager init compiles op by op and dominates the test)."""
+    return jax.jit(ref_build_model(RefModelConfig(**kw)).init)(
+        jax.random.key(0))
+
+
+def _engines(max_batch, max_len=64):
+    ref = RefServingEngine(RefModelConfig(**TINY), _ref_params(TINY),
+                           max_batch=max_batch, max_len=max_len)
+    cfg = ModelConfig(**TINY)
+    sd, _ = lm_to_port(cfg, ref.params)
+    port = ServingEngine(cfg, sd, max_batch=max_batch, max_len=max_len,
+                         device="cpu")
+    return ref, port
+
+
+def _serve(engine, request_cls, prompts, n_new, max_steps=40):
+    reqs = [request_cls(id=i, tokens=p, max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(max_steps):
+        engine.step()
+        if all(r.finished_at for r in reqs):
+            break
+    assert all(r.finished_at for r in reqs)
+    return [r.output for r in reqs]
+
+
+def _greedy(engine, prompt, n_new):
+    """Direct model greedy decode (ground truth for the engine)."""
+    m = engine.model
+    logits, caches = m.prefill(torch.tensor([prompt]),
+                               max_len=len(prompt) + n_new + 4)
+    out = [int(torch.argmax(logits[0, -1]))]
+    pos = len(prompt)
+    for _ in range(n_new - 1):
+        logits, caches = m.decode_step(torch.tensor([[out[-1]]]), caches, pos)
+        out.append(int(torch.argmax(logits[0, 0])))
+        pos += 1
+    return out
+
+
+def test_engine_matches_reference_engine_one_request():
+    from repro.serving import Request as RefRequest
+    ref, port = _engines(max_batch=2)
+    prompt = list(range(5, 21))          # length 16 == bucket, no padding
+    want = _serve(ref, RefRequest, [prompt], 6)
+    got = _serve(port, Request, [prompt], 6)
+    assert got == want
+    assert got[0] == _greedy(port, prompt, 6)
+
+
+def test_engine_matches_reference_engine_concurrent_ragged():
+    """Concurrent requests of different lengths (right-padded buckets,
+    ragged decode positions) must not corrupt each other."""
+    from repro.serving import Request as RefRequest
+    ref, port = _engines(max_batch=4)
+    prompts = [list(range(3, 19)), list(range(40, 51)), list(range(7, 30)),
+               list(range(60, 65))]
+    want = _serve(ref, RefRequest, prompts, 5)
+    got = _serve(port, Request, prompts, 5)
+    assert got == want
+    for p, out in zip(prompts, got):
+        assert out == _greedy(port, p, 5)
+    assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+
+
+def test_engine_random_weights_come_from_its_seed():
+    cfg = ModelConfig(**TINY)
+    a = ServingEngine(cfg, max_batch=1, seed=3, device="cpu")
+    b = ServingEngine(cfg, max_batch=1, seed=3, device="cpu")
+    c = ServingEngine(cfg, max_batch=1, seed=4, device="cpu")
+    assert torch.equal(a.model.layers[0].mlp.wi, b.model.layers[0].mlp.wi)
+    assert not torch.equal(a.model.layers[0].mlp.wi,
+                           c.model.layers[0].mlp.wi)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServingEngine(cfg)
+
+
+N_TICKS = 30
+DISC = dict(latency_edges_s=(3.0, 6.0), rps_edges=(3.0, 6.0),
+            queue_edges=(3.0, 10.0))
+TIERS = [("light", 32, 2, 1), ("medium", 48, 3, 1), ("heavy", 64, 8, 3)]
+
+
+def _tier_cfg(name, d_model):
+    return dict(name=name, family="dense", n_layers=2, d_model=d_model,
+                n_heads=4, n_kv_heads=2, d_ff=2 * d_model, vocab_size=256,
+                param_dtype="float32", compute_dtype="float32")
+
+
+def test_multitier_with_aif_router_matches_reference():
+    ref_tiers, tiers = [], []
+    for name, d, max_batch, steps in TIERS:
+        kw = _tier_cfg(name, d)
+        eng = RefServingEngine(RefModelConfig(**kw), _ref_params(kw),
+                               max_batch=max_batch, max_len=64, name=name)
+        ref_tiers.append(RefTierRuntime(eng, steps_per_tick=steps))
+        sd, _ = lm_to_port(ModelConfig(**kw), eng.params)
+        tiers.append(TierRuntime(
+            ServingEngine(ModelConfig(**kw), sd, max_batch=max_batch,
+                          max_len=64, name=name, device="cpu"),
+            steps_per_tick=steps))
+    run = dict(n_ticks=N_TICKS, arrival_rate=4.0, prompt_len=16,
+               max_new_tokens=4, vocab=256)
+    ref_router = RefAifRouter(disc=RefDisc(**DISC), seed=0)
+    ref_srv = RefMultiTierServer(ref_tiers, ref_router, slo_ticks=8, seed=0)
+    want = ref_srv.run(**run)
+    router = AifRouter(disc=DiscretizationConfig(**DISC), seed=0,
+                       noise=RouterKeyChainNoise(0, N_TICKS), device="cpu")
+    srv = MultiTierServer(tiers, router, slo_ticks=8, seed=0)
+    got = srv.run(**run)
+
+    assert router.actions == ref_router.actions
+    np.testing.assert_array_equal(np.asarray(srv.weights_trace),
+                                  np.asarray(ref_srv.weights_trace))
+    for key in ("completed", "p50_ticks", "p95_ticks", "slo_violation_rate"):
+        assert got[key] == want[key], key
+    for key in ("tier_routed", "tier_completed", "mean_weights",
+                "late_weights"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["completed"] > 0
+    for t, rt in zip(tiers, ref_tiers):
+        outs = {r.id: r.output for r in t.engine.completed}
+        assert outs == {r.id: r.output for r in rt.engine.completed}

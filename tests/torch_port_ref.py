@@ -12,9 +12,15 @@ reference draws from it:
 * the replay indices of ``sample_batch`` at the boundary tick's ``k_slow``,
 * the two restart uniforms of ``fluid_window_step`` at ``split(k_env)``.
 
+For the single-router serving path, :class:`RouterKeyChainNoise` replays
+the reference ``AifRouter``'s chain instead (``key, k = split(key)`` per
+tick, then ``tick``'s ``k_fast, k_slow = split(k)``): the Gumbel noise of
+``select_action`` at ``k_fast`` and the replay indices at ``k_slow``.
+
 The rest converts between the packages: topologies, reference pytrees to
-the dicts of numpy leaves that ``repro_torch``'s ``*_from_numpy`` take, and
-port tensors back to numpy.
+the dicts of numpy leaves that ``repro_torch``'s ``*_from_numpy`` take
+(:func:`lm_to_port` carries a reference LM's parameter and cache trees
+across), and port tensors back to numpy.
 """
 from __future__ import annotations
 
@@ -194,3 +200,40 @@ def mega_state_to_ref(arrays: dict, slot_dtype=jnp.float32):
         dt_since_change=f32(arrays["dt_since_change"]),
         error_ema=f32(arrays["error_ema"]),
         unstable=jnp.asarray(arrays["unstable"], bool), t=i32(arrays["t"]))
+
+
+class RouterKeyChainNoise:
+    """The reference ``repro.envsim.routers.AifRouter(seed=seed)``'s draws
+    over ``n_ticks`` ticks, as a ``repro_torch.noise`` source for the port's
+    single-router :func:`repro_torch.core.agent.tick` (R=1)."""
+
+    def __init__(self, seed: int, n_ticks: int):
+        key = jax.random.key(seed)
+        self.k_fast, self.k_slow = [], []
+        for _ in range(n_ticks):
+            key, k = jax.random.split(key)
+            k_fast, k_slow = jax.random.split(k)
+            self.k_fast.append(k_fast)
+            self.k_slow.append(k_slow)
+
+    def gumbel(self, t, shape):
+        g = jax.random.gumbel(self.k_fast[t], (shape[-1],))
+        return torch.tensor(np.asarray(g))[None]
+
+    def replay_indices(self, t, size, batch):
+        n = jnp.maximum(jnp.asarray(int(t2n(size)[0]), jnp.int32), 1)
+        idx = jax.random.randint(self.k_slow[t], (batch,), 0, n)
+        return torch.tensor(np.asarray(idx), dtype=torch.int64)[None]
+
+
+def lm_to_port(cfg, params=None, caches=None):
+    """A reference LM's parameter tree and/or cache tree as the port's
+    ``state_dict`` / per-layer cache list (on the CPU), through the numpy
+    converters of :mod:`repro_torch.models.convert`; ``cfg`` is the port's
+    ``ModelConfig``.  Returns (state_dict or None, caches or None)."""
+    from repro_torch.models import convert
+    sd = (None if params is None else
+          convert.params_from_numpy(cfg, jax.tree.map(np.asarray, params)))
+    cl = (None if caches is None else
+          convert.caches_from_numpy(cfg, jax.tree.map(np.asarray, caches)))
+    return sd, cl
