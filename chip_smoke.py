@@ -38,8 +38,9 @@ failure raising (exit code != 0):
    head dims (16, 32, 64) at small shapes;
 10. serve small — internlm2-1.8b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
-   4 prompts of 64 tokens, 8 new tokens each: tokens equal, first prefill's
-   logits within 1e-4 relative;
+   4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
+   the first prompt's prefill and of one decode step after it within 1e-4
+   relative, the kernels launched as expected;
 11. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
    max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
    1000-1024 prompt tokens with 64 new tokens each, every kernel's count
@@ -54,7 +55,26 @@ failure raising (exit code != 0):
    first held against its plain version like phase 6 (the kernels line
    reports t0=150); B4 and B5 at the serve phase's shapes beside
    ``scaled_dot_product_attention``'s time on the same inputs (a yardstick
-   the port never calls).
+   the port never calls);
+14. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
+   version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
+   widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
+   at the mamba serve-small phase's S=64, a ragged S=1000 and a short
+   S=80 (under one chunk) with an initial state, b=2, and G=2 at small
+   widths; y within 1e-4 (f32) / 3e-2 (bf16) of max(1, |y|), the state
+   within 10x that;
+15. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
+   ``ServingEngine`` on the card and one on the CPU with the same weights,
+   4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
+   tokens each, checked as in phase 10 (B6: 2 per admission);
+16. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
+   max_batch=8, max_len=2048)`` in bf16, all 64 layers, answering 8
+   requests of 1000-1024 prompt tokens with 32 new tokens each, every
+   kernel's count read around it (B6: 64 per request), then one prefill's
+   and one decode wave's host and device time; the weights are freed
+   after it;
+17. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
+   bf16) beside its bound and its plain version's ms.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +111,10 @@ MEGA_TOL = 1e-4
 # B4/B5 vs their plain versions, max abs error: the reference's kernel bar
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SERVE_ARCH = "internlm2-1.8b"
+MAMBA_ARCH = "mamba2-2.7b"
+# B6 vs its plain version: y's max abs error over max(1, |y|), the state's
+# below 10x that: the reference's kernel bar
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 def emit(phase: str, **fields) -> None:
@@ -133,10 +157,12 @@ def phase_build() -> None:
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.efe import efe
     from repro_torch.kernels.efe import mega as mega_kernel
+    from repro_torch.kernels.ssd import ssd
     libraries = {"efe_fleet": (efe.SOURCES, ()),
                  "mega_window": (mega_kernel.SOURCES,
                                  mega_kernel.EXTRA_FLAGS),
-                 "flash_attn": (flash.SOURCES, ())}
+                 "flash_attn": (flash.SOURCES, ()),
+                 "ssd_scan": (ssd.SOURCES, ())}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futs = {name: pool.submit(build.build, name, *spec)
@@ -146,6 +172,7 @@ def phase_build() -> None:
     efe.library()               # load once, so later timings exclude them
     mega_kernel.library()
     flash.library()
+    ssd.library()
     ptxas = {name: ptxas_summary((p.parent / "ptxas.log").read_text())
              for name, p in paths.items()}
     smem = {f"{kern}_d{d}" + (f"_g{g}" if kern == "decode" else ""):
@@ -153,7 +180,10 @@ def phase_build() -> None:
             for kern, g in (("prefill", 1), ("decode", 2), ("decode", 4))
             for d in flash.HEAD_DIMS}
     emit("build", seconds=secs, libraries=sorted(libraries), ptxas=ptxas,
-         flash_attn_dynamic_smem_bytes=smem)
+         flash_attn_dynamic_smem_bytes=smem,
+         ssd_scan_dynamic_smem_bytes={
+             f"p{p}_n{n}_q{q}": ssd.smem_bytes(p, n, q)
+             for p, n, q in ((64, 128, 256), (16, 16, 16), (64, 256, 1024))})
 
 
 def ptxas_summary(log: str) -> dict:
@@ -309,11 +339,13 @@ def all_kernels() -> dict:
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.efe import efe
     from repro_torch.kernels.efe import mega as mega_kernel
+    from repro_torch.kernels.ssd import ssd
     return {"belief_efe_fleet": efe.belief_efe_fleet,
             "efe_fleet": efe.efe_fleet,
             "mega_window": mega_kernel.mega_window_cuda,
             "flash_prefill": flash.flash_prefill,
-            "flash_decode": flash.flash_decode}
+            "flash_decode": flash.flash_decode,
+            "ssd_scan": ssd.ssd_scan}
 
 
 def counted(fn):
@@ -333,7 +365,7 @@ def run_counted(e):
 
 
 NO_LAUNCHES = {"belief_efe_fleet": 0, "efe_fleet": 0, "mega_window": 0,
-               "flash_prefill": 0, "flash_decode": 0}
+               "flash_prefill": 0, "flash_decode": 0, "ssd_scan": 0}
 
 
 def phase_slice() -> dict:
@@ -804,60 +836,88 @@ def serve_requests(engine, prompts, n_new: int):
     return reqs, time.perf_counter() - t0
 
 
-def phase_serve_small() -> None:
-    """internlm2-1.8b's widths at 2 layers in f32: the card's engine
-    (kernels) against the CPU's (plain versions) with the same weights."""
+def serve_launches(cfg, admissions: int, waves: int) -> dict:
+    """The kernel launches an engine of ``cfg`` makes for ``admissions``
+    prefills and ``waves`` decode waves: B4 and B5 per attention layer, B6
+    per Mamba layer's prefill (its decode is plain PyTorch)."""
+    if cfg.family == "ssm":
+        return dict(NO_LAUNCHES, ssd_scan=cfg.n_layers * admissions)
+    return dict(NO_LAUNCHES, flash_prefill=cfg.n_layers * admissions,
+                flash_decode=cfg.n_layers * waves)
+
+
+def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
+                      phase: str = "serve_small") -> None:
+    """``arch``'s widths at 2 layers in f32: the card's engine (kernels)
+    against the CPU's (plain versions) with the same weights, 4 prompts of
+    ``lengths`` tokens (right-padded to their bucket), 8 new tokens each:
+    tokens equal, and the logits of the first prompt's prefill and of one
+    decode step after it within 1e-4 relative (with random weights greedy
+    decode can repeat one token, so the logits carry the check)."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
-    cfg = dataclasses.replace(get_arch(SERVE_ARCH).full, n_layers=2,
+    cfg = dataclasses.replace(get_arch(arch).full, n_layers=2,
                               param_dtype="float32", compute_dtype="float32")
     weights = build_model(cfg, "cpu", seed=0).state_dict()
     rng = np.random.default_rng(0)
-    prompts = [list(rng.integers(0, cfg.vocab_size, 64)) for _ in range(4)]
+    prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in lengths]
     outs, logits = {}, {}
     for dev in (DEVICE, "cpu"):
         eng = ServingEngine(cfg, weights, max_batch=4, max_len=128,
                             device=dev)
-        logits[dev] = eng.model.prefill(torch.tensor(prompts[:1]))[0].cpu()
-        reqs, _ = serve_requests(eng, prompts, 8)
+        lg, caches = eng.model.prefill(torch.tensor(prompts[:1]),
+                                       max_len=128)
+        lg2, _ = eng.model.decode_step(lg[:, -1].argmax(-1, keepdim=True),
+                                       caches, lengths[0])
+        logits[dev] = torch.cat([lg, lg2], 1).cpu()
+        del caches
+        (reqs, _), launches = counted(lambda: serve_requests(eng, prompts, 8))
         outs[dev] = [r.output for r in reqs]
+        if dev == DEVICE:
+            want = serve_launches(cfg, len(prompts), eng.busy_steps)
+            card_launches = launches
         del eng
     rel = ((logits[DEVICE] - logits["cpu"]).abs().max()
            / logits["cpu"].abs().max()).item()
-    emit("serve_small", arch=SERVE_ARCH, n_layers=2, dtype="float32",
+    emit(phase, arch=arch, n_layers=2, dtype="float32",
+         prompt_lengths=list(lengths),
          tokens_equal=outs[DEVICE] == outs["cpu"], logits_rel_err=rel,
+         launches=card_launches, expected_launches=want,
          tokens=outs[DEVICE])
     if outs[DEVICE] != outs["cpu"] or not rel <= 1e-4:
-        raise AssertionError(f"serve_small: the card's engine disagrees "
+        raise AssertionError(f"{phase}: the card's engine disagrees "
                              f"with the CPU's (logits rel err {rel})")
+    if card_launches != want:
+        raise AssertionError(f"{phase}: the card's engine launched "
+                             f"{card_launches}, expected {want}")
     torch.cuda.empty_cache()
 
 
-def phase_serve():
-    """The full internlm2-1.8b (24 layers, bf16) answering 8 long prompts;
-    returns (its weights, launches, decode positions of a mid-run wave)."""
+def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
+                phase: str = "serve"):
+    """The full ``arch`` (all layers, bf16) answering 8 long prompts with
+    ``n_new`` new tokens each; returns (its weights, launches, decode
+    positions of a mid-run wave)."""
     from repro_torch.configs import get_arch
     from repro_torch.serving import ServingEngine
-    cfg = get_arch(SERVE_ARCH).full
+    cfg = get_arch(arch).full
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, max_batch=8, max_len=2048, seed=0,
                         device=DEVICE)
     rng = np.random.default_rng(1)
     lengths = rng.integers(1000, 1025, 8)
     prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in lengths]
-    n_new = 64
     (reqs, wall), launches = counted(
         lambda: serve_requests(eng, prompts, n_new))
     waves = eng.busy_steps
-    want = dict(NO_LAUNCHES, flash_prefill=cfg.n_layers * len(prompts),
-                flash_decode=cfg.n_layers * waves)
+    want = serve_launches(cfg, len(prompts), waves)
     tokens = sum(len(r.output) for r in reqs)
     ok = all(len(r.output) == n_new
              and all(0 <= t < cfg.vocab_size for t in r.output)
              for r in reqs)
-    emit("serve", arch=SERVE_ARCH, n_layers=cfg.n_layers,
+    emit(phase, arch=arch, n_layers=cfg.n_layers,
          params=cfg.param_count(), dtype=cfg.param_dtype, max_batch=8,
          max_len=2048, prompt_lengths=[int(n) for n in lengths],
          new_tokens=n_new, decode_waves=waves, wall_s=wall,
@@ -866,9 +926,9 @@ def phase_serve():
          launches=launches, expected_launches=want, outputs_ok=ok,
          first_tokens=reqs[0].output[:8])
     if launches != want or waves != n_new - 1 or not ok:
-        raise AssertionError(f"serve launched {launches} over {waves} "
+        raise AssertionError(f"{phase} launched {launches} over {waves} "
                              f"waves, expected {want}; outputs ok: {ok}")
-    serve_breakdown(eng, prompts[0], lengths)
+    serve_breakdown(eng, prompts[0], lengths, arch)
     weights = eng.model.state_dict()
     del eng
     torch.cuda.empty_cache()
@@ -890,8 +950,8 @@ def host_ms(fn, iters: int = 3) -> float:
 
 def device_ms(fn) -> dict:
     """Device time of one call from a ``torch.profiler`` trace: all kernels
-    and copies, those of B4 (``prefill_kernel``) and B5
-    (``decode_kernel``), and the six kernels that took longest."""
+    and copies, those of B4 (``prefill_kernel``), B5 (``decode_kernel``)
+    and B6 (``ssd_scan_kernel``), and the six kernels that took longest."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -899,7 +959,7 @@ def device_ms(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {"all": 0.0, "b4": 0.0, "b5": 0.0}
+    out = {"all": 0.0, "b4": 0.0, "b5": 0.0, "b6": 0.0}
     by_kernel = []
     for e in prof.key_averages():
         # device-side events only: an operator's own entry repeats the time
@@ -910,13 +970,14 @@ def device_ms(fn) -> dict:
         out["all"] += ms
         out["b4"] += ms if "prefill_kernel" in e.key else 0.0
         out["b5"] += ms if "decode_kernel" in e.key else 0.0
+        out["b6"] += ms if "ssd_scan_kernel" in e.key else 0.0
         if ms > 0:
             by_kernel.append((ms, e.count, e.key[:80]))
     out["top"] = sorted(by_kernel, reverse=True)[:6]
     return out
 
 
-def serve_breakdown(eng, prompt, lengths) -> None:
+def serve_breakdown(eng, prompt, lengths, arch: str) -> None:
     """Where the serve phase's time goes: one 1024-token admission prefill
     and one 8-slot decode wave (each slot at its prompt length + 31), host
     wall (synchronized) beside the device time a profiler trace shows."""
@@ -939,10 +1000,11 @@ def serve_breakdown(eng, prompt, lengths) -> None:
         dev = device_ms(fn)
         parts[name] = dict(host_ms=wall, device_ms=dev["all"],
                            b4_ms=dev["b4"], b5_ms=dev["b5"],
+                           b6_ms=dev["b6"],
                            top_kernels_ms_count_name=dev["top"],
                            device_idle_share=(None if dev["all"] <= 0 else
                                               max(0.0, 1 - dev["all"] / wall)))
-    emit("serve_breakdown", arch=SERVE_ARCH, **parts)
+    emit("serve_breakdown", arch=arch, **parts)
 
 
 def phase_multitier(weights) -> dict:
@@ -972,8 +1034,7 @@ def phase_multitier(weights) -> dict:
     admitted = sum(len(t.engine.completed) + t.engine.active_count
                    for t in tiers)
     waves = sum(t.engine.busy_steps for t in tiers)
-    want = dict(NO_LAUNCHES, flash_prefill=cfg.n_layers * admitted,
-                flash_decode=cfg.n_layers * waves)
+    want = serve_launches(cfg, admitted, waves)
     routed = out["tier_routed"]
     weights_ok = all(np.isfinite(w).all() and abs(w.sum() - 1) < 1e-9
                      for w in srv.weights_trace)
@@ -1061,6 +1122,146 @@ def attn_times(errs: dict, launches: dict, lengths) -> list:
     return out
 
 
+# ------------------------------------------------------------ Mamba-2 / SSD
+def ssd_operands(b: int, s: int, h: int, p: int, g: int, n: int,
+                 dtype: torch.dtype, init: bool = False, seed: int = 0):
+    """Seeded B6 inputs on the card: x (b, s, h, p), dt = softplus(N(0, 1))
+    and a = -exp(0.3 N(0, 1)) in f32, b/c (b, s, g, n), and an initial
+    state (b, h, p, n) when ``init``."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    a = -torch.exp(0.3 * randn(h))
+    bb, cc = randn(b, s, g, n).to(dtype), randn(b, s, g, n).to(dtype)
+    st = randn(b, h, p, n).to(dtype) if init else None
+    return x, dt, a, bb, cc, st
+
+
+def ssd_cases():
+    """(name, B, S, H, P, G, N, Q, dtype, init) of every B6 check, in bf16
+    and f32: mamba2-2.7b's widths at the mamba serve phase's prefill
+    (b=1, S=1024) and the serve-small phase's bucket (S=64), a ragged
+    S=1000 and a short S=80 (under one chunk) from an initial state, b=2,
+    and G=2 at the reference sweep's small widths."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(MAMBA_ARCH).full
+    m = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_ngroups, cfg.ssm_state,
+         cfg.ssm_chunk)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [("mamba_b1_s1024", 1, 1024, *m, dtype, False),
+                  ("mamba_b1_s64", 1, 64, *m, dtype, False),
+                  ("mamba_ragged_s1000_init", 1, 1000, *m, dtype, True),
+                  ("mamba_short_s80_init", 1, 80, *m, dtype, True),
+                  ("mamba_b2_s512", 2, 512, *m, dtype, False),
+                  ("g2_small", 1, 128, 4, 32, 2, 16, 32, dtype, False)]
+    return cases
+
+
+def phase_ssd_kernel_vs_plain() -> dict:
+    """B6 against its plain version on the same inputs on the card; returns
+    its worst max abs error and worst scaled error (y's over max(1, |y|),
+    the state's over 10 max(1, |state|))."""
+    from repro_torch.kernels.ssd import ref, ssd
+    worst = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
+    for i, (name, b, s, h, p, g, n, q, dtype, init) in enumerate(ssd_cases()):
+        x, dt, a, bb, cc, st = ssd_operands(b, s, h, p, g, n, dtype, init,
+                                            seed=20 + i)
+        (yk, sk), (yp, sp) = (ssd.ssd_scan(x, dt, a, bb, cc, q, st),
+                              ref.ssd_chunked(x, dt, a, bb, cc, q, st))
+        torch.cuda.synchronize()
+        errs = {}
+        for key, k, pl in (("y", yk, yp), ("state", sk, sp)):
+            k32, p32 = k.float(), pl.float()
+            errs[key] = ((k32 - p32).abs().max().item(),
+                         max(1.0, p32.abs().max().item()))
+        finite = bool(torch.isfinite(yk.float()).all()
+                      and torch.isfinite(sk.float()).all())
+        tol = SSD_TOL[dtype]
+        y_scaled = errs["y"][0] / errs["y"][1]
+        s_scaled = errs["state"][0] / errs["state"][1]
+        emit("ssd_kernel_vs_plain", case=f"{name}_{str(dtype)[6:]}",
+             shape=dict(B=b, S=s, H=h, P=p, G=g, N=n, Q=q), init=init,
+             y_max_abs_err=errs["y"][0], y_plain_max_abs=errs["y"][1],
+             y_scaled_err=y_scaled, state_max_abs_err=errs["state"][0],
+             state_plain_max_abs=errs["state"][1],
+             state_scaled_err=s_scaled, tol=tol)
+        if not (finite and yk.dtype == yp.dtype and sk.dtype == sp.dtype
+                and yk.shape == yp.shape and sk.shape == sp.shape
+                and y_scaled <= tol and s_scaled <= 10 * tol):
+            raise AssertionError(f"ssd_scan {name} ({dtype}) disagrees with "
+                                 f"its plain version: {errs}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], errs["y"][0],
+                                   errs["state"][0])
+        worst["max_scaled_err"] = max(worst["max_scaled_err"], y_scaled,
+                                      s_scaled / 10)
+        del x, dt, a, bb, cc, st, yk, sk, yp, sp
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ssd_bound(b: int, s: int, h: int, p: int, g: int, n: int, q: int,
+              elt: int) -> dict:
+    """Least time for one B6 launch without an initial state.  Bytes: x,
+    dt, a, B and C read once, y and the final state written once.
+    Operations, counted on what this run needs: C B^T over the causal
+    (row, key) pairs of each chunk once per group (all H/G heads of a group
+    share it), then per head the intra-chunk product over those pairs, the
+    carried state's contribution and the state update, at the dense bf16
+    rate.  ``ops_tpu_way_ms`` counts full Q x Q planes per head, as the TPU
+    kernel computes them."""
+    rows = [min(q, s - c) for c in range(0, s, q)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    flops = b * (g * pairs * 2 * n + h * (pairs * 2 * p + s * 4 * n * p))
+    flops_tpu = b * h * len(rows) * (2 * q * q * (n + p) + 4 * q * n * p)
+    nbytes = (2 * b * s * h * p * elt + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * elt + b * h * p * n * elt)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / BF16_FLOP_PER_S
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, bytes_ms=bytes_ms, flops=flops, ops_ms=ops_ms,
+                flops_tpu_way=flops_tpu,
+                ops_tpu_way_ms=1e3 * flops_tpu / BF16_FLOP_PER_S)
+
+
+def ssd_times(errs: dict, launches: dict) -> dict:
+    """B6 at the mamba serve phase's prefill shape (b=1, S=1024, mamba2-2.7b's
+    widths, bf16): ms per launch beside its plain version's and its bound."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd import ref, ssd
+    cfg = get_arch(MAMBA_ARCH).full
+    h, p, g, n, q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                     cfg.ssm_state, cfg.ssm_chunk)
+    x, dt, a, bb, cc, _ = ssd_operands(1, 1024, h, p, g, n, torch.bfloat16,
+                                       seed=9)
+    kern = lambda: ssd.ssd_scan(x, dt, a, bb, cc, q)          # noqa: E731
+    plain = lambda: ref.ssd_chunked(x, dt, a, bb, cc, q)      # noqa: E731
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain)
+    ms2 = time_ms(kern)
+    bnd = ssd_bound(1, 1024, h, p, g, n, q, x.element_size())
+    emit("times", kernel="ssd_scan", dtype="bfloat16",
+         shape=dict(B=1, S=1024, H=h, P=p, G=g, N=n, Q=q), ms=ms,
+         ms_repeat=ms2, plain_ms=plain_ms, library_ms=None, **bnd)
+    del x, dt, a, bb, cc
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd/ssd.py:76",
+            "launches": launches["ssd_scan"],
+            "max_abs_err": errs["max_abs_err"],
+            "max_err": errs["max_abs_err"],
+            "max_scaled_err": errs["max_scaled_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "library_ms": None}
+
+
 def phase_times(errs: dict, launches: dict) -> list:
     d = full_width_operands(masked=False)
     rows = []
@@ -1104,11 +1305,15 @@ def main() -> int:
     launches["mega_window"] = phase_mega_slice()["mega_window"]
     errs.update(phase_attn_kernel_vs_plain())
     phase_serve_small()
-    weights, serve_launches, lengths = phase_serve()
+    weights, serve_counts, lengths = phase_serve()
     phase_multitier(weights)
     del weights
     rows = phase_times(errs, launches)
-    rows += attn_times(errs, serve_launches, lengths)
+    rows += attn_times(errs, serve_counts, lengths)
+    ssd_errs = phase_ssd_kernel_vs_plain()
+    phase_serve_small(MAMBA_ARCH, (64, 50, 37, 64), "mamba_serve_small")
+    _, mamba_launches, _ = phase_serve(MAMBA_ARCH, 32, "mamba_serve")
+    rows.append(ssd_times(ssd_errs, mamba_launches))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

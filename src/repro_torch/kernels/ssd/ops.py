@@ -1,0 +1,20 @@
+"""Public SSD entry point of the port (``repro/kernels/ssd/ops.py``).
+
+The device of the tensors decides: CPU tensors run the plain version
+(:func:`.ref.ssd_chunked`), CUDA tensors launch kernel B6 or raise
+(:mod:`.ssd`).  Model code reaches the SSD scan only through here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd.ssd import ssd_scan
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, chunk: int = 256,
+        init_state: torch.Tensor | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan: x (B, S, H, P); dt (B, S, H) positive; a (H,)
+    negative; b/c (B, S, G, N).  Returns (y, final_state)."""
+    return ssd_scan(x, dt, a, b, c, chunk, init_state)

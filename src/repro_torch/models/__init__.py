@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense decoder-only family on PyTorch (the
-other families raise ``NotImplementedError`` naming their ROADMAP item)."""
+"""Model zoo of the port: the dense and Mamba-2 decoder-only families on
+PyTorch (the other families raise ``NotImplementedError`` naming their
+ROADMAP item)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (DecoderOnlyLM, EncoderDecoderLM,
                                       build_model)

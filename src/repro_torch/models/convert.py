@@ -6,8 +6,10 @@ leaf stacked over the repeats), and its caches as ``{"main": {pos: stacked},
 "tail": {pos: single}}``.  :func:`params_from_numpy` unstacks such a tree
 (``jax.tree.map(np.asarray, params)``) into this port's ``state_dict``
 (``layers.{i}.attn.wq`` and so on) and :func:`caches_from_numpy` the cache
-tree into the port's per-layer list, so both packages compute on the same
-numbers.  bfloat16 leaves (numpy's ``ml_dtypes`` type) keep their bits.
+tree (attention ``{"k", "v"}`` and Mamba ``{"conv_x", "conv_b", "conv_c",
+"ssm"}`` leaves alike) into the port's per-layer list, so both packages
+compute on the same numbers.  bfloat16 leaves (numpy's ``ml_dtypes``
+type) keep their bits.
 """
 from __future__ import annotations
 
@@ -71,14 +73,14 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
 def caches_from_numpy(cfg: ModelConfig, tree: dict,
                       device: torch.device | str = "cpu") -> list:
     """The reference's cache tree (numpy leaves) as the port's per-layer
-    list of ``{"k", "v"}`` tensors on ``device``."""
+    list of cache dicts (``{"k", "v"}`` or the Mamba state) on ``device``."""
     out = []
     for i in range(cfg.n_layers):
         part, pos, rep = _layer_slot(cfg, i)
-        attn = tree[part][pos]["attn"]
-        out.append({kv: tensor_from_numpy(
-            np.asarray(attn[kv]) if rep is None else np.asarray(attn[kv])[rep],
-            device) for kv in ("k", "v")})
+        (leaves,) = tree[part][pos].values()   # {"attn"|"mamba": {...}}
+        out.append({name: tensor_from_numpy(
+            np.asarray(v) if rep is None else np.asarray(v)[rep], device)
+            for name, v in leaves.items()})
     return out
 
 

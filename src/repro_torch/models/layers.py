@@ -51,10 +51,17 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
-        x32 = x.float()
-        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + eps)
-        return (y * self.scale.float()).to(x.dtype)
+        return rms_norm(x, self.scale, eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """RMSNorm over the last axis in float32, scaled, cast back to x's
+    type."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float,

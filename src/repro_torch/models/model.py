@@ -1,5 +1,5 @@
-"""Model assembly: the dense decoder-only LM (the port of
-``repro/models/model.py``).
+"""Model assembly: the decoder-only LM of the dense and Mamba-2 families
+(the port of ``repro/models/model.py``).
 
 :func:`build_model` returns a :class:`DecoderOnlyLM` — an ``nn.Module``
 exposing
@@ -9,10 +9,12 @@ exposing
   decode_step(tokens, caches, position) -> (logits, caches)
   init_caches(batch_size, seq_len) -> zero caches
 
-``tokens`` are (B, S) integer tensors; caches are a list with one
-``{"k", "v"}`` dict per layer (see :mod:`repro_torch.models.attention`),
-updated in place by ``decode_step``.  Families other than ``dense`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``tokens`` are (B, S) integer tensors; caches are a list with one dict per
+layer, updated in place by ``decode_step``: ``{"k", "v"}`` for attention
+(see :mod:`repro_torch.models.attention`), ``{"conv_x", "conv_b",
+"conv_c", "ssm"}`` for Mamba (see :mod:`repro_torch.models.ssm`).  Families
+other than ``dense`` and ``ssm`` raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import WAITING, Block
 from repro_torch.models.config import ModelConfig
 
@@ -94,10 +97,12 @@ class DecoderOnlyLM(nn.Module):
         """Zero caches shaped for decoding against a seq_len context."""
         cfg = self.cfg
         dtype = layers.dtype_of(cfg, "compute")
-        return [attn_mod.init_cache(cfg, batch_size,
+        return [ssm_mod.init_state(cfg, batch_size, dtype, self.device)
+                if blk.kind == "mamba" else
+                attn_mod.init_cache(cfg, batch_size,
                                     attn_mod.cache_len(cfg, i, seq_len),
                                     dtype, self.device)
-                for i in range(cfg.n_layers)]
+                for i, blk in enumerate(self.layers)]
 
 
 class EncoderDecoderLM:

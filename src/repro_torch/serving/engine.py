@@ -16,8 +16,11 @@ One engine wraps a model and maintains ``max_batch`` decode slots:
 
 Ring KV caches are disabled inside the engine (``serve_ring_caches=False``)
 because admission right-pads prompts into full-length caches.  On the card
-every prefill attention is kernel B4 and every decode attention kernel B5;
-on the CPU their plain versions.
+every prefill attention is kernel B4, every decode attention kernel B5 and
+every Mamba-2 prefill scan kernel B6; on the CPU their plain versions.  A
+Mamba layer's prefill runs over the whole padded bucket, so the state it
+hands to decode has seen the pad tokens, as in the reference (ROADMAP C,
+R5).
 """
 from __future__ import annotations
 
@@ -156,8 +159,8 @@ class ServingEngine:
 
 def _write_slot(caches: list, caches1: list, slot: int) -> list:
     """Write b=1 prefill caches into batch lane ``slot`` of the engine
-    caches, in place."""
+    caches (every leaf of each layer's dict), in place."""
     for big, one in zip(caches, caches1):
-        for kv in ("k", "v"):
-            big[kv][slot].copy_(one[kv][0])
+        for name, t in one.items():
+            big[name][slot].copy_(t[0])
     return caches

@@ -137,6 +137,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.configs, repro_torch.serving\n"
         "import repro_torch.kernels.attention.ops\n"
+        "import repro_torch.kernels.ssd.ops, repro_torch.models.ssm\n"
         "import repro_torch.envsim.routers, repro_torch.envsim.simulator\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

@@ -2,7 +2,10 @@
 
 * ``ServingEngine`` emits the reference engine's tokens (one request, and
   concurrent requests in ragged lanes) with the same parameters, and equals
-  its own direct greedy decode (``tests/test_serving_checkpoint.py``);
+  its own direct greedy decode (``tests/test_serving_checkpoint.py``); the
+  same for the Mamba-2 smoke model, with prompts right-padded to their
+  buckets (whose state then carries the pad tokens, as the reference's
+  does: ROADMAP C, R5);
 * ``MultiTierServer`` with the port's ``AifRouter`` over the three tiny
   tiers of ``examples/serve_multitier.py``, with the reference router's key
   chain replayed as its noise (``RouterKeyChainNoise``), gives the
@@ -11,11 +14,14 @@
 
 Tokens, routing and counts must be equal; the models run in float32.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as ref_get_arch
 from repro.core import DiscretizationConfig as RefDisc
 from repro.envsim.routers import AifRouter as RefAifRouter
 from repro.models import ModelConfig as RefModelConfig
@@ -23,6 +29,7 @@ from repro.models import build_model as ref_build_model
 from repro.serving import MultiTierServer as RefMultiTierServer
 from repro.serving import ServingEngine as RefServingEngine
 from repro.serving import TierRuntime as RefTierRuntime
+from repro_torch.configs import get_arch
 from repro_torch.core import DiscretizationConfig
 from repro_torch.envsim.routers import AifRouter
 from repro_torch.models import ModelConfig
@@ -101,6 +108,32 @@ def test_engine_matches_reference_engine_concurrent_ragged():
     assert got == want
     for p, out in zip(prompts, got):
         assert out == _greedy(port, p, 5)
+    assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+
+
+def test_mamba_engine_matches_reference_engine_on_padded_prompts():
+    """mamba2's smoke model in float32: two slots, four requests (so slots
+    are reused) of lengths 11, 16, 20 and 5, all but one right-padded to
+    their buckets; the padded prompts decode from a state that has seen
+    the pad tokens in both engines, the unpadded one equals greedy."""
+    from repro.serving import Request as RefRequest
+
+    def f32(c):
+        return dataclasses.replace(c, param_dtype="float32",
+                                   compute_dtype="float32")
+    ref_cfg = f32(ref_get_arch("mamba2-2.7b").smoke)
+    params = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(0))
+    ref = RefServingEngine(ref_cfg, params, max_batch=2, max_len=64)
+    cfg = f32(get_arch("mamba2-2.7b").smoke)
+    sd, _ = lm_to_port(cfg, params)
+    port = ServingEngine(cfg, sd, max_batch=2, max_len=64, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (11, 16, 20, 5)]
+    want = _serve(ref, RefRequest, prompts, 5)
+    got = _serve(port, Request, prompts, 5)
+    assert got == want
+    assert got[1] == _greedy(port, prompts[1], 5)
     assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
 
 
