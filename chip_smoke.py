@@ -8,7 +8,10 @@ failure raising (exit code != 0):
 
 1. device — the card, as ``nvidia-smi`` names it, and its power limit;
 2. build — compiles every CUDA source of the port with ``nvcc`` (one
-   process per library, started together);
+   process per library, started together), with each kernel's registers
+   and spills, the flash kernels' dynamic shared memory and their count of
+   tensor-core (HMMA) instructions in the SASS (``cuobjdump -sass``): the
+   bf16 prefill kernel must have some, and no spills at D <= 128;
 3. kernel vs plain — B1 and B2 at full width (paper-3tier, R=1024) on
    seeded inputs shaped like a real model cache, against their plain
    PyTorch versions on the same inputs on the card;
@@ -35,7 +38,12 @@ failure raising (exit code != 0):
    in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
    heads (Hq=4, Hkv=1, D=256) with window 512, B5 at B=8, S=2048 with
    ragged positions that include 0 and S-1 in bf16 and f32, and the other
-   head dims (16, 32, 64) at small shapes;
+   head dims (16, 32, 64) at small shapes; each case launched twice, the
+   two outputs equal to the bit; then each kernel against the plain model
+   of its algebra (``ref.decode_split_model`` at the wrapper's chunk: f32
+   within 1e-6; bf16 B4 and B5 within one bf16 ulp of their model, B4
+   closer to ``ref.prefill_two_half_model`` than to the model that drops
+   p_lo);
 10. serve small — internlm2-1.8b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
@@ -49,13 +57,16 @@ failure raising (exit code != 0):
    engines sharing the serve phase's weights (max_batch 2/3/8,
    steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
    128-token prompts with 16 new tokens, counts read around it;
-13. times — each kernel's ms per launch (CUDA events, warmed up, median)
-   beside its bound and its plain version's ms; B3 at the mega slice's
+13. times — each kernel's ms per launch (CUDA events around one
+   synchronized call, warmed up, median) and its device ms (30 calls
+   queued back to back behind a busy-wait, so the host's cost per call
+   stays off the clock) beside its bound and its plain version's ms; B3 at the mega slice's
    R=4096 from its states at window starts t0 = 0, 150 and 290, each
    first held against its plain version like phase 6 (the kernels line
    reports t0=150); B4 and B5 at the serve phase's shapes beside
    ``scaled_dot_product_attention``'s time on the same inputs (a yardstick
-   the port never calls);
+   the port never calls), and B5 at the multitier phase's shapes (B = 2,
+   3, 8 over S=512), each with the blocks its launch puts to work;
 14. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
@@ -110,6 +121,9 @@ G_TOL, Q_TOL = 1e-4, 1e-5     # kernel vs plain version, max abs error
 MEGA_TOL = 1e-4
 # B4/B5 vs their plain versions, max abs error: the reference's kernel bar
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# B5 in float32 against ref.decode_split_model, its algebra at the
+# wrapper's chunk: the two differ only in the order of float32 sums.
+MODEL_TOL_F32 = 1e-6
 SERVE_ARCH = "internlm2-1.8b"
 MAMBA_ARCH = "mamba2-2.7b"
 # B6 vs its plain version: y's max abs error over max(1, |y|), the state's
@@ -136,6 +150,31 @@ def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, iters: int = 30) -> tuple[float, bool]:
+    """Device ms of one call: ``iters`` calls queued back to back behind a
+    busy-wait kernel, so the host's cost per call (Python, checks,
+    allocation, launch) stays off the card's clock, timed with CUDA events
+    over the batch.  Also returns whether the host had queued every call
+    before the card reached the first (else host time leaked in)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))   # >= 2x at <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    ahead = not start.query()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, ahead
 
 
 def phase_device() -> str:
@@ -175,15 +214,55 @@ def phase_build() -> None:
     ssd.library()
     ptxas = {name: ptxas_summary((p.parent / "ptxas.log").read_text())
              for name, p in paths.items()}
-    smem = {f"{kern}_d{d}" + (f"_g{g}" if kern == "decode" else ""):
-            flash.smem_bytes(kern, d, g)
+    smem = {f"{kern}_{dt}_d{d}" + (f"_g{g}" if kern == "decode" else ""):
+            flash.smem_bytes(kern, d, g, dtype)
             for kern, g in (("prefill", 1), ("decode", 2), ("decode", 4))
+            for dtype, dt in ((torch.bfloat16, "bf16"),
+                              (torch.float32, "f32"))
             for d in flash.HEAD_DIMS}
+    hmma = sass_hmma(paths["flash_attn"])
+    tc = {k: n for k, n in hmma.items() if "prefill_tc_kernel" in k}
+    if len(tc) != len(flash.HEAD_DIMS) or min(tc.values()) == 0:
+        raise AssertionError(f"the bf16 prefill kernels do not all run on "
+                             f"the tensor cores: HMMA counts {hmma}")
+    spilled = {k: v for k, v in ptxas["flash_attn"].items()
+               if "prefill_tc_kernel" in k
+               and int(re.search(r"Li(\d+)E", k).group(1)) <= 128
+               and not v.endswith(" 0 B spill stores, 0 B spill loads")}
+    if spilled:
+        raise AssertionError(f"the bf16 prefill kernel spills at D <= 128: "
+                             f"{spilled}")
     emit("build", seconds=secs, libraries=sorted(libraries), ptxas=ptxas,
-         flash_attn_dynamic_smem_bytes=smem,
+         flash_attn_dynamic_smem_bytes=smem, flash_attn_sass_hmma=hmma,
          ssd_scan_dynamic_smem_bytes={
              f"p{p}_n{n}_q{q}": ssd.smem_bytes(p, n, q)
              for p, n, q in ((64, 128, 256), (16, 16, 16), (64, 256, 1024))})
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as name<mangled template args>."""
+    k = re.search(r"(?<=\d)([A-Za-z_]+_kernel)(I\w*?E)?Ev", mangled)
+    return (k.group(1) + (k.group(2) or "")) if k else mangled[:60]
+
+
+def sass_hmma(lib) -> dict:
+    """Count of tensor-core (HMMA) instructions per kernel in the SASS of
+    the library ``lib``, read with the toolkit's ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = 0
+        elif name and "HMMA" in ln:
+            counts[name] += 1
+    return counts
 
 
 def ptxas_summary(log: str) -> dict:
@@ -193,9 +272,7 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(?<=\d)([A-Za-z_]+_kernel)(I\w*?E)?Ev",
-                          m.group(1))
-            name = (k.group(1) + (k.group(2) or "")) if k else m.group(1)[:60]
+            name = kernel_name(m.group(1))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
         regs = re.search(r"Used (\d+) registers", ln)
@@ -708,11 +785,13 @@ def mega_times(errs: dict, launches: dict) -> dict:
         ms = time_ms(kern)
         plain_ms = time_ms(plain, warmup=1, iters=3)
         ms2 = time_ms(kern)
+        dev, ahead = queued_ms(kern)
         bytes_ms, ops_ms = mega_bound(state, args, t0, router.dwell)
         b_ms = max(bytes_ms, ops_ms)
         b_by = "bytes" if bytes_ms >= ops_ms else "operations"
         emit("times", kernel="mega_window", r=R_MEGA, t0=t0, ms=ms,
-             ms_repeat=ms2, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             ms_repeat=ms2, plain_ms=plain_ms, device_ms=dev,
+             queued_ahead=ahead, bound_ms=b_ms, bound_by=b_by,
              bytes_ms=bytes_ms, ops_ms=ops_ms,
              weighted_slots_per_router=float(
                  (state.cache.coefw[:, :t0] != 0).sum()) / R_MEGA)
@@ -723,7 +802,8 @@ def mega_times(errs: dict, launches: dict) -> dict:
                    "replaces": "src/repro/kernels/efe/mega.py:85",
                    "launches": launches["mega_window"],
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None}
+                   "bound_by": b_by, "library_ms": None,
+                   "device_ms": dev, "library_device_ms": None}
         del state, est, obs, args, kern, plain
         torch.cuda.empty_cache()
     starts = np.arange(0, T_FULL, router.period)
@@ -755,26 +835,39 @@ def ragged_positions(b: int, s: int, seed: int = 0) -> torch.Tensor:
 
 
 def attn_cases():
-    """(name, kernel call, plain call, dtype) of every B4/B5 check, in bf16
-    and f32: the shapes the serve phase (b=1 Sq=1024 prefill, B=8 S=2048
-    decode) and the multitier phase (b=1 prefill at the 128-token bucket,
-    decode over max_len 512 lanes at the tiers' B = 2, 3, 8) give each
-    kernel, a chunked prefill (q_offset, ragged Sq), gemma3-1b's heads
+    """(name, kernel call, plain call, models, dtype) of every B4/B5
+    check, in bf16 and f32.  ``models`` holds calls of ``ref``'s plain
+    model of the kernel's algebra (``model``: B5's chunks and merge at the
+    wrapper's chunk; B4's two-half P product in bf16, with ``p_hi_only``
+    and the float32 ``f32`` beside it), or is None (B4 in f32).  Shapes:
+    those the serve phase (b=1 Sq=1024 prefill, B=8 S=2048 decode) and the
+    multitier phase (b=1 prefill at the 128-token bucket, decode over
+    max_len 512 lanes at the tiers' B = 2, 3, 8) give each kernel, a chunked prefill (q_offset, ragged Sq), gemma3-1b's heads
     (D=256, window 512), and the smoke configs' head dims (f32)."""
     from repro_torch.kernels.attention import flash, ref
 
     def prefill(name, b, sq, skv, hq, hkv, d, dtype, seed, **kw):
         q, k, v = attn_operands(b, sq, skv, hq, hkv, d, dtype, seed)
+        # bf16 runs prefill_tc_kernel, whose key tile (PrefillTC<D>::kBK)
+        # is 32 keys at D=256 and 64 below; f32 runs the CUDA-core kernel.
+        two_half = lambda p_lo: lambda: ref.prefill_two_half_model(  # noqa
+            q, k, v, block_k=32 if d >= 256 else 64, p_lo=p_lo, **kw)
+        models = None if dtype != torch.bfloat16 else dict(
+            model=two_half(True), p_hi_only=two_half(False),
+            f32=lambda: ref.mha_ref(q.float(), k.float(), v.float(), **kw))
         return (f"prefill_{name}_{str(dtype)[6:]}",
                 lambda: flash.flash_prefill(q, k, v, **kw),
-                lambda: ref.mha_ref(q, k, v, **kw), dtype)
+                lambda: ref.mha_ref(q, k, v, **kw), models, dtype)
 
     def decode(name, b, s, hq, hkv, d, dtype, seed, **kw):
         q, k, v = attn_operands(b, 1, s, hq, hkv, d, dtype, seed)
         pos = ragged_positions(b, s, seed)
         return (f"decode_{name}_{str(dtype)[6:]}",
                 lambda: flash.flash_decode(q, k, v, position=pos, **kw),
-                lambda: ref.decode_ref(q, k, v, position=pos, **kw), dtype)
+                lambda: ref.decode_ref(q, k, v, position=pos, **kw),
+                dict(model=lambda: ref.decode_split_model(
+                    q, k, v, position=pos, chunk=flash.decode_chunk(b, s, hkv),
+                    **kw)), dtype)
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -797,22 +890,79 @@ def attn_cases():
     return cases
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each element of ``x`` (float32 holding
+    bf16 values): 2^(e - 8) for |x| in [2^(e-1), 2^e), 0 at 0."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def attn_model_check(name: str, out_k: torch.Tensor, models: dict,
+                     dtype: torch.dtype) -> dict:
+    """Hold a B4/B5 output against ``models["model"]``, the plain model of
+    its kernel's algebra on the same inputs (float32).  float32: within
+    ``MODEL_TOL_F32``.  bfloat16: the model rounded to bf16 within one bf16
+    ulp plus the float32 bar (the kernel sums in another order before it
+    rounds); for B4 the kernel must also match the two-half model on more
+    elements than ``models["p_hi_only"]`` (P V on one bf16 p), which ties
+    the kernel to the p_hi/p_lo split, and both models' errors against
+    float32 attention on the same values are reported.  Returns the
+    line's fields."""
+    want = models["model"]()
+    got = out_k.float()
+    if dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        row = dict(max_abs_err=err, tol=MODEL_TOL_F32)
+        ok = err <= MODEL_TOL_F32
+    else:
+        wb = want.bfloat16().float()
+        diff = (got - wb).abs()
+        excess = (diff - bf16_ulp(wb)).max().item()
+        ulps = (diff / bf16_ulp(wb).clamp_min(2.0 ** -133)).max().item()
+        row = dict(max_abs_err=diff.max().item(), max_ulps=ulps,
+                   max_excess_over_one_ulp=excess, tol=ATTN_TOL[torch.float32],
+                   share_differing=(diff != 0).float().mean().item())
+        ok = excess <= ATTN_TOL[torch.float32]
+        if "p_hi_only" in models:
+            hi, ref32 = models["p_hi_only"](), models["f32"]()
+            share_hi = (got != hi.bfloat16().float()).float().mean().item()
+            row.update(share_differing_from_p_hi_only=share_hi,
+                       model_err_vs_f32=(want - ref32).abs().max().item(),
+                       p_hi_only_err_vs_f32=(hi - ref32).abs().max().item())
+            ok = ok and row["share_differing"] < share_hi
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with the model of "
+                             f"its algebra: {row}")
+    return row
+
+
 def phase_attn_kernel_vs_plain() -> dict:
     """B4 and B5 against their plain versions on the same inputs on the
-    card; returns the max abs error of each kernel."""
+    card, each kernel launched twice (the two outputs must be equal to the
+    bit), and against the plain model of its algebra
+    (:func:`attn_model_check`); returns the max abs error of each kernel
+    against its plain version."""
     errs = {"flash_prefill": 0.0, "flash_decode": 0.0}
-    for name, kern, plain, dtype in attn_cases():
-        out_k, out_p = kern(), plain()
+    for name, kern, plain, models, dtype in attn_cases():
+        out_k, out_k2, out_p = kern(), kern(), plain()
         torch.cuda.synchronize()
         err = (out_k.float() - out_p.float()).abs().max().item()
         finite = bool(torch.isfinite(out_k.float()).all())
+        same_bits = bool(torch.equal(out_k, out_k2))
         emit("attn_kernel_vs_plain", case=name, max_abs_err=err,
              tol=ATTN_TOL[dtype], plain_max_abs=out_p.abs().max().item(),
-             shape=list(out_k.shape))
+             shape=list(out_k.shape), repeat_bits_equal=same_bits)
         if not (finite and out_k.dtype == out_p.dtype
                 and out_k.shape == out_p.shape and err <= ATTN_TOL[dtype]):
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version, max abs err {err}")
+        if not same_bits:
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 f"differ")
+        if models is not None:
+            emit("attn_kernel_vs_model", case=name,
+                 **attn_model_check(name, out_k, models, dtype))
         kernel = "flash_prefill" if name.startswith("prefill") else \
             "flash_decode"
         errs[kernel] = max(errs[kernel], err)
@@ -950,8 +1100,9 @@ def host_ms(fn, iters: int = 3) -> float:
 
 def device_ms(fn) -> dict:
     """Device time of one call from a ``torch.profiler`` trace: all kernels
-    and copies, those of B4 (``prefill_kernel``), B5 (``decode_kernel``)
-    and B6 (``ssd_scan_kernel``), and the six kernels that took longest."""
+    and copies, those of B4 (``prefill_tc_kernel``, or ``prefill_kernel``
+    in f32), B5 (``decode_split_kernel`` and ``decode_merge_kernel``) and
+    B6 (``ssd_scan_kernel``), and the six kernels that took longest."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -968,8 +1119,9 @@ def device_ms(fn) -> dict:
             continue
         ms = e.self_device_time_total / 1e3
         out["all"] += ms
-        out["b4"] += ms if "prefill_kernel" in e.key else 0.0
-        out["b5"] += ms if "decode_kernel" in e.key else 0.0
+        out["b4"] += ms if re.search(r"prefill_(tc_)?kernel", e.key) else 0.0
+        out["b5"] += ms if re.search(r"decode_(split|merge)_kernel",
+                                     e.key) else 0.0
         out["b6"] += ms if "ssd_scan_kernel" in e.key else 0.0
         if ms > 0:
             by_kernel.append((ms, e.count, e.key[:80]))
@@ -1070,11 +1222,53 @@ def attn_bound(q, k, out, pairs: int) -> tuple[float, str]:
         else "operations"
 
 
+def decode_blocks(b: int, s: int, hkv: int, pos, window: int = 0) -> dict:
+    """The blocks one B5 launch runs: its chunk plan, the split kernel's
+    blocks (``blocks``), those whose chunk holds a key visible at ``pos``
+    (``blocks_live``; the rest exit without a load) and the merge's."""
+    from repro_torch.kernels.attention import flash
+    chunk = flash.decode_chunk(b, s, hkv)
+    n_split = -(-s // chunk)
+    live = 0
+    for p in (int(x) for x in pos):
+        lo = max(0, p - window + 1) if window > 0 else 0
+        live += sum(1 for c0 in range(0, s, chunk)
+                    if c0 <= p and min(s, c0 + chunk) > lo)
+    return dict(chunk=chunk, n_split=n_split, blocks=n_split * hkv * b,
+                blocks_live=live * hkv, merge_blocks=hkv * b)
+
+
+def decode_times_row(b: int, s: int, positions, seed: int) -> tuple:
+    """B5 at (b, s) with internlm2-1.8b's heads in bf16 and ``positions``:
+    (kernel call, plain call, SDPA call with a per-slot mask, (bound ms,
+    bound by), fields of its times line)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import flash, ref
+    q, k, v = attn_operands(b, 1, s, 16, 8, 128, torch.bfloat16, seed=seed)
+    pos = torch.from_numpy(np.asarray(positions, np.int32)).to(DEVICE)
+    mask = (torch.arange(s, device=DEVICE)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    calls = (lambda: flash.flash_decode(q, k, v, position=pos),
+             lambda: ref.decode_ref(q, k, v, position=pos),
+             lambda: F.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 attn_mask=mask, enable_gqa=True))
+    pairs = int((pos.long() + 1).sum())
+    return (calls, attn_bound(q, k, q, pairs),
+            dict(b=b, s=s, positions=[int(x) for x in positions],
+                 **decode_blocks(b, s, 8, positions)))
+
+
 def attn_times(errs: dict, launches: dict, lengths) -> list:
     """B4 at the serve phase's prefill (b=1, Sq=1024) and B5 at its decode
     (B=8, S=2048, each slot at its prompt length + 31, mid-run), bf16:
     kernel, plain version and SDPA (with GQA; causal, or a per-slot
-    mask) on the same inputs."""
+    mask) on the same inputs; then B5 at the multitier phase's shapes
+    (B = 2, 3, 8 over S=512, positions 128-143).  ``ms`` is one
+    synchronized call (:func:`time_ms`, the host's cost included, as for
+    every kernel), ``device_ms`` the card's time a call when calls queue
+    back to back (:func:`queued_ms`).  The kernels line takes the serve
+    shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import flash, ref
     bf = torch.bfloat16
@@ -1087,37 +1281,41 @@ def attn_times(errs: dict, launches: dict, lengths) -> list:
                  is_causal=True, enable_gqa=True))
     pairs = 1024 * 1025 // 2
     rows.append(("flash_prefill", "src/repro/kernels/attention/flash.py:94",
-                 calls, attn_bound(q, k, q, pairs), dict(b=1, sq=1024)))
-    qd, kd, vd = attn_operands(8, 1, 2048, 16, 8, 128, bf, seed=6)
-    pos = torch.from_numpy(np.asarray(lengths, np.int32) + 31).to(DEVICE)
-    mask = (torch.arange(2048, device=DEVICE)[None, :]
-            <= pos[:, None].long())[:, None, None, :]
-    calls_d = (lambda: flash.flash_decode(qd, kd, vd, position=pos),
-               lambda: ref.decode_ref(qd, kd, vd, position=pos),
-               lambda: F.scaled_dot_product_attention(
-                   qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
-                   attn_mask=mask, enable_gqa=True))
-    pairs_d = int((pos.long() + 1).sum())
+                 calls, attn_bound(q, k, q, pairs),
+                 dict(b=1, sq=1024, blocks=16 * (1024 // 64))))
+    calls_d, bound_d, shape_d = decode_times_row(
+        8, 2048, np.asarray(lengths, np.int64) + 31, seed=6)
     rows.append(("flash_decode", "src/repro/kernels/attention/flash.py:190",
-                 calls_d, attn_bound(qd, kd, qd, pairs_d),
-                 dict(b=8, s=2048, positions=[int(x) for x in pos])))
+                 calls_d, bound_d, shape_d))
+    rng = np.random.default_rng(11)
+    for b in (2, 3, 8):
+        calls_m, bound_m, shape_m = decode_times_row(
+            b, 512, rng.integers(128, 144, b), seed=20 + b)
+        rows.append((None, None, calls_m, bound_m, shape_m))
     out = []
     for name, replaces, (kern, plain, lib), (b_ms, b_by), shape in rows:
         lib_err = (kern().float() - lib().transpose(1, 2).float()
                    ).abs().max().item()
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain)
-        lib_ms = time_ms(lib)
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
         ms2 = time_ms(kern)
-        emit("times", kernel=name, dtype="bfloat16", **shape, ms=ms,
-             ms_repeat=ms2, plain_ms=plain_ms, library_ms=lib_ms,
+        (dev, ahead), (plain_dev, plain_ahead), (lib_dev, lib_ahead) = (
+            queued_ms(kern), queued_ms(plain), queued_ms(lib))
+        dev2, _ = queued_ms(kern)
+        emit("times", kernel=name or "flash_decode", dtype="bfloat16",
+             **shape, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+             library_ms=lib_ms, device_ms=dev, device_ms_repeat=dev2,
+             plain_device_ms=plain_dev, library_device_ms=lib_dev,
+             queued_ahead=[ahead, plain_ahead, lib_ahead],
              library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by)
+        if name is None:         # a multitier shape: not in the kernels line
+            continue
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/csrc/flash_attn.cu",
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "max_err": errs[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib_ms})
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "device_ms": dev, "library_device_ms": lib_dev})
     torch.cuda.empty_cache()
     return out
 
@@ -1245,10 +1443,12 @@ def ssd_times(errs: dict, launches: dict) -> dict:
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     ms2 = time_ms(kern)
+    dev, ahead = queued_ms(kern)
     bnd = ssd_bound(1, 1024, h, p, g, n, q, x.element_size())
     emit("times", kernel="ssd_scan", dtype="bfloat16",
          shape=dict(B=1, S=1024, H=h, P=p, G=g, N=n, Q=q), ms=ms,
-         ms_repeat=ms2, plain_ms=plain_ms, library_ms=None, **bnd)
+         ms_repeat=ms2, plain_ms=plain_ms, library_ms=None, device_ms=dev,
+         queued_ahead=ahead, **bnd)
     del x, dt, a, bb, cc
     torch.cuda.empty_cache()
     return {"name": "ssd_scan", "route": "cuda",
@@ -1259,7 +1459,8 @@ def ssd_times(errs: dict, launches: dict) -> dict:
             "max_err": errs["max_abs_err"],
             "max_scaled_err": errs["max_scaled_err"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"], "library_ms": None}
+            "bound_by": bnd["bound_by"], "library_ms": None,
+            "device_ms": dev, "library_device_ms": None}
 
 
 def phase_times(errs: dict, launches: dict) -> list:
@@ -1271,9 +1472,11 @@ def phase_times(errs: dict, launches: dict) -> list:
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         ms2 = time_ms(kern)
+        dev, ahead = queued_ms(kern)
         b_ms, b_by = bound(d, name)
         emit("times", kernel=name, r=R_FULL, ms=ms, ms_repeat=ms2,
-             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             plain_ms=plain_ms, device_ms=dev, queued_ahead=ahead,
+             bound_ms=b_ms, bound_by=b_by,
              achieved_tb_s=None if b_by != "bytes" else
              b_ms / ms * HBM_BYTES_PER_S / 1e12)
         rows.append({"name": name, "route": "cuda",
@@ -1282,7 +1485,8 @@ def phase_times(errs: dict, launches: dict) -> list:
                      "launches": launches[name],
                      "max_abs_err": errs[name], "max_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "library_ms": None,
+                     "device_ms": dev, "library_device_ms": None})
     del d
     torch.cuda.empty_cache()
     rows.append(mega_times(errs, launches))

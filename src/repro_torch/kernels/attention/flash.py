@@ -3,10 +3,15 @@
 * :func:`flash_prefill` (kernel B4) replaces
   ``repro/kernels/attention/flash.py::flash_prefill``: online-softmax GQA
   attention with causal / sliding-window masks by absolute position and a
-  ``q_offset``; key tiles the mask hides are skipped.
+  ``q_offset``; key tiles the mask hides are skipped.  bfloat16 runs both
+  products on the tensor cores (``prefill_tc_kernel``), float32 on the
+  CUDA cores (``prefill_kernel``).
 * :func:`flash_decode` (kernel B5) replaces ``flash_decode``: one query
-  token per sequence against a KV cache, the G query heads of one KV head
-  per block, causal to a per-batch ``position`` with an optional window.
+  token per sequence against a KV cache, causal to a per-batch
+  ``position`` with an optional window.  The cache splits into chunks of
+  :func:`decode_chunk` keys, one block per (chunk, KV head, sequence)
+  writing a float32 partial to scratch, and a merge kernel joins them: two
+  kernels, one launch as ``launches`` counts.
 
 For tensors on the CPU each wrapper runs its plain version
 (:mod:`repro_torch.kernels.attention.ref`).  For CUDA tensors it checks
@@ -26,6 +31,13 @@ from repro_torch.kernels.attention import ref
 
 SOURCES = ("flash_attn.cu",)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# Streaming multiprocessors of an H100 (SXM5), the one card the port
+# targets.
+H100_SMS = 132
+# B5 cuts the cache so that about this many blocks (live or not) run: six
+# a streaming multiprocessor, so that a wave whose positions reach only
+# part of the cache still fills the card.
+DECODE_TARGET_BLOCKS = 6 * H100_SMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,17 +48,35 @@ def library() -> ctypes.CDLL:
     lib = build.load("flash_attn", SOURCES)
     lib.flash_prefill_launch.argtypes = [_P] * 4 + [_I] * 10 + [_P]
     lib.flash_prefill_launch.restype = _I
-    lib.flash_decode_launch.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+    lib.flash_decode_launch.argtypes = [_P] * 6 + [_I] * 8 + [_P]
     lib.flash_decode_launch.restype = _I
     lib.flash_attn_smem_bytes.argtypes = [_I] * 3
     lib.flash_attn_smem_bytes.restype = _I
     return lib
 
 
-def smem_bytes(kernel: str, d: int, group: int = 1) -> int:
-    """Dynamic shared memory one block of ``kernel`` ("prefill" or
-    "decode", the latter with ``group`` query heads per KV head) takes."""
-    return library().flash_attn_smem_bytes(int(kernel == "decode"), d, group)
+_SMEM_KERNELS = {("prefill", torch.float32): 0, ("prefill", torch.bfloat16): 1,
+                 ("decode", torch.float32): 2, ("decode", torch.bfloat16): 3}
+
+
+def smem_bytes(kernel: str, d: int, group: int = 1,
+               dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory one block of ``kernel`` ("prefill", or
+    "decode" with ``group`` query heads per KV head) takes in ``dtype``."""
+    return library().flash_attn_smem_bytes(_SMEM_KERNELS[kernel, dtype], d,
+                                           group)
+
+
+def decode_chunk(b: int, s: int, hkv: int) -> int:
+    """Keys per chunk of B5's split: a multiple of 16 such that about
+    :data:`DECODE_TARGET_BLOCKS` blocks cover the (b, s, hkv) cache.  It
+    depends on the shapes only, never on the positions."""
+    n = max(1, _ceil_div(DECODE_TARGET_BLOCKS, b * hkv))
+    return max(16, 16 * _ceil_div(_ceil_div(s, n), 16))
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -126,11 +156,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         pos = torch.full((b,), int(position), dtype=torch.int32,
                          device=q.device)
+    chunk = decode_chunk(b, s, hkv)
+    n_split = _ceil_div(s, chunk)
+    part = torch.empty(b * hkv * n_split * (hq // hkv) * (d + 2),
+                       dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
     rc = library().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        pos.data_ptr(), _DTYPES[q.dtype], b, s, hq, hkv, d, int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        pos.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], b, s, hq, hkv, d,
+        int(window), chunk, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode")
     flash_decode.launches += 1
     return o
