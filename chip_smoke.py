@@ -11,7 +11,10 @@ failure raising (exit code != 0):
    process per library, started together), with each kernel's registers
    and spills, the flash kernels' dynamic shared memory and their count of
    tensor-core (HMMA) instructions in the SASS (``cuobjdump -sass``): the
-   bf16 prefill kernel must have some, and no spills at D <= 128;
+   bf16 prefill kernel must have some, and no spills at D <= 128; the same
+   for B6's kernels (its two bf16 product kernels must have HMMA
+   instructions, and none of its bf16 route may spill) and their dynamic
+   shared memory;
 3. kernel vs plain — B1 and B2 at full width (paper-3tier, R=1024) on
    seeded inputs shaped like a real model cache, against their plain
    PyTorch versions on the same inputs on the card;
@@ -73,7 +76,11 @@ failure raising (exit code != 0):
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
    S=80 (under one chunk) with an initial state, b=2, and G=2 at small
    widths; y within 1e-4 (f32) / 3e-2 (bf16) of max(1, |y|), the state
-   within 10x that;
+   within 10x that; each case launched twice, the two outputs equal to the
+   bit; the bf16 cases (the chunk-parallel tensor-core route) also within
+   one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
+   the plain model of that route's algebra, and closer to it than to the
+   model that drops the lo halves;
 15. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
@@ -129,6 +136,11 @@ MAMBA_ARCH = "mamba2-2.7b"
 # B6 vs its plain version: y's max abs error over max(1, |y|), the state's
 # below 10x that: the reference's kernel bar
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# bf16 B6 vs ref.ssd_chunk_parallel_model, the algebra of its route: one
+# bf16 ulp of the model's output plus this share of max(1, |model|), a
+# tenth of the float32 bar (kernel and model differ only in the order of
+# their float32 sums, over terms up to ~|y|)
+SSD_MODEL_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -192,6 +204,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.efe import efe
@@ -232,10 +245,25 @@ def phase_build() -> None:
     if spilled:
         raise AssertionError(f"the bf16 prefill kernel spills at D <= 128: "
                              f"{spilled}")
+    # B6's bf16 route: both product kernels on the tensor cores, no spills
+    ssd_hmma = sass_hmma(paths["ssd_scan"])
+    ssd_tc = {k: n for k, n in ssd_hmma.items() if "_tc_kernel" in k}
+    if len(ssd_tc) != 2 * len(ssd.TC_HEAD_DIMS) or min(ssd_tc.values()) == 0:
+        raise AssertionError(f"the bf16 SSD kernels do not all run on the "
+                             f"tensor cores: HMMA counts {ssd_hmma}")
+    spilled = {k: v for k, v in ptxas["ssd_scan"].items()
+               if ("_tc_kernel" in k or "ssd_pass_kernel" in k)
+               and not v.endswith(" 0 B spill stores, 0 B spill loads")}
+    if spilled:
+        raise AssertionError(f"the bf16 SSD kernels spill: {spilled}")
+    mamba = get_arch(MAMBA_ARCH).full
     emit("build", seconds=secs, libraries=sorted(libraries), ptxas=ptxas,
          flash_attn_dynamic_smem_bytes=smem, flash_attn_sass_hmma=hmma,
+         ssd_scan_sass_hmma=ssd_hmma,
          ssd_scan_dynamic_smem_bytes={
-             f"p{p}_n{n}_q{q}": ssd.smem_bytes(p, n, q)
+             f"{str(dtype)[6:]}_p{p}_n{n}_q{q}": ssd.smem_bytes(
+                 p, n, q, dtype, mamba.ssm_heads, mamba.ssm_ngroups)
+             for dtype in (torch.bfloat16, torch.float32)
              for p, n, q in ((64, 128, 256), (16, 16, 16), (64, 256, 1024))})
 
 
@@ -1102,7 +1130,9 @@ def device_ms(fn) -> dict:
     """Device time of one call from a ``torch.profiler`` trace: all kernels
     and copies, those of B4 (``prefill_tc_kernel``, or ``prefill_kernel``
     in f32), B5 (``decode_split_kernel`` and ``decode_merge_kernel``) and
-    B6 (``ssd_scan_kernel``), and the six kernels that took longest."""
+    B6 (``ssd_scan_kernel`` in f32; ``ssd_state_tc_kernel``,
+    ``ssd_pass_kernel`` and ``ssd_out_tc_kernel`` in bf16), and the six
+    kernels that took longest."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1122,7 +1152,8 @@ def device_ms(fn) -> dict:
         out["b4"] += ms if re.search(r"prefill_(tc_)?kernel", e.key) else 0.0
         out["b5"] += ms if re.search(r"decode_(split|merge)_kernel",
                                      e.key) else 0.0
-        out["b6"] += ms if "ssd_scan_kernel" in e.key else 0.0
+        out["b6"] += ms if re.search(
+            r"ssd_(scan|state_tc|pass|out_tc)_kernel", e.key) else 0.0
         if ms > 0:
             by_kernel.append((ms, e.count, e.key[:80]))
     out["top"] = sorted(by_kernel, reverse=True)[:6]
@@ -1361,18 +1392,62 @@ def ssd_cases():
     return cases
 
 
+def ssd_model_check(name: str, out_k, args) -> dict:
+    """Hold a bf16 B6 output (y, state) against
+    ``ref.ssd_chunk_parallel_model`` on the same inputs: within one bf16
+    ulp of the model rounded to bf16 plus ``SSD_MODEL_TOL`` of max(1,
+    |model|), y and state, and closer to it (fewer elements differing) than
+    to the model that drops the lo halves.  Returns the line's fields."""
+    from repro_torch.kernels.ssd import ref
+    row, ok = {}, True
+    models = [ref.ssd_chunk_parallel_model(*args, split_bf16=True,
+                                           keep_lo=keep_lo)
+              for keep_lo in (True, False)]
+    for i, key in enumerate(("y", "state")):
+        want, hi_only = models[0][i], models[1][i]
+        wb, got = want.bfloat16().float(), out_k[i].float()
+        diff = (got - wb).abs()
+        tol = SSD_MODEL_TOL * max(1.0, want.abs().max().item())
+        share = (diff != 0).float().mean().item()
+        share_hi = (got != hi_only.bfloat16().float()).float().mean().item()
+        row[key] = dict(
+            max_abs_err=diff.max().item(),
+            max_excess_over_one_ulp=(diff - bf16_ulp(wb)).max().item(),
+            tol=tol, share_differing=share,
+            share_differing_from_hi_only=share_hi)
+        ok = ok and row[key]["max_excess_over_one_ulp"] <= tol and \
+            share < share_hi
+    if not ok:
+        raise AssertionError(f"ssd_scan {name}: kernel disagrees with the "
+                             f"model of its algebra: {row}")
+    return row
+
+
 def phase_ssd_kernel_vs_plain() -> dict:
-    """B6 against its plain version on the same inputs on the card; returns
-    its worst max abs error and worst scaled error (y's over max(1, |y|),
-    the state's over 10 max(1, |state|))."""
+    """B6 against its plain version on the same inputs on the card, each
+    case launched twice (the two outputs must be equal to the bit), the
+    bf16 route also against the model of its algebra
+    (:func:`ssd_model_check`); returns its worst max abs error and worst
+    scaled error (y's over max(1, |y|), the state's over 10 max(1,
+    |state|))."""
     from repro_torch.kernels.ssd import ref, ssd
     worst = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
     for i, (name, b, s, h, p, g, n, q, dtype, init) in enumerate(ssd_cases()):
         x, dt, a, bb, cc, st = ssd_operands(b, s, h, p, g, n, dtype, init,
                                             seed=20 + i)
-        (yk, sk), (yp, sp) = (ssd.ssd_scan(x, dt, a, bb, cc, q, st),
-                              ref.ssd_chunked(x, dt, a, bb, cc, q, st))
+        (yk, sk), (yk2, sk2), (yp, sp) = (
+            ssd.ssd_scan(x, dt, a, bb, cc, q, st),
+            ssd.ssd_scan(x, dt, a, bb, cc, q, st),
+            ref.ssd_chunked(x, dt, a, bb, cc, q, st))
         torch.cuda.synchronize()
+        if not (torch.equal(yk, yk2) and torch.equal(sk, sk2)):
+            raise AssertionError(f"ssd_scan {name} ({dtype}): two launches "
+                                 f"on the same inputs differ")
+        if ssd.library().ssd_scan_route(1 if dtype == torch.bfloat16 else 0,
+                                        p, min(q, s)):
+            emit("ssd_kernel_vs_model", case=f"{name}_{str(dtype)[6:]}",
+                 **ssd_model_check(name, (yk, sk),
+                                   (x, dt, a, bb, cc, q, st)))
         errs = {}
         for key, k, pl in (("y", yk, yp), ("state", sk, sp)):
             k32, p32 = k.float(), pl.float()

@@ -33,19 +33,35 @@
 // Design.  One 256-thread block per router; the W-tick loop runs inside the
 // block.  Shared memory holds the router's EFE projection rows proj (P, S),
 // the per-action scaled posteriors qa (A, S), the posterior and its
-// temporaries, the slot chunk coefficients and the env carry; the slot tape
-// streams from global memory on every tick (it does not fit: at J=300 the
-// f32 planes are 583 KB per router, and the Pallas design that keeps them
-// resident needs more than a block's 227 KB).  Slots are visited in chunks
-// of kJChunk: one warp per slot dots the slot's q_prev row with qt (or with
-// qa of the slot's actions), then every thread adds the chunk into its own
-// accumulators in slot order.  coefact is one-hot per slot (its action), so
-// a slot with a zero coefficient is skipped: its term is an exact zero.
-// In-window pushes land in place at column t0 + w, never read by this
-// launch.  bf16 slots are a template instantiation: loads widen with
-// __bfloat162float, pushes round to nearest even with __float2bfloat16,
-// as torch's cast does.  The env, the observation and the sampling are
-// scalar work per router and run on thread 0.
+// temporaries, and, copied once at the window's start by all threads, the
+// window's operands (Stage): the router's schedules (arrival, hazard,
+// restart uniforms, Gumbel noise, telemetry validity), its pstack rows and
+// the shared tables (bin edges, log-preferences, costs, routing weights).
+// So the scalar work of a tick (the observation's binning, the sampling
+// and the dwell gate on thread 0; the fluid env window on warp 0, lane k
+// taking tier k, sums over the tiers gathered by shuffles in tier order)
+// reads shared memory only, and the router's carries, prev_action
+// included, stay in the block's Env until they are written back once at
+// the end: in the first design each of those steps was a chain of global
+// loads behind global stores on one thread while 255 waited at a barrier,
+// the fixed cost of a window whatever the tape.  The slot tape streams from global memory (at
+// J=300 the f32 planes are 583 KB per router, and the Pallas design that
+// keeps them resident needs more than a block's 227 KB), but only the
+// rows that carry weight: coefact is one-hot per slot (its action), and
+// at the window's start the used slots' coefficient rows are read once and
+// sorted, stably, into per-action lists of (slot, coefficient) with a
+// nonzero coefficient.  A tick's prior walks a_prev's list: one warp per
+// entry dots the slot's q_prev row with qt, then every thread adds the
+// entries' q_next rows into its own accumulators in slot order, with one
+// barrier between.  A selecting tick's EFE walks every entry once (its
+// q_prev row against qa of its action), then each (action, p) accumulator
+// sums its action's list in slot order.  The terms and their order are
+// those of the slot-by-slot walk that skipped zero coefficients, so the
+// outputs keep their bits.  The EFE's A x P projection dots go one warp
+// per (action, 8 rows of proj), so one qa load serves 8 dots.  In-window pushes land in place at column
+// t0 + w, never read by this launch.  bf16 slots are a template
+// instantiation: loads widen with __bfloat162float, pushes round to
+// nearest even with __float2bfloat16, as torch's cast does.
 //
 // Numerics: float32, accurate expf/logf, the plain version's guard
 // constants, built with -fmad=false so that plain multiplies and adds round
@@ -53,10 +69,12 @@
 // explicit fmaf).  No atomics: every reduction has a fixed order, so a
 // launch is deterministic.  The P95 sorts the K atoms by (latency, index)
 // with an insertion sort, the stable order of the plain version's argsort.
+// A coefact with more nonzero entries than used slots (the cache never
+// builds one) does not fit the lists: the router's belief comes back NaN.
 //
-// This first design rereads the used tape rows on every tick (about
-// 2 x (W + 2) passes per window); keeping them in L2 or shared memory
-// across ticks, TMA copies and wgmma are later work.
+// The tape rows are still reread on every tick that needs them; keeping
+// them in L2 or shared memory across ticks, TMA copies and wgmma are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,7 +143,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kJChunk = 32;      // slots staged per chunk
 constexpr int kSPer = 4;         // S <= kSPer * kThreads
 constexpr int kAccPer = 4;       // A * (P + 1) <= kAccPer * kThreads
 constexpr int kMaxKM = 8;        // K, M <= 8
@@ -196,212 +213,262 @@ struct Env {
   // this tick's observation, set by thread 0
   int bins[kMaxKM], ubins[kMaxKM], util_valid, a_prev, sampled, unstable;
   float ema, dtc;
+  long long pa;             // prev_action[r] as carried (a_prev is clamped)
+  int bad;                  // coefact had more nonzeros than the lists hold
 };
 
-// One fluid window for router r (thread 0): the arithmetic of
-// envsim/batched.py::fluid_window_step in the same order.
-__device__ void env_window(const MegaArgs& a, Env& e, int r, int w,
-                           int action) {
+// The window's operands of one router, copied into shared memory once at
+// the window's start, so that the per-tick scalar work reads no global
+// memory.
+struct Stage {
+  float *arrival;           // (W)
+  float *hazard;            // (W, K)
+  float *uni;               // (W, 2, K): fire, duration
+  float *gumbel;            // (W, A)
+  float *ov;                // (W, M), when obs_valid is given
+  float *ps;                // (12, K) this router's pstack rows
+  float *obs_edges;         // (M, E)
+  float *util_edges;        // (n_util_edges)
+  float *logc;              // (2, M, NB)
+  float *cost;              // (A)
+  float *ptable;            // (A, K)
+  int *n_edges;             // (M)
+  // per-action slot lists: entries [off[a], off[a + 1]) hold, in slot
+  // order, the used slots j with coefact[j, a] != 0
+  int *off;                 // (A + 1)
+  int *slot;                // (n_used) entries' slots
+  int *act;                 // (n_used) entries' actions
+  float *coef;              // (n_used) entries' coefficients
+  float *pend;              // (n_used) entries' pend terms
+};
+
+// floats (or ints) of shared memory the Stage takes.
+__host__ __device__ inline size_t stage_words(const MegaArgs& a) {
+  return (size_t)a.W * (1 + 3 * a.K + a.A + a.M) + 12 * a.K +
+         (size_t)a.M * a.E + a.n_util_edges + 2 * a.M * a.NB + a.A +
+         (size_t)a.A * a.K + a.M + (a.A + 1) + 4 * (size_t)a.n_used;
+}
+
+// lane k's v summed over the K tiers in tier order; every lane gets it.
+__device__ __forceinline__ float tier_sum(float v, int K) {
+  float s = 0.f;
+  for (int i = 0; i < K; ++i) s += __shfl_sync(0xffffffffu, v, i);
+  return s;
+}
+
+// One fluid window for router r: the arithmetic of
+// envsim/batched.py::fluid_window_step in the same order, on the window's
+// operands staged in shared memory, run by warp 0.  Lane k < K does tier
+// k's work; every sum over the tiers is taken in tier order (tier_sum),
+// and the router's scalars are updated by lane 0.
+__device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
+                           int w, int action, int lane) {
   const int R = a.R, K = a.K, M = a.M;
+  const int k = lane;
+  const bool tier = k < K;
   const size_t rk = (size_t)r * K;
-  const float* ps = a.pstack;
-  const size_t pl = (size_t)R * K;  // one pstack plane
-  float wn[kMaxKM], lam[kMaxKM], arr[kMaxKM], served[kMaxKM], b1[kMaxKM],
-      over[kMaxKM], lat[kMaxKM], p95[kMaxKM], timed[kMaxKM], comp[kMaxKM],
-      cap_rate[kMaxKM], restarted[kMaxKM], killed[kMaxKM], util_old[kMaxKM];
-  int up[kMaxKM];
+  const float* ps = g.ps;           // (12, K): plane i at ps[i * K]
   float wsum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    wn[k] = fmaxf(a.ptable[(size_t)action * K + k], 0.f);
-    wsum += wn[k];
-  }
+  for (int i = 0; i < K; ++i) wsum += fmaxf(g.ptable[action * K + i], 0.f);
   wsum = fmaxf(wsum, 1e-12f);
-  const float rate = a.arrival[(size_t)w * R + r];
-  float refused = 0.f;
-  for (int k = 0; k < K; ++k) {
-    wn[k] = wn[k] / wsum;
-    up[k] = e.down_left[k] <= kEps;
-    const float upf = up[k] ? 1.f : 0.f;
-    lam[k] = wn[k] * rate;
-    arr[k] = lam[k] * a.dt;
-    refused += arr[k] * (1.f - upf);
-    const float admitted = arr[k] * upf;
-    const float servers = ps[0 * pl + rk + k], mu = ps[1 * pl + rk + k];
-    cap_rate[k] = servers * mu;
-    const float cap = cap_rate[k] * a.dt * upf;
+  const float rate = g.arrival[w];
+  float lam = 0.f, arr = 0.f, over = 0.f, lat = 0.f, p95 = 0.f, timed = 0.f,
+        comp = 0.f, cap_rate = 0.f, b1 = 0.f, refusing = 0.f;
+  bool up = false;
+  if (tier) {
+    const float wn = fmaxf(g.ptable[action * K + k], 0.f) / wsum;
+    up = e.down_left[k] <= kEps;
+    const float upf = up ? 1.f : 0.f;
+    lam = wn * rate;
+    arr = lam * a.dt;
+    refusing = arr * (1.f - upf);
+    const float admitted = arr * upf;
+    const float servers = ps[0 * K + k], mu = ps[1 * K + k];
+    cap_rate = servers * mu;
+    const float cap = cap_rate * a.dt * upf;
     const float avail = e.backlog[k] + admitted;
-    served[k] = fminf(avail, cap);
-    b1[k] = avail - served[k];
-    const float syscap = ps[4 * pl + rk + k] + servers;
-    over[k] = fmaxf(b1[k] - syscap, 0.f);
-    b1[k] = b1[k] - over[k];
+    const float served = fminf(avail, cap);
+    b1 = avail - served;
+    const float syscap = ps[4 * K + k] + servers;
+    over = fmaxf(b1 - syscap, 0.f);
+    b1 = b1 - over;
     const float wait =
-        cap_rate[k] > 0.f
-            ? 0.5f * (e.backlog[k] + b1[k]) / fmaxf(cap_rate[k], kEps)
-            : 0.f;
-    const float svc = ps[2 * pl + rk + k];
-    lat[k] = wait + svc;
-    p95[k] = wait + svc * ps[3 * pl + rk + k];
-    timed[k] = lat[k] > a.timeout_s ? served[k] : 0.f;
-    comp[k] = served[k] - timed[k];
+        cap_rate > 0.f ? 0.5f * (e.backlog[k] + b1) / fmaxf(cap_rate, kEps)
+                       : 0.f;
+    const float svc = ps[2 * K + k];
+    lat = wait + svc;
+    p95 = wait + svc * ps[3 * K + k];
+    timed = lat > a.timeout_s ? served : 0.f;
+    comp = served - timed;
     const float util =
-        cap > 0.f ? served[k] / fmaxf(cap_rate[k] * a.dt, kEps) : 0.f;
+        cap > 0.f ? served / fmaxf(cap_rate * a.dt, kEps) : 0.f;
     e.util_accum[k] = e.util_accum[k] + util * a.dt;
   }
+  const float refused = tier_sum(refusing, K);
   const int t_idx = a.t0 + w;
   const bool scrape_now = ((t_idx + 1) % a.scrape_every) == 0;
-  for (int k = 0; k < K; ++k) {
-    util_old[k] = e.util_scrape[k];
+  float util_old = 0.f, restarted = 0.f, killed = 0.f;
+  if (tier) {
+    util_old = e.util_scrape[k];
     if (scrape_now) {
       e.util_scrape[k] = e.util_accum[k] / a.scrape_den;
       e.util_accum[k] = 0.f;
     }
-  }
-  const float* uf = a.uniforms + ((size_t)w * 2 + 0) * pl + rk;
-  const float* ud = a.uniforms + ((size_t)w * 2 + 1) * pl + rk;
-  const float* hz = a.hazard + (size_t)w * pl + rk;
-  for (int k = 0; k < K; ++k) {
-    const float rps_delta = lam[k] - e.prev_rps[k];
+    const float rps_delta = lam - e.prev_rps[k];
     const float hazard =
-        hz[k] * ps[5 * pl + rk + k] *
-        (ps[6 * pl + rk + k] +
-         ps[7 * pl + rk + k] * fmaxf(e.util_scrape[k] - ps[8 * pl + rk + k],
-                                     0.f) +
-         ps[9 * pl + rk + k] * fmaxf(rps_delta, 0.f) /
-             fmaxf(cap_rate[k], kEps));
+        g.hazard[w * K + k] * ps[5 * K + k] *
+        (ps[6 * K + k] +
+         ps[7 * K + k] * fmaxf(e.util_scrape[k] - ps[8 * K + k], 0.f) +
+         ps[9 * K + k] * fmaxf(rps_delta, 0.f) / fmaxf(cap_rate, kEps));
     const float p_restart = 1.f - expf(-hazard * a.dt);
-    restarted[k] = (up[k] && uf[k] < p_restart) ? 1.f : 0.f;
-    killed[k] = b1[k] * restarted[k];
-    e.backlog[k] = b1[k] * (1.f - restarted[k]);
-    const float rmin = ps[10 * pl + rk + k], rmax = ps[11 * pl + rk + k];
-    const float dur = rmin + ud[k] * (rmax - rmin);
+    restarted = (up && g.uni[(w * 2 + 0) * K + k] < p_restart) ? 1.f : 0.f;
+    killed = b1 * restarted;
+    e.backlog[k] = b1 * (1.f - restarted);
+    const float rmin = ps[10 * K + k], rmax = ps[11 * K + k];
+    const float dur = rmin + g.uni[(w * 2 + 1) * K + k] * (rmax - rmin);
     const float dl = fmaxf(e.down_left[k] - a.dt, 0.f);
-    e.down_left[k] = restarted[k] > 0.f ? dur : dl;
+    e.down_left[k] = restarted > 0.f ? dur : dl;
   }
 
   // accounting
-  float win_success = 0.f, over_sum = 0.f, to_sum = 0.f, kill_sum = 0.f,
-        arr_sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    win_success += comp[k];
-    over_sum += over[k];
-    to_sum += timed[k];
-    kill_sum += killed[k];
-    arr_sum += arr[k];
-  }
+  const float win_success = tier_sum(comp, K), over_sum = tier_sum(over, K),
+              to_sum = tier_sum(timed, K), kill_sum = tier_sum(killed, K),
+              arr_sum = tier_sum(arr, K);
   const float win_fail = refused + over_sum + to_sum + kill_sum;
 
   // completion-weighted P95: stable (latency, index) order, first atom
-  // whose cumulative share reaches 0.95
+  // whose cumulative share reaches 0.95 (every lane, on the gathered atoms)
+  float p95s[kMaxKM], comps[kMaxKM];
+  for (int i = 0; i < K; ++i) {
+    p95s[i] = __shfl_sync(0xffffffffu, p95, i);
+    comps[i] = __shfl_sync(0xffffffffu, comp, i);
+  }
   int order[kMaxKM];
-  for (int k = 0; k < K; ++k) {
-    int i = k;
-    while (i > 0 && p95[order[i - 1]] > p95[k]) {
+  for (int j = 0; j < K; ++j) {
+    int i = j;
+    while (i > 0 && p95s[order[i - 1]] > p95s[j]) {
       order[i] = order[i - 1];
       --i;
     }
-    order[i] = k;
+    order[i] = j;
   }
   float total = 0.f;
-  for (int i = 0; i < K; ++i) total += comp[order[i]];
+  for (int i = 0; i < K; ++i) total += comps[order[i]];
   total = fmaxf(total, kEps);
   float p95_win = 0.f, cum = 0.f;
   for (int i = 0; i < K; ++i) {
-    cum += comp[order[i]];
+    cum += comps[order[i]];
     if (cum / total >= 0.95f) {
-      p95_win = p95[order[i]];
+      p95_win = p95s[order[i]];
       break;
     }
   }
-  if (win_success > kEps)
-    e.p95_ema = a.keep_lat * e.p95_ema + a.a_lat * p95_win;
-  const float total_win = win_success + win_fail;
-  const float err_frac = win_fail / fmaxf(total_win, kEps);
-  if (total_win > kEps)
-    e.err_ema = a.keep_err * e.err_ema + a.a_err * err_frac;
-  e.rps_ema = a.keep_rps * e.rps_ema + a.a_rps * rate;
-  float queue[kMaxKM], depth = 0.f;
-  for (int k = 0; k < K; ++k) {
-    queue[k] = fmaxf(e.backlog[k] - ps[0 * pl + rk + k], 0.f);
-    depth += queue[k];
+  const float queue = tier ? fmaxf(e.backlog[k] - ps[0 * K + k], 0.f) : 0.f;
+  const float depth = tier_sum(queue, K);
+  const bool cell_up =
+      __ballot_sync(0xffffffffu, tier && !(e.down_left[k] <= kEps)) == 0;
+  if (a.masked_obs && a.restart_blackout && !cell_up && tier)
+    e.util_scrape[k] = util_old;
+  if (tier) {
+    e.tier_requests[k] += arr;
+    e.tier_success[k] += comp;
+    e.n_restarts[k] += restarted;
+    e.prev_rps[k] = lam;
+    // traces
+    const size_t rl = (size_t)R * K;  // one trace plane
+    float* rk_row = a.tr_rk + (size_t)w * 8 * rl + rk + k;
+    rk_row[0 * rl] = g.ptable[action * K + k];
+    rk_row[1 * rl] = e.util_scrape[k];
+    rk_row[2 * rl] = e.down_left[k] <= kEps ? 1.f : 0.f;
+    rk_row[3 * rl] = queue;
+    rk_row[4 * rl] = lat;
+    rk_row[5 * rl] = p95;
+    rk_row[6 * rl] = comp;
+    rk_row[7 * rl] = restarted;
+    e.tutil[k] = e.util_scrape[k];
   }
+  if (lane == 0) {
+    if (win_success > kEps)
+      e.p95_ema = a.keep_lat * e.p95_ema + a.a_lat * p95_win;
+    const float total_win = win_success + win_fail;
+    const float err_frac = win_fail / fmaxf(total_win, kEps);
+    if (total_win > kEps)
+      e.err_ema = a.keep_err * e.err_ema + a.a_err * err_frac;
+    e.rps_ema = a.keep_rps * e.rps_ema + a.a_rps * rate;
 
-  // telemetry: validity mask, blackout, stale hold
-  const float fresh[4] = {e.p95_ema, e.rps_ema, depth, e.err_ema};
-  float wmask[kMaxKM], pub[kMaxKM];
-  bool cell_up = true;
-  for (int k = 0; k < K; ++k) cell_up = cell_up && e.down_left[k] <= kEps;
-  for (int m = 0; m < M; ++m) {
-    wmask[m] = 1.f;
-    pub[m] = fresh[m];
-    if (a.masked_obs) {
-      if (a.obs_valid) wmask[m] = a.obs_valid[((size_t)w * R + r) * M + m];
-      if (a.restart_blackout) wmask[m] = wmask[m] * (cell_up ? 1.f : 0.f);
-      pub[m] = wmask[m] > 0.f ? fresh[m] : e.held[m];
+    // telemetry: validity mask, blackout, stale hold
+    const float fresh[4] = {e.p95_ema, e.rps_ema, depth, e.err_ema};
+    float wmask[kMaxKM], pub[kMaxKM];
+    for (int m = 0; m < M; ++m) {
+      wmask[m] = 1.f;
+      pub[m] = fresh[m];
+      if (a.masked_obs) {
+        if (a.obs_valid) wmask[m] = g.ov[w * M + m];
+        if (a.restart_blackout) wmask[m] = wmask[m] * (cell_up ? 1.f : 0.f);
+        pub[m] = wmask[m] > 0.f ? fresh[m] : e.held[m];
+      }
+    }
+    e.acct[0] += arr_sum;
+    e.acct[1] += win_success;
+    e.acct[2] += to_sum;
+    e.acct[3] += over_sum;
+    e.acct[4] += refused;
+    e.acct[5] += kill_sum;
+    a.tr_r[((size_t)w * 4 + 0) * R + r] = win_success;
+    a.tr_r[((size_t)w * 4 + 1) * R + r] = win_fail;
+    const size_t rm = (size_t)R * M;
+    for (int m = 0; m < M; ++m) {
+      a.tr_rm[((size_t)w * 3 + 0) * rm + (size_t)r * M + m] = pub[m];
+      a.tr_rm[((size_t)w * 3 + 1) * rm + (size_t)r * M + m] = wmask[m];
+      e.raw[m] = pub[m];
+      e.held[m] = pub[m];
+      if (a.emits_mask) e.omask[m] = wmask[m];
     }
   }
-  if (a.masked_obs && a.restart_blackout && !cell_up)
-    for (int k = 0; k < K; ++k) e.util_scrape[k] = util_old[k];
-
-  e.acct[0] += arr_sum;
-  e.acct[1] += win_success;
-  e.acct[2] += to_sum;
-  e.acct[3] += over_sum;
-  e.acct[4] += refused;
-  e.acct[5] += kill_sum;
-  for (int k = 0; k < K; ++k) {
-    e.tier_requests[k] += arr[k];
-    e.tier_success[k] += comp[k];
-    e.n_restarts[k] += restarted[k];
-    e.prev_rps[k] = lam[k];
-  }
-
-  // traces
-  float* rk_row = a.tr_rk + (size_t)w * 8 * pl + rk;
-  for (int k = 0; k < K; ++k) {
-    rk_row[0 * pl + k] = a.ptable[(size_t)action * K + k];
-    rk_row[1 * pl + k] = e.util_scrape[k];
-    rk_row[2 * pl + k] = e.down_left[k] <= kEps ? 1.f : 0.f;
-    rk_row[3 * pl + k] = queue[k];
-    rk_row[4 * pl + k] = lat[k];
-    rk_row[5 * pl + k] = p95[k];
-    rk_row[6 * pl + k] = comp[k];
-    rk_row[7 * pl + k] = restarted[k];
-  }
-  a.tr_r[((size_t)w * 4 + 0) * R + r] = win_success;
-  a.tr_r[((size_t)w * 4 + 1) * R + r] = win_fail;
-  const size_t rm = (size_t)R * M;
-  for (int m = 0; m < M; ++m) {
-    a.tr_rm[((size_t)w * 3 + 0) * rm + (size_t)r * M + m] = pub[m];
-    a.tr_rm[((size_t)w * 3 + 1) * rm + (size_t)r * M + m] = wmask[m];
-    e.raw[m] = pub[m];
-    e.held[m] = pub[m];
-    if (a.emits_mask) e.omask[m] = wmask[m];
-  }
-  for (int k = 0; k < K; ++k) e.tutil[k] = e.util_scrape[k];
+  __syncwarp();
 }
 
+// Four blocks an SM (64 registers a thread, no spills at the paper's
+// widths): the per-tick scalar chains and barriers of one router hide
+// behind the others'.
 template <typename TS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 mega_window_kernel(const MegaArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int r = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int S = a.S, A = a.A, P = a.P, M = a.M, NB = a.NB, K = a.K,
-            J = a.J, MNB = a.M * a.NB, P1 = a.P + 1;
-  float* proj = smem;             // P * S
+            J = a.J, W = a.W, MNB = a.M * a.NB, P1 = a.P + 1;
+  Env& e = *reinterpret_cast<Env*>(smem);
+  float* proj = smem + sizeof(Env) / sizeof(float);   // P * S
   float* qa = proj + P * S;       // A * S
   float* q = qa + A * S;          // S   belief
   float* qn = q + S;              // S   posterior
   float* qt = qn + S;             // S   q / colsum[a_prev]
   float* lp = qt + S;             // S   loglik, then the log-posterior
-  float* pend = lp + S;           // kJChunk * A
-  float* so = pend + kJChunk * A; // A * (P + 1) slot sums
+  float* so = lp + S;             // A * (P + 1) slot sums
   float* pd = so + A * P1;        // A * P proj . qa
   float* gsh = pd + A * P;        // A   G
   float* sqa = gsh + A;           // A
   float* red = sqa + A;           // kWarps
-  Env& e = *reinterpret_cast<Env*>(red + kWarps);
+  Stage g;
+  g.arrival = red + kWarps;
+  g.hazard = g.arrival + W;
+  g.uni = g.hazard + W * K;
+  g.gumbel = g.uni + 2 * W * K;
+  g.ov = g.gumbel + W * A;
+  g.ps = g.ov + W * M;
+  g.obs_edges = g.ps + 12 * K;
+  g.util_edges = g.obs_edges + M * a.E;
+  g.logc = g.util_edges + a.n_util_edges;
+  g.cost = g.logc + 2 * MNB;
+  g.ptable = g.cost + A;
+  g.n_edges = reinterpret_cast<int*>(g.ptable + A * K);
+  g.off = g.n_edges + M;
+  g.slot = g.off + A + 1;
+  g.act = g.slot + a.n_used;
+  g.coef = reinterpret_cast<float*>(g.act + a.n_used);
+  g.pend = g.coef + a.n_used;
 
   const TS* qp_r = reinterpret_cast<const TS*>(a.q_prev) + (size_t)r * J * S;
   const TS* qn_r = reinterpret_cast<const TS*>(a.q_next) + (size_t)r * J * S;
@@ -418,6 +485,65 @@ mega_window_kernel(const MegaArgs a) {
   for (int i = tid; i < P * S; i += kThreads)
     proj[i] = a.proj[(size_t)r * P * S + i];
   for (int i = tid; i < S; i += kThreads) q[i] = a.belief[(size_t)r * S + i];
+  // the window's schedules, noise and tables (see Stage)
+  for (int i = tid; i < W; i += kThreads)
+    g.arrival[i] = a.arrival[(size_t)i * a.R + r];
+  for (int i = tid; i < W * K; i += kThreads)
+    g.hazard[i] = a.hazard[((size_t)(i / K) * a.R + r) * K + i % K];
+  for (int i = tid; i < 2 * W * K; i += kThreads)
+    g.uni[i] = a.uniforms[((size_t)(i / K) * a.R + r) * K + i % K];
+  for (int i = tid; i < W * A; i += kThreads)
+    g.gumbel[i] = a.gumbel[((size_t)(i / A) * a.R + r) * A + i % A];
+  if (a.obs_valid)
+    for (int i = tid; i < W * M; i += kThreads)
+      g.ov[i] = a.obs_valid[((size_t)(i / M) * a.R + r) * M + i % M];
+  for (int i = tid; i < 12 * K; i += kThreads)
+    g.ps[i] = a.pstack[((size_t)(i / K) * a.R + r) * K + i % K];
+  for (int i = tid; i < M * a.E; i += kThreads) g.obs_edges[i] = a.obs_edges[i];
+  for (int i = tid; i < a.n_util_edges; i += kThreads)
+    g.util_edges[i] = a.util_edges[i];
+  for (int i = tid; i < 2 * MNB; i += kThreads) g.logc[i] = a.logc[i];
+  for (int i = tid; i < A; i += kThreads) g.cost[i] = a.cost[i];
+  for (int i = tid; i < A * K; i += kThreads) g.ptable[i] = a.ptable[i];
+  for (int i = tid; i < M; i += kThreads) g.n_edges[i] = a.n_edges[i];
+  // Per-action slot lists, a stable counting sort of the used slots' nonzero
+  // coefficients by action: each warp counts its actions' entries, thread 0
+  // turns the counts into offsets, then each warp writes its actions'
+  // entries in slot order.  coefact is one-hot per slot, so the entries
+  // number at most n_used; more (a coefact the cache never builds) set bad.
+  for (int ai = warp; ai < A; ai += kWarps) {
+    int n = 0;
+    for (int j0 = 0; j0 < n_used; j0 += 32) {
+      const int j = j0 + lane;
+      n += __popc(__ballot_sync(
+          0xffffffffu, j < n_used && coef_r[(size_t)j * A + ai] != 0.f));
+    }
+    if (lane == 0) g.off[ai + 1] = n;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    g.off[0] = 0;
+    for (int ai = 0; ai < A; ++ai) g.off[ai + 1] += g.off[ai];
+    e.bad = g.off[A] > n_used;
+  }
+  __syncthreads();
+  if (!e.bad) {
+    for (int ai = warp; ai < A; ai += kWarps) {
+      int at = g.off[ai];
+      for (int j0 = 0; j0 < n_used; j0 += 32) {
+        const int j = j0 + lane;
+        const float c = j < n_used ? coef_r[(size_t)j * A + ai] : 0.f;
+        const unsigned nz = __ballot_sync(0xffffffffu, c != 0.f);
+        if (c != 0.f) {
+          const int i = at + __popc(nz & ((1u << lane) - 1u));
+          g.slot[i] = j;
+          g.act[i] = ai;
+          g.coef[i] = c;
+        }
+        at += __popc(nz);
+      }
+    }
+  }
   if (tid == 0) {
     for (int k = 0; k < K; ++k) {
       e.backlog[k] = a.envk[0 * pl + rk + k];
@@ -439,7 +565,8 @@ mega_window_kernel(const MegaArgs a) {
       e.omask[m] = a.obsm[1 * ml + rm + m];
       e.held[m] = a.obsm[2 * ml + rm + m];
     }
-    long long ap = a.prev_action[r];
+    const long long ap = a.prev_action[r];
+    e.pa = ap;
     e.a_prev = (int)(ap < 0 ? 0 : (ap >= A ? A - 1 : ap));
     e.dtc = a.scal[(size_t)r * 2 + 0];
     e.ema = a.scal[(size_t)r * 2 + 1];
@@ -455,14 +582,14 @@ mega_window_kernel(const MegaArgs a) {
     if (tid == 0) {
       for (int m = 0; m < M; ++m) {
         int b = 0;
-        for (int i = 0; i < a.n_edges[m]; ++i)
-          b += e.raw[m] >= a.obs_edges[m * a.E + i];
+        for (int i = 0; i < g.n_edges[m]; ++i)
+          b += e.raw[m] >= g.obs_edges[m * a.E + i];
         e.bins[m] = b;
       }
       for (int k = 0; k < K; ++k) {
         int b = 0;
         for (int i = 0; i < a.n_util_edges; ++i)
-          b += e.tutil[K - 1 - k] >= a.util_edges[i];
+          b += e.tutil[K - 1 - k] >= g.util_edges[i];
         e.ubins[k] = b;
       }
       e.util_valid = (t_idx % a.util_period) == 0 && t_idx > 0;
@@ -496,31 +623,28 @@ mega_window_kernel(const MegaArgs a) {
     __syncthreads();
     const float sum_qt = block_sum(part, red);
 
-    // ---- slot term of the prior: sum_j pend_j qn_j, slots j < t0 only
+    // ---- slot term of the prior: sum_j pend_j qn_j over a_prev's list
+    // (the used slots j < t0 whose coefficient for a_prev is not zero), in
+    // slot order: one warp per entry forms pend, then every thread adds
+    // the entries into its own accumulators
     float acc[kSPer];
 #pragma unroll
     for (int i = 0; i < kSPer; ++i) acc[i] = 0.f;
-    for (int j0 = 0; j0 < n_used; j0 += kJChunk) {
-      const int jn = min(kJChunk, n_used - j0);
-      for (int jj = warp; jj < jn; jj += kWarps) {
-        const int j = j0 + jj;
-        const float c = coef_r[(size_t)j * A + ap];
-        float v = 0.f;
-        if (c != 0.f) v = c * row_dot(qp_r + (size_t)j * S, qt, S);
-        if (lane == 0) pend[jj] = v;
-      }
-      __syncthreads();
-      for (int jj = 0; jj < jn; ++jj) {
-        const float pj = pend[jj];
-        if (pj == 0.f) continue;
-        const TS* row = qn_r + (size_t)(j0 + jj) * S;
+    const int l0 = e.bad ? 0 : g.off[ap], l1 = e.bad ? 0 : g.off[ap + 1];
+    for (int i = l0 + warp; i < l1; i += kWarps) {
+      const float v = g.coef[i] * row_dot(qp_r + (size_t)g.slot[i] * S, qt, S);
+      if (lane == 0) g.pend[i] = v;
+    }
+    __syncthreads();
+    for (int i = l0; i < l1; ++i) {
+      const float pj = g.pend[i];
+      if (pj == 0.f) continue;
+      const TS* row = qn_r + (size_t)g.slot[i] * S;
 #pragma unroll
-        for (int i = 0; i < kSPer; ++i) {
-          const int s = tid + i * kThreads;
-          if (s < S) acc[i] = fmaf(pj, load(row + s), acc[i]);
-        }
+      for (int u = 0; u < kSPer; ++u) {
+        const int s = tid + u * kThreads;
+        if (s < S) acc[u] = fmaf(pj, load(row + s), acc[u]);
       }
-      __syncthreads();
     }
 
     // ---- prior, posterior
@@ -563,55 +687,54 @@ mega_window_kernel(const MegaArgs a) {
         v = warp_sum(v);
         if (lane == 0) sqa[ai] = v;
       }
-      for (int i = warp; i < A * P; i += kWarps) {
-        const int ai = i / P, p = i % P;
-        float v = 0.f;
-        for (int s = lane; s < S; s += 32)
-          v = fmaf(proj[(size_t)p * S + s], qa[(size_t)ai * S + s], v);
-        v = warp_sum(v);
-        if (lane == 0) pd[i] = v;
+      // proj . qa: one warp per (action, 8 rows of proj), so a qa load
+      // serves 8 dots; each dot sums its lane's terms in s order, then
+      // across the warp
+      const int p8 = (P + 7) / 8;
+      for (int u = warp; u < A * p8; u += kWarps) {
+        const int ai = u / p8, p0 = (u % p8) * 8;
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = 0.f;
+        for (int s = lane; s < S; s += 32) {
+          const float x = qa[(size_t)ai * S + s];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (p0 + j < P) v[j] = fmaf(proj[(size_t)(p0 + j) * S + s], x, v[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (p0 + j >= P) break;
+          v[j] = warp_sum(v[j]);
+          if (lane == 0) pd[ai * P + p0 + j] = v[j];
+        }
       }
+      // every list entry's pend against qa of its action (one warp per
+      // entry), then each (action, p) sum over its action's list in slot
+      // order
       float acc2[kAccPer];
 #pragma unroll
       for (int i = 0; i < kAccPer; ++i) acc2[i] = 0.f;
-      for (int j0 = 0; j0 < n_used; j0 += kJChunk) {
-        const int jn = min(kJChunk, n_used - j0);
-        for (int jj = warp; jj < jn; jj += kWarps) {
-          const int j = j0 + jj;
-          const TS* row = qp_r + (size_t)j * S;
-          for (int a0 = 0; a0 < A; a0 += 32) {
-            const int ai = a0 + lane;
-            const float c = ai < A ? coef_r[(size_t)j * A + ai] : 0.f;
-            if (ai < A) pend[jj * A + ai] = 0.f;
-            unsigned nz = __ballot_sync(0xffffffffu, c != 0.f);
-            __syncwarp();
-            while (nz) {
-              const int b = __ffs(nz) - 1;
-              nz &= nz - 1;
-              const float cb = __shfl_sync(0xffffffffu, c, b);
-              const float d = row_dot(row, qa + (size_t)(a0 + b) * S, S);
-              if (lane == 0) pend[jj * A + a0 + b] = cb * d;
-            }
-            __syncwarp();
-          }
-        }
-        __syncthreads();
+      const int n_ent = e.bad ? 0 : g.off[A];
+      for (int i = warp; i < n_ent; i += kWarps) {
+        const float d = row_dot(qp_r + (size_t)g.slot[i] * S,
+                                qa + (size_t)g.act[i] * S, S);
+        if (lane == 0) g.pend[i] = g.coef[i] * d;
+      }
+      __syncthreads();
 #pragma unroll
-        for (int i = 0; i < kAccPer; ++i) {
-          const int idx = tid + i * kThreads;
-          if (idx < A * P1) {
-            const int ai = idx / P1, p = idx % P1;
-            for (int jj = 0; jj < jn; ++jj) {
-              const float pv = pend[jj * A + ai];
-              if (pv == 0.f) continue;
-              const int j = j0 + jj;
-              const float x =
-                  p < P ? qnproj_r[(size_t)j * P + p] : sumqn_r[j];
-              acc2[i] = fmaf(pv, x, acc2[i]);
-            }
+      for (int i = 0; i < kAccPer; ++i) {
+        const int idx = tid + i * kThreads;
+        if (idx < A * P1 && !e.bad) {
+          const int ai = idx / P1, p = idx % P1;
+          for (int u = g.off[ai]; u < g.off[ai + 1]; ++u) {
+            const float pv = g.pend[u];
+            if (pv == 0.f) continue;
+            const int j = g.slot[u];
+            const float x = p < P ? qnproj_r[(size_t)j * P + p] : sumqn_r[j];
+            acc2[i] = fmaf(pv, x, acc2[i]);
           }
         }
-        __syncthreads();
       }
 #pragma unroll
       for (int i = 0; i < kAccPer; ++i) {
@@ -619,7 +742,7 @@ mega_window_kernel(const MegaArgs a) {
         if (idx < A * P1) so[idx] = acc2[i];
       }
       __syncthreads();
-      const float* logc = a.logc + (e.unstable ? MNB : 0);
+      const float* logc = g.logc + (e.unstable ? MNB : 0);
       for (int ai = tid; ai < A; ai += kThreads) {
         const float sq = sqa[ai];
         const float sden = fmaxf(a.usd * sq + so[ai * P1 + P], 1e-30f);
@@ -637,7 +760,7 @@ mega_window_kernel(const MegaArgs a) {
             amb += a.emits_mask ? o * e.omask[p - MNB] : o;
           }
         }
-        gsh[ai] = risk + amb + a.cost[ai];
+        gsh[ai] = risk + amb + g.cost[ai];
       }
       __syncthreads();
       if (tid == 0) {
@@ -645,7 +768,7 @@ mega_window_kernel(const MegaArgs a) {
         for (int ai = 0; ai < A; ++ai) gmax = fmaxf(gmax, -a.beta * gsh[ai]);
         float z = 0.f;
         for (int ai = 0; ai < A; ++ai) z += expf(-a.beta * gsh[ai] - gmax);
-        const float* gum = a.gumbel + ((size_t)w * a.R + r) * A;
+        const float* gum = g.gumbel + w * A;
         int best = 0;
         float best_v = -INFINITY;
         for (int ai = 0; ai < A; ++ai) {
@@ -677,15 +800,15 @@ mega_window_kernel(const MegaArgs a) {
         a.slot_bins[col * M + m] = e.bins[m];
         a.slot_mask[col * M + m] = a.emits_mask ? e.omask[m] : 1.f;
       }
-      a.slot_action[col] = a.prev_action[r];
+      a.slot_action[col] = e.pa;
       a.slot_dt[col] = e.dtc;
 
       // ---- dwell gate, traces, env window
-      const long long a_in = a.prev_action[r];
+      const long long a_in = e.pa;
       const bool select = ((t_r + w) % a.dwell) == 0;
       const long long act = select ? (long long)e.sampled : a_in;
       e.dtc = act != a_in ? 0.f : e.dtc + a.fast_period_s;
-      a.prev_action[r] = act;
+      e.pa = act;
       e.a_prev = (int)(act < 0 ? 0 : (act >= A ? A - 1 : act));
       a.tr_act[(size_t)w * a.R + r] = act;
       float frac = 0.f;
@@ -694,14 +817,20 @@ mega_window_kernel(const MegaArgs a) {
       a.tr_r[((size_t)w * 4 + 3) * a.R + r] = frac / (float)M;
       for (int m = 0; m < M; ++m)
         a.tr_rm[((size_t)w * 3 + 2) * ml + rm + m] = e.raw[m];
-      env_window(a, e, r, w, e.a_prev);
+    }
+    if (warp == 0) {
+      __syncwarp();
+      env_window(a, g, e, r, w, e.a_prev, lane);
     }
     __syncthreads();
   }
 
-  // ---- final carries back to global memory
-  for (int i = tid; i < S; i += kThreads) a.belief[(size_t)r * S + i] = q[i];
+  // ---- final carries back to global memory (NaN beliefs flag a coefact
+  // the slot lists could not hold)
+  for (int i = tid; i < S; i += kThreads)
+    a.belief[(size_t)r * S + i] = e.bad ? NAN : q[i];
   if (tid == 0) {
+    a.prev_action[r] = e.pa;
     a.scal[(size_t)r * 2 + 0] = e.dtc;
     a.scal[(size_t)r * 2 + 1] = e.ema;
     for (int k = 0; k < K; ++k) {
@@ -729,8 +858,8 @@ mega_window_kernel(const MegaArgs a) {
 
 size_t smem_bytes(const MegaArgs& a) {
   const size_t floats = (size_t)a.P * a.S + (size_t)a.A * a.S + 4 * a.S +
-                        (size_t)kJChunk * a.A + (size_t)a.A * (a.P + 1) +
-                        (size_t)a.A * a.P + 2 * a.A + kWarps;
+                        (size_t)a.A * (a.P + 1) + (size_t)a.A * a.P +
+                        2 * a.A + kWarps + stage_words(a);
   return floats * sizeof(float) + sizeof(Env);
 }
 

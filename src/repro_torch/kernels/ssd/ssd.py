@@ -6,9 +6,14 @@ For tensors on the CPU :func:`ssd_scan` runs the plain version
 (:func:`repro_torch.kernels.ssd.ref.ssd_chunked`).  For CUDA tensors it
 checks device, dtype (x/b/c float32 or bfloat16, dt and a float32), shapes,
 contiguity and 16-byte alignment, launches the kernel on the current stream
-and raises if the launch reports an error — there is no fallback.  It
-counts its launches in ``ssd_scan.launches``.  The library is built with
-``nvcc`` at the first CUDA call.
+and raises if the launch reports an error — there is no fallback.  A
+bfloat16 call with a chunk of at most 256 rows and a head dim in
+:data:`TC_HEAD_DIMS` takes the chunk-parallel tensor-core route (three
+launches; the wrapper allocates their scratch: each chunk's cumulative
+decay and state, in float32); every other call runs the float32 CUDA-core
+kernel.  It counts its calls in
+``ssd_scan.launches``.  The library is built with ``nvcc`` at the first
+CUDA call.
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ from repro_torch.kernels.ssd import ref
 SOURCES = ("ssd_scan.cu",)
 STATE_DIMS = (16, 32, 64, 128, 256)
 MAX_CHUNK = 1024
+#: Head dims of the bf16 chunk-parallel route's kernels (for chunks of at
+#: most 256 rows; ``ssd_scan_route`` in the source decides).
+TC_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,17 +38,28 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     """The compiled kernel library (built on first use)."""
     lib = build.load("ssd_scan", SOURCES)
-    lib.ssd_scan_launch.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+    lib.ssd_scan_launch.argtypes = [_P] * 10 + [_I] * 8 + [_P]
     lib.ssd_scan_launch.restype = _I
-    lib.ssd_scan_smem_bytes.argtypes = [_I] * 3
+    lib.ssd_scan_route.argtypes = [_I] * 3
+    lib.ssd_scan_route.restype = _I
+    lib.ssd_scan_smem_bytes.argtypes = [_I] * 7
     lib.ssd_scan_smem_bytes.restype = _I
     return lib
 
 
-def smem_bytes(p: int, n: int, q: int) -> int:
-    """Dynamic shared memory one block takes for head dim ``p``, state
-    width ``n`` and chunk length ``q``."""
-    return library().ssd_scan_smem_bytes(p, n, q)
+def smem_bytes(p: int, n: int, q: int, dtype: torch.dtype = torch.float32,
+               h: int = 1, g: int = 1) -> dict[str, int]:
+    """Dynamic shared memory of one block of each kernel a call launches
+    (head dim ``p``, state width ``n``, chunk length ``q``, ``h`` heads in
+    ``g`` groups), by kernel name."""
+    lib, dt = library(), _DTYPES[dtype]
+    if not lib.ssd_scan_route(dt, p, q):
+        return {"ssd_scan_kernel": lib.ssd_scan_smem_bytes(dt, p, n, q, h, g,
+                                                           0)}
+    return {"ssd_state_tc_kernel": lib.ssd_scan_smem_bytes(dt, p, n, q, h, g,
+                                                           0),
+            "ssd_pass_kernel": 0,
+            "ssd_out_tc_kernel": lib.ssd_scan_smem_bytes(dt, p, n, q, h, g, 2)}
 
 
 def _check(x, dt, a, b, c, init_state) -> None:
@@ -102,9 +121,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             else init_state.to(torch.float32).contiguous())
     y = torch.empty_like(x)
     st = torch.empty((bsz, h, p, n), dtype=x.dtype, device=x.device)
-    rc = library().ssd_scan_launch(
+    lib = library()
+    cs_scratch = st_scratch = None
+    if lib.ssd_scan_route(_DTYPES[x.dtype], p, q):
+        nc = -(-s // q)
+        cs_scratch = torch.empty(bsz * nc * q * h, dtype=torch.float32,
+                                 device=x.device)
+        st_scratch = torch.empty(bsz * nc * h * p * n, dtype=torch.float32,
+                                 device=x.device)
+    rc = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if init is None else init.data_ptr(), y.data_ptr(), st.data_ptr(),
+        None if cs_scratch is None else cs_scratch.data_ptr(),
+        None if st_scratch is None else st_scratch.data_ptr(),
         _DTYPES[x.dtype], bsz, s, h, p, g, n, q,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

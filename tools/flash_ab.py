@@ -1,10 +1,21 @@
-"""Time B4 (flash prefill) and B5 (flash decode) of two trees of this repo
-on one card, at the shapes ``chip_smoke.py::attn_times`` uses, with both of
-its yardsticks: ``ms`` (one synchronized call, ``time_ms``) and
-``device_ms`` (calls queued back to back, ``queued_ms``), beside
-``scaled_dot_product_attention`` on the same inputs.
+"""Time kernels of two trees of this repo on one card, with both yardsticks
+of ``chip_smoke.py``: ``ms`` (one synchronized call, ``time_ms``) and
+``device_ms`` (calls queued back to back, ``queued_ms``).
 
-    python3 tools/flash_ab.py --other DIR [--out FILE.json]
+    python3 tools/flash_ab.py --other DIR [--kernels flash,ssd,mega]
+                              [--out FILE.json]
+
+* ``flash``: B4 (flash prefill) and B5 (flash decode) at the shapes
+  ``chip_smoke.py::attn_times`` uses, beside
+  ``scaled_dot_product_attention`` on the same inputs;
+* ``ssd``: B6 at the mamba serve phase's prefill (mamba2-2.7b's widths,
+  b=1, S=1024, bf16), as ``chip_smoke.py::ssd_times`` times it;
+* ``mega``: B3 at the mega slice's fleet (R=4096, float32 slots) from the
+  slice's states at window starts t0 = 0, 150 and 290, as
+  ``chip_smoke.py::mega_times`` builds them; each run also hashes every
+  output of the timed window (on a copy of the state), so the summary says
+  whether the two trees' B3 agree to the bit.  Each tree reaches t0 through
+  its own B3, so equal hashes also say that every earlier window agreed.
 
 DIR holds an unpacked tree of another commit, e.g. ``git archive <commit> |
 tar -x -C _scratch/parent``.  Each tree runs in a process of its own (both
@@ -29,18 +40,110 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SERVE_POSITIONS = (1042, 1043, 1049, 1054, 1031, 1034, 1051, 1054)
 
 
-def worker(tree: str) -> dict:
-    """Times of ``tree``'s B4 and B5 (imported from ``tree/src``)."""
+KERNELS = ("flash", "ssd", "mega")
+
+
+def worker(tree: str, kernels: tuple) -> dict:
+    """Times of ``tree``'s kernels (imported from ``tree/src``)."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs                   # puts ROOT/src on sys.path
     sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+    import repro_torch
+    if not os.path.abspath(repro_torch.__file__).startswith(
+            os.path.abspath(tree)):
+        raise RuntimeError(f"imported {repro_torch.__file__}, not from {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    if "flash" in kernels:
+        out.update(flash_times(cs))
+    if "ssd" in kernels:
+        out.update(ssd_times(cs))
+    if "mega" in kernels:
+        out.update(mega_times(cs))
+    return out
+
+
+def timed(cs, kern, lib=None) -> dict:
+    """Both yardsticks of ``kern`` (and of ``lib`` beside it)."""
+    row = dict(ms=cs.time_ms(kern))
+    row["device_ms"], ahead = cs.queued_ms(kern)
+    row["queued_ahead"] = [ahead]
+    if lib is not None:
+        row["library_ms"] = cs.time_ms(lib)
+        row["library_device_ms"], lib_ahead = cs.queued_ms(lib)
+        row["queued_ahead"].append(lib_ahead)
+    return row
+
+
+def ssd_times(cs) -> dict:
+    """B6 at the mamba serve phase's prefill shape."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd import ref, ssd
+    cfg = get_arch(cs.MAMBA_ARCH).full
+    x, dt, a, b, c, _ = cs.ssd_operands(
+        1, 1024, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+        cfg.ssm_state, torch.bfloat16, seed=9)
+    kern = lambda: ssd.ssd_scan(x, dt, a, b, c, cfg.ssm_chunk)  # noqa: E731
+    y, _ = kern()
+    y_p, _ = ref.ssd_chunked(x, dt, a, b, c, cfg.ssm_chunk)
+    err = (y.float() - y_p.float()).abs().max().item()
+    return {"ssd_scan_b1_s1024": dict(
+        timed(cs, kern), max_abs_err=err,
+        scaled_err=err / max(1.0, y_p.float().abs().max().item()))}
+
+
+def output_hash(out, t0: int) -> str:
+    """sha256 over the bytes of every output of a B3 window, in order: the
+    router carries, the tape's in-window columns, the env state, the
+    telemetry carry and the traces."""
+    import hashlib
+    import torch
+    state, est, obs, traces = out
+    cols = slice(t0, t0 + traces[0].shape[0])
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            h.update(v.detach().contiguous().cpu().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        elif isinstance(v, (tuple, list)):
+            for u in v:
+                walk(u)
+    walk([state.belief, state.prev_action, state.dt_since_change,
+          state.error_ema, state.unstable,
+          [x[:, cols] for x in state.slots], est, obs, traces])
+    return h.hexdigest()
+
+
+def mega_times(cs) -> dict:
+    """B3 at the mega slice's fleet from its states at t0 = 0, 150, 290."""
+    import torch
+    from repro_torch.kernels.efe import mega as mega_kernel
+    rows = {}
+    for t0 in (0, cs.T0_MEGA, cs.T_FULL - 10):
+        router, env_step, state, est, obs, noise = cs.mega_midrun(
+            cs.R_MEGA, t0, "float32")
+        args, kw = cs.mega_window_inputs(router, env_step, noise, cs.R_MEGA,
+                                         t0)
+        digest = output_hash(mega_kernel.mega_window_cuda(
+            cs.clone_state(state), est, obs, *args, **kw), t0)
+        kern = lambda: mega_kernel.mega_window_cuda(  # noqa: E731
+            state, est, obs, *args, **kw)
+        rows[f"mega_window_r{cs.R_MEGA}_t0_{t0}"] = dict(timed(cs, kern),
+                                                        output_sha256=digest)
+        del state, est, obs, args, kern
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_times(cs) -> dict:
+    """B4 and B5 at the serve and multitier phases' shapes, beside SDPA."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import flash, ref
-    if not os.path.abspath(flash.__file__).startswith(os.path.abspath(tree)):
-        raise RuntimeError(f"imported {flash.__file__}, not from {tree}")
-    torch.backends.cuda.matmul.allow_tf32 = False
     bf = torch.bfloat16
     cases = []
     q, k, v = cs.attn_operands(1, 1024, 1024, 16, 8, 128, bf, seed=5)
@@ -72,23 +175,23 @@ def worker(tree: str) -> dict:
     out = {}
     for name, kern, plain, lib in cases:
         err = (kern().float() - plain().float()).abs().max().item()
-        ms, lib_ms = cs.time_ms(kern), cs.time_ms(lib)
-        (dev, ahead), (lib_dev, lib_ahead) = cs.queued_ms(kern), \
-            cs.queued_ms(lib)
-        out[name] = dict(ms=ms, device_ms=dev, library_ms=lib_ms,
-                         library_device_ms=lib_dev, max_abs_err=err,
-                         queued_ahead=[ahead, lib_ahead])
+        out[name] = dict(timed(cs, kern, lib), max_abs_err=err)
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="an unpacked tree of another commit")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ",".join(KERNELS))
     ap.add_argument("--out", help="write the runs and summary here")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = tuple(k for k in args.kernels.split(",") if k)
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels takes {KERNELS}, got {kernels}")
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, kernels)), flush=True)
         return 0
     if not args.other:
         ap.error("--other is required")
@@ -100,8 +203,9 @@ def main() -> int:
     runs = {"other": [], "this": []}
     for which in ("other", "this", "this", "other"):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", trees[which]], capture_output=True,
-                             text=True, timeout=900)
+                              "--worker", trees[which],
+                              "--kernels", ",".join(kernels)],
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)
             raise RuntimeError(f"the {which} tree's run failed")
@@ -113,14 +217,21 @@ def main() -> int:
         summary["mean"][which] = {
             case: {key: sum(r[case][key] for r in rows) / len(rows)
                    for key in ("ms", "device_ms", "library_ms",
-                               "library_device_ms")}
+                               "library_device_ms") if key in rows[0][case]}
             for case in rows[0]}
+    # B3: every run of both trees hashed the same outputs
+    summary["mega_bits_equal"] = {
+        case: len({r[case]["output_sha256"] for rs in runs.values()
+                   for r in rs}) == 1
+        for case in runs["this"][0] if case.startswith("mega_window")}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
-    print(json.dumps(summary["mean"]), flush=True)
+    print(json.dumps({"mean": summary["mean"],
+                      "mega_bits_equal": summary["mega_bits_equal"]}),
+          flush=True)
     return 0
 
 
