@@ -35,7 +35,31 @@ failure raising (exit code != 0):
 8. mega slice — ``Experiment(mega=True, n_cells=4096, n_windows=300)`` on
    paper-burst, every kernel's launch count read around it (B3: one launch
    per window, 30); then the per-call times of its slow step and watchdog;
-9. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
+9. table1 small — ``compare(table1_grid(n_cells=4, n_windows=30,
+   seed=1))``, the AIF rows fused and then unfused, on the card and on the
+   CPU with the same draws: actions equal in all 16 rows, success/P50/P95
+   within 1e-4 relative;
+10. table1 — the grid at R=1024 x T=300 (8 routers x paper-burst and
+   flaky-telemetry), every kernel's count read around each row (each AIF
+   row: B1 60 times and nothing else; each baseline row: no launch), each
+   row's wall and metrics, then the markdown table; then
+   ``Experiment(router="aif", fused=False)`` on paper-burst at the same
+   size (plain PyTorch: no launch), with its wall; then the device time of
+   one uniform, Thompson, fused and unfused AIF run beside its wall
+   (``torch.profiler``);
+11. hetero — B1 against its plain version at the continuum-5tier widths
+   (R=1024, S=128, A=37), then ``hetero_fleet_rollout`` over a paper-3tier
+   and a continuum-5tier group, fused, R=1024 each, T=300, B1's launches
+   read for each group (60 each);
+12. chaos — each of the five chaos presets at R=1024 x T=300 with fused
+   AIF, its recovery metrics (against the control run on paper-burst,
+   whose B1 launches are counted with it) finite;
+13. resume — at R=32 x T=300, ``checkpoint_every=100`` into a temporary
+   directory, then ``resume_from`` it: the final carry and n_success equal
+   the uninterrupted run's to the bit, per-tick (zone-outage, B1) and mega
+   (paper-burst, B3); with the checkpoint's size and the seconds to
+   restore and to write one; the directory is deleted;
+14. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
    against their plain versions ``mha_ref``/``decode_ref`` on the card:
    internlm2-1.8b's heads (Hq=16, Hkv=8, D=128) at b=1, Sq=Skv=1024 causal
    in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
@@ -47,20 +71,20 @@ failure raising (exit code != 0):
    within 1e-6; bf16 B4 and B5 within one bf16 ulp of their model, B4
    closer to ``ref.prefill_two_half_model`` than to the model that drops
    p_lo);
-10. serve small — internlm2-1.8b's widths at 2 layers in f32, one
+15. serve small — internlm2-1.8b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
    the first prompt's prefill and of one decode step after it within 1e-4
    relative, the kernels launched as expected;
-11. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
+16. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
    max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
    1000-1024 prompt tokens with 64 new tokens each, every kernel's count
    read around it (B4: 24 per request, B5: 24 per decode wave);
-12. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
+17. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
    engines sharing the serve phase's weights (max_batch 2/3/8,
    steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
    128-token prompts with 16 new tokens, counts read around it;
-13. times — each kernel's ms per launch (CUDA events around one
+18. times — each kernel's ms per launch (CUDA events around one
    synchronized call, warmed up, median) and its device ms (30 calls
    queued back to back behind a busy-wait, so the host's cost per call
    stays off the clock) beside its bound and its plain version's ms; B3 at the mega slice's
@@ -69,8 +93,9 @@ failure raising (exit code != 0):
    reports t0=150); B4 and B5 at the serve phase's shapes beside
    ``scaled_dot_product_attention``'s time on the same inputs (a yardstick
    the port never calls), and B5 at the multitier phase's shapes (B = 2,
-   3, 8 over S=512), each with the blocks its launch puts to work;
-14. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
+   3, 8 over S=512), each with the blocks its launch puts to work; B1
+   also at the hetero phase's 5-tier widths;
+19. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
@@ -81,17 +106,17 @@ failure raising (exit code != 0):
    one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
    the plain model of that route's algebra, and closer to it than to the
    model that drops the lo halves;
-15. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
+20. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
-   tokens each, checked as in phase 10 (B6: 2 per admission);
-16. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
+   tokens each, checked as in phase 15 (B6: 2 per admission);
+21. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
    max_batch=8, max_len=2048)`` in bf16, all 64 layers, answering 8
    requests of 1000-1024 prompt tokens with 32 new tokens each, every
    kernel's count read around it (B6: 64 per request), then one prefill's
    and one decode wave's host and device time; the weights are freed
    after it;
-17. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
+22. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
    bf16) beside its bound and its plain version's ms.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
@@ -312,12 +337,13 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def full_width_operands(masked: bool, seed: int = 0):
-    """Inputs shaped like a real model cache at the paper's widths:
-    column-stochastic nb, normalized na, finite log-preferences."""
+def full_width_operands(masked: bool, seed: int = 0, topo=None):
+    """Inputs shaped like a real model cache at the widths of ``topo`` (the
+    paper's testbed by default), R=1024: column-stochastic nb, normalized
+    na, finite log-preferences."""
     from repro_torch.core import generative, policies, spaces
     from repro_torch.core.topology import default_topology
-    topo = default_topology()
+    topo = topo or default_topology()
     cfg = generative.AifConfig(topology=topo)
     r, s, a = R_FULL, topo.n_states, cfg.n_actions
     m, nbin = topo.n_modalities, topo.max_bins
@@ -409,6 +435,9 @@ class MirroredNoise:
     def env_uniforms(self, t, shape):
         return tuple(u.to(self.device) for u in self.src.env_uniforms(t,
                                                                      shape))
+
+    def normal(self, t, shape):
+        return self.src.normal(t, shape).to(self.device)
 
 
 def phase_small_slice(mega: bool = False) -> None:
@@ -840,6 +869,320 @@ def mega_times(errs: dict, launches: dict) -> dict:
          total_ms_interpolated=est_ms)
     row["max_abs_err"] = row["max_err"] = errs["mega_window"]
     return row
+
+
+# ------------------------------------------- Table 1, hetero, chaos, resume
+def phase_table1_small() -> None:
+    """``compare(table1_grid(n_cells=4, n_windows=30, seed=1))`` on the card
+    and on the CPU with the same draws, the AIF rows fused and unfused:
+    actions equal in every row, success/P50/P95 within 1e-4 relative."""
+    from repro_torch import api
+    for fused in (True, False):
+        comps = {}
+        for dev in (DEVICE, "cpu"):
+            grid = api.table1_grid(n_cells=4, n_windows=30, seed=1,
+                                   fused=fused, device=dev)
+            comps[dev] = api.Comparison(
+                [api.run(e, noise=MirroredNoise(e.seed, dev)) for e in grid])
+        same, worst = True, 0.0
+        for gpu, cpu in zip(comps[DEVICE].results, comps["cpu"].results):
+            same &= bool(torch.equal(gpu.trace.actions.cpu(),
+                                     cpu.trace.actions))
+            worst = max([worst] + [
+                abs(getattr(gpu, k) - getattr(cpu, k))
+                / max(abs(getattr(cpu, k)), 1e-9)
+                for k in ("success_pct", "p50_ms", "p95_ms")])
+        emit("table1_small", fused=fused, rows=len(comps["cpu"].results),
+             n_cells=4, n_windows=30, actions_equal=same, max_rel_err=worst)
+        if not same or worst > 1e-4:
+            raise AssertionError(f"the Table-1 grid (fused={fused}) on the "
+                                 f"card disagrees with the CPU's")
+
+
+def phase_table1() -> None:
+    """The Table-1 grid at R=1024 x T=300 on the card, every kernel's count
+    read around each row (AIF: B1 on each selecting tick; baselines: no
+    launch); then the unfused AIF path on paper-burst (plain PyTorch, no
+    launch)."""
+    from repro_torch import api
+    selecting = math.ceil(T_FULL / api.AifRouter().dwell)
+    rows = []
+    for e in api.table1_grid(n_cells=R_FULL, n_windows=T_FULL, seed=0,
+                             device=DEVICE):
+        res, launches = run_counted(e)
+        metrics = dict(success_pct=res.success_pct, p50_ms=res.p50_ms,
+                       p95_ms=res.p95_ms)
+        emit("table1_row", scenario=e.scenario, router=e.router,
+             n_cells=R_FULL, n_windows=T_FULL, wall_s=res.wall_s,
+             launches=launches, success_std=res.success_std,
+             tier_share=[float(x) for x in res.tier_share],
+             obs_frac=res.obs_frac, **metrics)
+        want = (dict(NO_LAUNCHES, belief_efe_fleet=selecting)
+                if e.router == "aif" else NO_LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{e.router} on {e.scenario} launched "
+                                 f"{launches}, expected {want}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite {e.router} metrics {metrics}")
+        res.final_carry = res.trace = None      # keep the row's numbers only
+        rows.append(res)
+        torch.cuda.empty_cache()
+    comp = api.Comparison(rows)
+    print(comp.markdown(), flush=True)
+    emit("table1", rows=len(rows), table=comp.to_json())
+    e = api.Experiment(router="aif", fused=False, scenario="paper-burst",
+                       n_cells=R_FULL, n_windows=T_FULL, seed=0,
+                       device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = run_counted(e)
+    metrics = dict(success_pct=res.success_pct, p50_ms=res.p50_ms,
+                   p95_ms=res.p95_ms)
+    emit("table1_unfused", scenario=e.scenario, n_cells=R_FULL,
+         n_windows=T_FULL, wall_s=res.wall_s, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **metrics)
+    if launches != NO_LAUNCHES or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"the unfused path launched {launches} or gave "
+                             f"non-finite metrics {metrics}")
+    del res
+    torch.cuda.empty_cache()
+    table1_breakdown()
+
+
+def table1_breakdown() -> None:
+    """The device's share of four Table-1 rows on paper-burst at R=1024 x
+    T=300 (a static baseline, a bandit, AIF fused and unfused): the device
+    time of one ``api.run`` from a ``torch.profiler`` trace beside the
+    rollout's wall, and the kernels that took longest."""
+    from repro_torch import api
+    for router, fused in (("uniform", True), ("thompson", True),
+                          ("aif", True), ("aif", False)):
+        e = api.Experiment(router=router, fused=fused, scenario="paper-burst",
+                           n_cells=R_FULL, n_windows=T_FULL, seed=0,
+                           device=DEVICE)
+        walls = []
+        dev = device_ms(lambda: walls.append(api.run(e).wall_s))
+        emit("table1_breakdown", router=router, fused=fused,
+             n_cells=R_FULL, n_windows=T_FULL, wall_s=walls[-1],
+             device_ms=dev["all"],
+             device_idle_share=1.0 - dev["all"] / (1e3 * walls[-1]),
+             top=dev["top"])
+        torch.cuda.empty_cache()
+
+
+def phase_kernel_vs_plain_5tier() -> float:
+    """B1 against its plain version at the continuum-5tier widths (R=1024,
+    S=128, A=37), unmasked and masked, as phase 3 at the paper's."""
+    from repro_torch.core.topology import five_tier_topology
+    worst = 0.0
+    for masked in (False, True):
+        d = full_width_operands(masked, topo=five_tier_topology())
+        kern, plain = kernel_calls(d)["belief_efe_fleet"]
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        g_err = (out_k[0] - out_p[0]).abs().max().item()
+        q_err = (out_k[1] - out_p[1]).abs().max().item()
+        finite = bool(torch.isfinite(out_k[0]).all())
+        emit("kernel_vs_plain", kernel="belief_efe_fleet",
+             topology="continuum-5tier", masked=masked, r=R_FULL,
+             shape=list(d["nb"].shape), g_max_abs_err=g_err,
+             q_max_abs_err=q_err, g_tol=G_TOL, q_tol=Q_TOL)
+        if not (finite and g_err <= G_TOL and q_err <= Q_TOL):
+            raise AssertionError(
+                f"belief_efe_fleet at the 5-tier widths (masked={masked}) "
+                f"disagrees with its plain version: G err {g_err}, q err "
+                f"{q_err}")
+        worst = max(worst, g_err, q_err)
+        del d
+    return worst
+
+
+def hetero_group(name: str, topo_name: str, r: int, t: int):
+    """A fused FleetGroup of ``r`` cells of one topology on paper-burst,
+    its env_step watched: ``seen[name]`` is B1's count at its last window."""
+    from repro_torch.core import fleet, generative
+    from repro_torch.core.topology import get_topology
+    from repro_torch.envsim import batched, scenarios
+    from repro_torch.envsim.config import (SimConfig, discretization_for,
+                                           sim_config_for)
+    from repro_torch.kernels.efe import efe
+    topo = get_topology(topo_name)
+    scfg = SimConfig() if topo_name == "paper-3tier" else sim_config_for(topo)
+    sc = scenarios.build_scenario("paper-burst", scfg, r, t, seed=0)
+    params = batched.params_from_config(scfg, r, sc.capacity_scale,
+                                        device=DEVICE)
+    env_step = batched.make_scenario_env_step(params, sc)
+    seen = {}
+
+    def watched(*args):
+        seen[name] = efe.belief_efe_fleet.launches
+        return env_step(*args)
+
+    watched.__dict__.update(vars(env_step))
+    cfg = generative.AifConfig(topology=topo)
+    group = fleet.FleetGroup(
+        name=name, cfg=cfg,
+        agent_state=fleet.init_fleet_state(cfg, r, DEVICE),
+        env_state=batched.init_fluid_state(params), env_step=watched,
+        fused=True, disc=(None if topo_name == "paper-3tier"
+                          else discretization_for(scfg)))
+    return group, seen
+
+
+def phase_hetero() -> tuple[float, int]:
+    """B1 at the 5-tier widths against its plain version, then
+    ``hetero_fleet_rollout`` over a paper-3tier and a continuum-5tier group
+    (fused, R=1024 each, T=300), B1's launches read for each group.
+    Returns B1's error at the 5-tier shape and its launches in that group."""
+    from repro_torch.core import fleet
+    from repro_torch.envsim import batched
+    from repro_torch import api
+    selecting = math.ceil(T_FULL / api.AifRouter().dwell)
+    err = phase_kernel_vs_plain_5tier()
+    g3, seen = hetero_group("paper-3tier", "paper-3tier", R_FULL, T_FULL)
+    g5, seen5 = hetero_group("continuum-5tier", "continuum-5tier", R_FULL,
+                             T_FULL)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, launches = counted(
+        lambda: fleet.hetero_fleet_rollout([g3, g5], T_FULL, seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del g3, g5
+    per_group = {"paper-3tier": seen["paper-3tier"],
+                 "continuum-5tier": (launches["belief_efe_fleet"]
+                                     - seen["paper-3tier"])}
+    for name, (carry, est, trace) in out.items():
+        res = batched.summarize(est, trace.env)
+        q = carry.belief
+        ok = bool(torch.isfinite(q).all()) and float(
+            (q.sum(-1) - 1).abs().max()) < 1e-4
+        emit("hetero_group", group=name, n_cells=R_FULL, n_windows=T_FULL,
+             states=q.shape[-1], actions=carry.cache.nb.shape[1],
+             b1_launches=per_group[name],
+             success_pct=float(100 * res.success_rate.mean()),
+             p95_ms=float(res.p95_ms.mean()), beliefs_ok=ok)
+        if not ok or per_group[name] != selecting:
+            raise AssertionError(f"hetero group {name}: beliefs_ok={ok}, "
+                                 f"B1 launches {per_group[name]}")
+    emit("hetero", wall_s=wall, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if (launches != dict(NO_LAUNCHES, belief_efe_fleet=2 * selecting)
+            or seen5["continuum-5tier"] != launches["belief_efe_fleet"]):
+        raise AssertionError(f"hetero_fleet_rollout launched {launches}")
+    del out
+    torch.cuda.empty_cache()
+    return err, per_group["continuum-5tier"]
+
+
+def phase_chaos() -> None:
+    """Each chaos preset at R=1024 x T=300 with fused AIF, and its control
+    run on paper-burst for the recovery metrics."""
+    from repro_torch import api
+    from repro_torch.envsim import chaos
+    selecting = math.ceil(T_FULL / api.AifRouter().dwell)
+    for scenario in sorted(chaos.CHAOS_PRESETS):
+        e = api.Experiment(router="aif", scenario=scenario, n_cells=R_FULL,
+                           n_windows=T_FULL, seed=0, device=DEVICE)
+        t0 = time.perf_counter()
+        res, launches = run_counted(e)
+        total = time.perf_counter() - t0
+        rec = res.recovery
+        metrics = dict(success_pct=res.success_pct, p50_ms=res.p50_ms,
+                       p95_ms=res.p95_ms, **{
+                           k: v for k, v in rec.items()
+                           if isinstance(v, float)})
+        emit("chaos", scenario=scenario, n_cells=R_FULL, n_windows=T_FULL,
+             wall_s=res.wall_s, with_control_s=total, launches=launches,
+             restarts=res.restarts, recovery=rec)
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite {scenario} metrics {metrics}")
+        if launches != dict(NO_LAUNCHES, belief_efe_fleet=2 * selecting):
+            raise AssertionError(f"{scenario} (with its control) launched "
+                                 f"{launches}")
+        del res
+        torch.cuda.empty_cache()
+
+
+R_CKPT = 32        # a checkpoint of R=1024 AIF carries would be ~20 GB
+CKPT_EVERY = 100
+
+
+def phase_resume() -> None:
+    """Checkpointed runs at R=32 x T=300 (checkpoint_every=100), then
+    resumed from the newest checkpoint: the final carry and n_success must
+    equal the uninterrupted run's to the bit, per-tick (zone-outage, fused
+    AIF, B1) and mega (paper-burst, B3).  Also the checkpoint's size and
+    the seconds to write and to restore one."""
+    import shutil
+    import tempfile
+    from repro_torch import api
+    from repro_torch.api import experiment
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.noise import GeneratorNoise
+    dev = torch.device(DEVICE)
+    for scenario, mega in (("zone-outage", False), ("paper-burst", True)):
+        base = dict(router="aif", scenario=scenario, n_cells=R_CKPT,
+                    n_windows=T_FULL, seed=0, mega=mega, device=DEVICE)
+        r0, l0 = run_counted(api.Experiment(**base))
+        d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            r1, l1 = run_counted(api.Experiment(
+                **base, checkpoint_every=CKPT_EVERY, checkpoint_dir=d))
+            steps = Checkpointer(d).all_steps()
+            step_dir = os.path.join(d, f"step_{steps[-1]:08d}")
+            size = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+            r2, l2 = run_counted(api.Experiment(**base, resume_from=d))
+            # one restore and one blocking write, timed alone
+            e = api.Experiment(**base)
+            scfg, params, env_step = experiment._build_world(
+                e.resolve_topology(), scenario, R_CKPT, T_FULL, 1.0, 0, dev)
+            router = e.resolve_router(scfg)
+            noise = GeneratorNoise(0, dev)
+            like = experiment._ckpt_template(e, router, params, noise,
+                                             env_step.n_obs_modalities)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, _ = Checkpointer(d).restore(like, device=dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Checkpointer(os.path.join(d, "timed")).save(
+                steps[-1], tree, blocking=True)
+            write_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+        def same(a, b):
+            fa, fb = flatten(a), flatten(b)
+            return fa.keys() == fb.keys() and all(
+                torch.equal(fa[k], fb[k]) for k in fa)
+
+        kernel = "mega_window" if mega else "belief_efe_fleet"
+        checks = dict(
+            checkpointed_carry_equal=same(r0.final_carry, r1.final_carry),
+            resumed_carry_equal=same(r0.final_carry, r2.final_carry),
+            checkpointed_n_success_equal=bool(np.array_equal(
+                r0.fluid.n_success, r1.fluid.n_success)),
+            resumed_n_success_equal=bool(np.array_equal(
+                r0.fluid.n_success, r2.fluid.n_success)))
+        emit("resume", path="mega" if mega else "per-tick",
+             scenario=scenario, n_cells=R_CKPT, n_windows=T_FULL,
+             checkpoint_every=CKPT_EVERY, resume_points=[r1.resume_points,
+                                                  r2.resume_points],
+             checkpoint_bytes=size, write_s=write_s, restore_s=restore_s,
+             wall_s=[r0.wall_s, r1.wall_s, r2.wall_s],
+             launches=[l0[kernel], l1[kernel], l2[kernel]], **checks)
+        if not all(checks.values()) or min(
+                l0[kernel], l1[kernel], l2[kernel]) < 1:
+            raise AssertionError(f"the {scenario} resume is not equal to "
+                                 f"the bit on the card, or {kernel} did not "
+                                 f"run: {checks}")
+        del r0, r1, r2, tree, like
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------- attention and serving
@@ -1538,7 +1881,7 @@ def ssd_times(errs: dict, launches: dict) -> dict:
             "device_ms": dev, "library_device_ms": None}
 
 
-def phase_times(errs: dict, launches: dict) -> list:
+def phase_times(errs: dict, launches: dict, launches_5tier: int) -> list:
     d = full_width_operands(masked=False)
     rows = []
     replaces = {"belief_efe_fleet": "src/repro/kernels/efe/efe.py:250",
@@ -1563,9 +1906,31 @@ def phase_times(errs: dict, launches: dict) -> list:
                      "bound_by": b_by, "library_ms": None,
                      "device_ms": dev, "library_device_ms": None})
     del d
+    rows[0]["continuum_5tier"] = b1_5tier_times(errs, launches_5tier)
     torch.cuda.empty_cache()
     rows.append(mega_times(errs, launches))
     return rows
+
+
+def b1_5tier_times(errs: dict, launches: int) -> dict:
+    """B1 at the continuum-5tier widths (R=1024, S=128, A=37), the shape of
+    the hetero phase's second group: times beside its bound and plain
+    version, with the launches that group's run counted."""
+    from repro_torch.core.topology import five_tier_topology
+    d = full_width_operands(masked=False, topo=five_tier_topology())
+    kern, plain = kernel_calls(d)["belief_efe_fleet"]
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain)
+    dev, ahead = queued_ms(kern)
+    b_ms, b_by = bound(d, "belief_efe_fleet")
+    row = {"shape": list(d["nb"].shape), "launches": launches,
+           "max_abs_err": errs["belief_efe_fleet_5tier"], "ms": ms,
+           "plain_ms": plain_ms, "device_ms": dev, "bound_ms": b_ms,
+           "bound_by": b_by}
+    emit("times", kernel="belief_efe_fleet", topology="continuum-5tier",
+         queued_ahead=ahead, **row)
+    del d
+    return row
 
 
 def main() -> int:
@@ -1582,12 +1947,17 @@ def main() -> int:
     errs["mega_window"] = phase_mega_kernel_vs_plain()
     phase_small_slice(mega=True)
     launches["mega_window"] = phase_mega_slice()["mega_window"]
+    phase_table1_small()
+    phase_table1()
+    errs["belief_efe_fleet_5tier"], launches_5tier = phase_hetero()
+    phase_chaos()
+    phase_resume()
     errs.update(phase_attn_kernel_vs_plain())
     phase_serve_small()
     weights, serve_counts, lengths = phase_serve()
     phase_multitier(weights)
     del weights
-    rows = phase_times(errs, launches)
+    rows = phase_times(errs, launches, launches_5tier)
     rows += attn_times(errs, serve_counts, lengths)
     ssd_errs = phase_ssd_kernel_vs_plain()
     phase_serve_small(MAMBA_ARCH, (64, 50, 37, 64), "mamba_serve_small")

@@ -1,21 +1,34 @@
 """repro_torch.api — the public experiment surface of the port.
 
-* Router protocol (:mod:`repro_torch.api.router`) and the AIF router
-  (:mod:`repro_torch.api.aif`),
+* Router protocol and baselines (:mod:`repro_torch.api.router`) and the AIF
+  router (:mod:`repro_torch.api.aif`),
 * engine (:mod:`repro_torch.api.engine`): :func:`rollout`, the closed loop,
-* experiments (:mod:`repro_torch.api.experiment`): :class:`Experiment` and
-  :func:`run`.
+  and :func:`resumable_rollout`, one checkpointable chunk of it,
+* experiments (:mod:`repro_torch.api.experiment`): :class:`Experiment`,
+  :func:`run`, and the Table-1 comparison :func:`compare` /
+  :func:`table1_grid`.
 
 Quickstart::
 
     from repro_torch import api
     res = api.run(api.Experiment(router="aif", scenario="paper-burst",
                                  n_cells=1024, n_windows=300))
+    print(api.compare(api.table1_grid(n_cells=32, n_windows=300)).markdown())
 """
 from repro_torch.api.aif import AifRouter
-from repro_torch.api.engine import rollout
-from repro_torch.api.experiment import (ROUTERS, Experiment, RunResult, run)
-from repro_torch.api.router import Router, RouterObs, TickInfo, UniformRouter
+from repro_torch.api.engine import resumable_rollout, rollout
+from repro_torch.api.experiment import (ROUTERS, TABLE1_ROUTERS, Comparison,
+                                        Experiment, RunResult, compare, run,
+                                        table1_grid)
+from repro_torch.api.router import (CapacityRouter, LeastLoadedRouter,
+                                    MinResponseRouter, RoundRobinRouter,
+                                    Router, RouterObs, ThompsonCarry,
+                                    ThompsonRouter, TickInfo, UcbCarry,
+                                    UcbRouter, UniformRouter)
 
-__all__ = ["AifRouter", "Experiment", "ROUTERS", "Router", "RouterObs",
-           "RunResult", "TickInfo", "UniformRouter", "rollout", "run"]
+__all__ = ["AifRouter", "CapacityRouter", "Comparison", "Experiment",
+           "LeastLoadedRouter", "MinResponseRouter", "ROUTERS",
+           "RoundRobinRouter", "Router", "RouterObs", "RunResult",
+           "TABLE1_ROUTERS", "ThompsonCarry", "ThompsonRouter", "TickInfo",
+           "UcbCarry", "UcbRouter", "UniformRouter", "compare",
+           "resumable_rollout", "rollout", "run", "table1_grid"]

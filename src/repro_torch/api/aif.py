@@ -2,13 +2,14 @@
 protocol.
 
 The spec wraps the agent config, the observation discretization and the
-utilization-scrape edges and cadence.  Two engine paths are ported: the
-fused per-tick path (``fused=True``, the default) and the whole-window
-path (``mega=True``, run by :func:`repro_torch.api.engine.mega_rollout`).
-``fused=False`` (the vmapped single-agent path, ROADMAP A3) raises
-``NotImplementedError``.  The reference's ``use_pallas`` switch has no
-counterpart: the tensors' device decides between the CUDA kernel and its
-plain PyTorch version.
+utilization-scrape edges and cadence.  Three engine paths: the fused
+per-tick path (``fused=True``, the port's default), the unfused per-tick
+path (``fused=False``, the reference's default: the single-agent step
+batched over R, plain PyTorch on the card as the reference runs it in XLA
+with no Pallas kernel) and the whole-window path (``mega=True``, run by
+:func:`repro_torch.api.engine.mega_rollout`).  The reference's
+``use_pallas`` switch has no counterpart: the tensors' device decides
+between a CUDA kernel and its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ class AifRouter(Router):
       disc: observation discretization (None = paper defaults).
       util_edges: raw-utilization level edges (None = the topology's).
       util_period: windows between utilization scrapes.
-      fused: must be True (the fused belief→EFE fleet tick).
+      fused: the fused belief→EFE fleet tick (kernel B1 on the card), or
+        (False) the single-agent step batched over R in plain PyTorch.
       mega: run the whole-window engine path (factored fleet state, one
         fused launch per slow period); needs the dwell to divide the slow
         period and ``novelty_weight == 0``.
@@ -51,10 +53,6 @@ class AifRouter(Router):
     name = "aif"
 
     def __post_init__(self):
-        if not self.fused:
-            raise NotImplementedError(
-                "fused=False (the vmapped single-agent path) is not ported "
-                "yet: ROADMAP item A3; run fused=True")
         topo = self.cfg.topology
         disc = self.resolved_disc
         if len(disc.modality_edges()) != topo.n_modalities:
@@ -87,6 +85,12 @@ class AifRouter(Router):
                 f"{self.mega_slot_dtype!r}")
 
     # ------------------------------------------------------- engine hints
+    @property
+    def slot_dtype(self) -> torch.dtype:
+        """The torch dtype of the mega path's transition slots."""
+        return (torch.bfloat16 if self.mega_slot_dtype == "bfloat16"
+                else torch.float32)
+
     @property
     def n_tiers(self) -> int:
         return self.cfg.topology.n_tiers
@@ -159,7 +163,7 @@ class AifRouter(Router):
         gumbel = noise.gumbel(obs.t_idx, (r, self.cfg.n_actions))
         carry, info = fleet_mod.fleet_fast_step(
             carry, obs_bins, raw_err, gumbel, self.cfg, util_bins,
-            util_valid, obs_mask)
+            util_valid, obs_mask, fused=self.fused)
         return carry, info.routing_weights, TickInfo(action=info.action,
                                                      unstable=info.unstable,
                                                      watchdog=wd)
@@ -171,7 +175,7 @@ class AifRouter(Router):
         obs_bins, util_bins, util_valid, raw_err = self._observe(obs)
         carry, info = fleet_mod.fleet_light_step(
             carry, obs_bins, raw_err, self.cfg, util_bins, util_valid,
-            obs_mask)
+            obs_mask, fused=self.fused)
         return carry, info.routing_weights, TickInfo(action=info.action,
                                                      unstable=info.unstable,
                                                      watchdog=wd)

@@ -25,8 +25,14 @@ Routers with ``mega`` set run the whole-window engine instead
 slow step and the window-granularity watchdog.
 
 Randomness comes from ``noise`` (:mod:`repro_torch.noise`); without one the
-engine draws from a seeded ``torch.Generator`` on the carry's device.  The
-reference's sharded and resumable engines are ROADMAP items A10 and A8.
+engine draws from a seeded ``torch.Generator`` on the carry's device.
+
+Checkpointable runs (:func:`resumable_rollout`) split the horizon into
+chunks that start on slow-period boundaries; each chunk returns a snapshot
+(the telemetry carry and the noise source's position) that, with the
+router carry and env state, makes stop-and-resume replay the uninterrupted
+run's operations exactly.  The reference's sharded engine is ROADMAP item
+A10.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from repro_torch.core import mega as mega_mod
 from repro_torch.core.fleet import FleetTrace
 from repro_torch.envsim.batched import WindowInfo, stack_infos
 from repro_torch.kernels.efe import ops as efe_ops
-from repro_torch.noise import GeneratorNoise, Noise
+from repro_torch.noise import GeneratorNoise, Noise, get_state, set_state
 
 
 def _fresh_obs_carry(r: int, m: int, k: int, device: torch.device):
@@ -107,31 +113,49 @@ def rollout(router: Router,
             router, env_state, env_step, n_steps, noise, seed=seed,
             obs_masked=obs_masked)
         return state, est, trace
-    est0 = env_state[0]
-    r, dev = est0.shape[0], est0.device
-    k_tiers, m = router.n_tiers, router.n_modalities
     if noise is None:
-        noise = GeneratorNoise(seed, dev)
+        noise = GeneratorNoise(seed, env_state[0].device)
     period = max(int(router.period), 1)
-    dwell = max(int(router.dwell), 1)
     clock_phase = (int(t0) % period if t0 is not None
                    else router.clock_phase(carry))
     if obs_masked is None:
         obs_masked = bool(getattr(env_step, "emits_mask", False))
+    carry, env_state, trace, _ = _rollout_core(
+        router, carry, env_state, env_step, n_steps, noise,
+        clock_phase=clock_phase, obs_masked=obs_masked)
+    return carry, env_state, trace
+
+
+def _rollout_core(router: Router, carry, env_state, env_step: Callable,
+                  n_steps: int, noise: Noise, *, clock_phase: int | None,
+                  obs_masked: bool, t_begin: int = 0, obs_init=None):
+    """The per-tick loop over windows ``t_begin .. t_begin + n_steps - 1``
+    (global indices: schedules, scrape clock, router ``t_idx`` and noise
+    all see them), from the telemetry carry ``obs_init`` (None = fresh).
+
+    Returns (carry, env state, FleetTrace, telemetry carry).
+    """
+    est0 = env_state[0]
+    r, dev = est0.shape[0], est0.device
+    k_tiers, m = router.n_tiers, router.n_modalities
+    period = max(int(router.period), 1)
+    dwell = max(int(router.dwell), 1)
     # Dwell blocking needs the fleet clock phase and, for routers with a
     # slow cadence, a dwell pattern that repeats within each period.
     dwell_blocked = (dwell > 1 and clock_phase is not None
                      and (not router.has_slow or period % dwell == 0))
     phase0 = clock_phase or 0
 
-    raw_obs, tier_util, tier_up, tier_queue, obs_mask = _fresh_obs_carry(
-        r, m, k_tiers, dev)
+    raw_obs, tier_util, tier_up, tier_queue, obs_mask = (
+        _fresh_obs_carry(r, m, k_tiers, dev) if obs_init is None
+        else obs_init)
     ys = []
-    for t in range(n_steps):
+    for i in range(n_steps):
+        t = t_begin + i
         obs = RouterObs(raw_obs=raw_obs, tier_utilization=tier_util,
                         tier_up=tier_up, tier_queue=tier_queue, t_idx=t)
         mask = obs_mask if obs_masked else None
-        if dwell_blocked and (phase0 + t) % dwell != 0:
+        if dwell_blocked and (phase0 + i) % dwell != 0:
             carry, weights, tinfo = router.light_step(carry, obs, mask)
         else:
             carry, weights, tinfo = router.step(carry, obs, mask, noise)
@@ -145,13 +169,14 @@ def rollout(router: Router,
                              env=win,
                              watchdog=tinfo.watchdog))
         if router.has_slow and (clock_phase is None
-                                or (clock_phase + t + 1) % period == 0):
+                                or (clock_phase + i + 1) % period == 0):
             carry = router.slow_step(carry, noise, t)
         raw_obs, tier_util = win.raw_obs, win.tier_utilization
         tier_up, tier_queue = win.tier_up, win.tier_queue
         if obs_masked:
             obs_mask = win.obs_mask
-    return carry, env_state, _stack_trace(ys)
+    return (carry, env_state, _stack_trace(ys),
+            (raw_obs, tier_util, tier_up, tier_queue, obs_mask))
 
 
 def _stack_trace(ys: list[FleetTrace]) -> FleetTrace:
@@ -177,7 +202,10 @@ def mega_rollout(router,
                  *,
                  seed: int = 0,
                  obs_masked: bool | None = None,
-                 n_total: int | None = None):
+                 n_total: int | None = None,
+                 t_begin: int = 0,
+                 state_in: mega_mod.MegaFleetState | None = None,
+                 obs_carry=None):
     """Whole-window engine path of a ``mega`` router, on a fresh fleet.
 
     Full ``period``-tick windows, each one launch of
@@ -195,7 +223,13 @@ def mega_rollout(router,
         the :class:`~repro_torch.envsim.batched.FluidIngredients` of
         :func:`~repro_torch.envsim.batched.make_env_step` as ``.fluid``.
       n_total: slots of the fresh state (default ``n_steps``): a run that
-        stops early to inspect its state sizes them to its whole horizon.
+        stops early, or runs in chunks, sizes them to its whole horizon.
+      t_begin / state_in / obs_carry: a later chunk of a chunked run (see
+        :func:`resumable_rollout`): its first global tick (a slow-period
+        boundary), the previous chunk's state and telemetry carry.
+
+    A scenario with fault schedules (``forced_down``/``speed``) raises
+    ``NotImplementedError``: chaos in B3 is ROADMAP item A8b.
 
     Returns (state, env state, FleetTrace, obs_carry).
     """
@@ -205,10 +239,9 @@ def mega_rollout(router,
             "mega rollouts need the env adapter's whole-window ingredients "
             "(env_step.fluid, set by repro_torch.envsim.batched."
             "make_env_step); rebuild the adapter or set mega=False")
-    n_slots = n_steps if n_total is None else int(n_total)
-    if not 1 <= n_steps <= n_slots:
-        raise ValueError(f"mega rollouts need 1 <= n_steps <= n_total, got "
-                         f"{n_steps} and {n_slots}")
+    if n_steps < 1:
+        raise ValueError("mega rollouts need n_steps >= 1")
+    mega_mod._not_ported(fl.forced_down, fl.speed, None, None)
     cfg = router.cfg
     est0 = env_state[0]
     r, dev = est0.shape[0], est0.device
@@ -217,9 +250,17 @@ def mega_rollout(router,
         noise = GeneratorNoise(seed, dev)
     if obs_masked is None:
         obs_masked = bool(getattr(env_step, "emits_mask", False))
-    slot_dtype = (torch.bfloat16 if router.mega_slot_dtype == "bfloat16"
-                  else torch.float32)
-    state = mega_mod.init_mega_state(cfg, r, n_slots, slot_dtype, dev)
+    if state_in is None:
+        n_slots = t_begin + n_steps if n_total is None else int(n_total)
+        state = mega_mod.init_mega_state(cfg, r, n_slots, router.slot_dtype,
+                                         dev)
+    else:
+        state = state_in
+    if t_begin + n_steps > state.slots.action.shape[1]:
+        raise ValueError(
+            f"ticks up to {t_begin + n_steps} do not fit the state's "
+            f"{state.slots.action.shape[1]} slots: size the first chunk "
+            f"with the whole horizon (n_total)")
     statics = dict(cfg=cfg, disc=router.resolved_disc,
                    util_edges=router.resolved_util_edges,
                    util_period=router.util_period, dt=fl.dt,
@@ -227,10 +268,11 @@ def mega_rollout(router,
                    restart_blackout=fl.restart_blackout,
                    emits_mask=obs_masked)
     est = env_state
-    obs = _fresh_obs_carry(r, router.n_modalities, router.n_tiers, dev)
+    obs = (_fresh_obs_carry(r, router.n_modalities, router.n_tiers, dev)
+           if obs_carry is None else obs_carry)
     traces = []
-    for t_start in range(0, n_steps, period):
-        w = min(period, n_steps - t_start)
+    for t_start in range(t_begin, t_begin + n_steps, period):
+        w = min(period, t_begin + n_steps - t_start)
         state, est, obs, ys = _mega_window(state, est, obs, fl, noise,
                                            t_start, w, do_slow=(w == period),
                                            statics=statics)
@@ -275,3 +317,75 @@ def _mega_window(state, est, obs, fl, noise, t_start: int, w_ticks: int, *,
             state = mega_mod.mega_quarantine(state, bad, cfg)
         events[-1] = bad.to(torch.float32)
     return state, est, obs, ys + (events,)
+
+
+# ------------------------------------------------------- checkpointed chunks
+def _check_boundary(router: Router, t_begin: int) -> None:
+    period = max(int(router.period), 1)
+    dwell = max(int(router.dwell), 1)
+    if t_begin % period or t_begin % dwell:
+        raise ValueError(
+            f"resumable chunks must start on a slow-period and dwell "
+            f"boundary (t_begin % {period} == 0 and % {dwell} == 0), got "
+            f"t_begin={t_begin}; pick checkpoint_every as a multiple of "
+            f"the router's period")
+
+
+def resumable_rollout(router: Router,
+                      carry,
+                      env_state,
+                      env_step: Callable,
+                      n_steps: int,
+                      noise: Noise | None = None,
+                      *,
+                      seed: int = 0,
+                      t_begin: int = 0,
+                      snapshot=None,
+                      obs_masked: bool | None = None,
+                      n_total: int | None = None):
+    """One chunk of a checkpointable rollout: ticks [t_begin, t_begin + n).
+
+    The chunked twin of :func:`rollout` (per-tick and mega paths).  A fresh
+    run is chunk 0 (``t_begin=0, snapshot=None``); every later chunk passes
+    the snapshot the previous chunk returned: the telemetry carry
+    ``(raw_obs, tier_util, tier_up, tier_queue, obs_mask)`` and the noise
+    source's position (:func:`repro_torch.noise.get_state`; a CPU tensor
+    for a generator, None for a source indexed by tick).  With the router
+    carry and env state it makes stop-and-resume replay the uninterrupted
+    run's operations exactly, so the final states are equal to the bit.
+    ``noise`` None draws from a generator seeded with ``seed`` and, on a
+    later chunk, moved to the snapshot's position.
+
+    Chunks start on a slow-period (and dwell) boundary, so the fleet
+    clock's phase is zero.  For ``mega`` routers chunk 0 takes ``n_total``
+    (the whole horizon) so the slots are sized once, and a later chunk's
+    ``carry`` is the previous chunk's
+    :class:`~repro_torch.core.mega.MegaFleetState` (chunk 0's is ignored:
+    the chunk builds a fresh state).
+
+    Returns (router carry, env state, trace of this chunk, snapshot).
+    """
+    _check_boundary(router, t_begin)
+    if (t_begin == 0) != (snapshot is None):
+        raise ValueError(
+            "chunk 0 (t_begin=0) takes snapshot=None; resumed chunks "
+            "(t_begin>0) need the previous chunk's snapshot")
+    if noise is None:
+        noise = GeneratorNoise(seed, env_state[0].device)
+    obs_init = None
+    if snapshot is not None:
+        obs_init, noise_state = tuple(snapshot[0]), snapshot[1]
+        set_state(noise, noise_state)
+    if getattr(router, "mega", False):
+        state, est, trace, obs_out = mega_rollout(
+            router, env_state, env_step, n_steps, noise,
+            obs_masked=obs_masked, n_total=n_total, t_begin=t_begin,
+            state_in=None if snapshot is None else carry,
+            obs_carry=obs_init)
+        return state, est, trace, (obs_out, get_state(noise))
+    if obs_masked is None:
+        obs_masked = bool(getattr(env_step, "emits_mask", False))
+    carry, est, trace, obs_out = _rollout_core(
+        router, carry, env_state, env_step, n_steps, noise, clock_phase=0,
+        obs_masked=obs_masked, t_begin=t_begin, obs_init=obs_init)
+    return carry, est, trace, (obs_out, get_state(noise))

@@ -9,33 +9,49 @@ engine rollout, summary metrics)::
     from repro_torch import api
     res = api.run(api.Experiment(router="aif", scenario="paper-burst"))
 
+:func:`compare` runs a list of experiments and renders the paper's
+Table-1 comparison as markdown or JSON; :func:`table1_grid` is its grid,
+every router of :data:`TABLE1_ROUTERS` on clean and degraded telemetry::
+
+    print(api.compare(api.table1_grid(n_cells=32, n_windows=300)).markdown())
+
+Fault surface: ``checkpoint_every`` runs the horizon in boundary-aligned
+chunks (:func:`repro_torch.api.engine.resumable_rollout`) and saves a
+checkpoint (:mod:`repro_torch.checkpoint`) at each interior boundary;
+``resume_from`` restores the newest readable one and finishes the run, to
+the bit the uninterrupted run's final state.  Chaos scenarios
+(:data:`repro_torch.envsim.chaos.CHAOS_INFO`) also get recovery metrics
+against their uninjured control scenario (``RunResult.recovery``).
+
 Differences from the reference's ``repro.api.Experiment``: ``fused=True`` is
-the default (``fused=False`` is ROADMAP A3), ``use_pallas`` is gone (the
-device decides between kernel and plain version), and ``device`` defaults to
-``"cuda"``.  ``mega=True`` runs the whole-window engine path.  The
-registry holds ``aif`` and ``uniform``; the other baselines and
-``compare``/``table1_grid`` are A5, sharding A10, checkpointing A8 and
-graphs A9.
+the default, ``use_pallas`` is gone (the device decides between kernel and
+plain version), and ``device`` defaults to ``"cuda"``.  ``mega=True`` runs
+the whole-window engine path.  Sharding is ROADMAP item A10 and graphs A9.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.api import engine as engine_mod
 from repro_torch.api import router as router_mod
 from repro_torch.api.aif import AifRouter
-from repro_torch.api.engine import rollout
+from repro_torch.api.engine import resumable_rollout, rollout
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import generative
+from repro_torch.core import mega as mega_mod
 from repro_torch.core.topology import Topology, default_topology, get_topology
 from repro_torch.device import resolve_device
 from repro_torch.envsim import batched, scenarios
+from repro_torch.envsim import chaos as chaos_mod
 from repro_torch.envsim.config import (SimConfig, discretization_for,
                                        sim_config_for)
-from repro_torch.noise import Noise
+from repro_torch.noise import GeneratorNoise, Noise, get_state, set_state
 
 _EPS = 1e-9
 
@@ -47,17 +63,43 @@ def _make_aif(topo: Topology, scfg: SimConfig, fused: bool, mega: bool,
                      mega_slot_dtype=mega_slot_dtype)
 
 
+def _capacity_weights(scfg: SimConfig) -> tuple[float, ...]:
+    """Weights proportional to CPU limits, rounded to two decimals with the
+    remainder on the heaviest tier: the paper's (0.15, 0.23, 0.62) for the
+    2:3:8 testbed."""
+    total = sum(t.servers for t in scfg.tiers)
+    w = [round(t.servers / total, 2) for t in scfg.tiers[:-1]]
+    return tuple(w) + (round(1.0 - sum(w), 2),)
+
+
 #: Router registry: name -> (topology, sim config, fused, mega,
-#: mega_slot_dtype) -> Router.
+#: mega_slot_dtype) -> Router.  The baselines ignore the AIF execution
+#: options; ``capacity`` and ``nn_offload`` read the sim config's tiers (the
+#: prior knowledge AIF learns online).
 ROUTERS: dict[str, Callable[..., router_mod.Router]] = {
     "aif": _make_aif,
     "uniform": lambda topo, scfg, *_: router_mod.UniformRouter(
         tiers=topo.n_tiers),
+    "capacity": lambda topo, scfg, *_: router_mod.CapacityRouter(
+        weights=_capacity_weights(scfg)),
+    "round_robin": lambda topo, scfg, *_: router_mod.RoundRobinRouter(
+        tiers=topo.n_tiers),
+    "least_loaded": lambda topo, scfg, *_: router_mod.LeastLoadedRouter(
+        tiers=topo.n_tiers),
+    "thompson": lambda topo, scfg, *_: router_mod.ThompsonRouter(
+        topology=topo),
+    "ucb": lambda topo, scfg, *_: router_mod.UcbRouter(topology=topo),
+    # nearest-neighbor offloader: greedy min estimated response time
+    # (queue / capacity + service) over the live tiers
+    "nn_offload": lambda topo, scfg, *_: router_mod.MinResponseRouter(
+        service_s=tuple(t.mean_service_s for t in scfg.tiers),
+        cap_rps=tuple(t.servers / t.mean_service_s for t in scfg.tiers)),
 }
 
-#: Reference routers that wait for ROADMAP item A5.
-WAITING_ROUTERS = ("capacity", "round_robin", "least_loaded", "thompson",
-                   "ucb", "nn_offload")
+#: The paper's Table-1 lineup: AIF, the five baseline families (Thompson
+#: and UCB are the bandit family) and the nearest-neighbor offloader.
+TABLE1_ROUTERS = ("aif", "uniform", "capacity", "round_robin",
+                  "least_loaded", "thompson", "ucb", "nn_offload")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +114,11 @@ class Experiment:
       seed: drives the scenario schedules and the rollout's noise.
       window_s: control-window length in seconds.
       fused / mega: AIF execution path (ignored for baselines): the fused
-        per-tick path, or with ``mega=True`` the whole-window path (the run
-        owns its carry: a fresh :class:`~repro_torch.core.mega.MegaFleetState`
-        with one slot per control window, so ``n_windows`` must fit the
-        replay capacity).  ``fused=False`` is ROADMAP A3.
+        per-tick path (``fused=False``: the single-agent step batched over
+        R, plain PyTorch), or with ``mega=True`` the whole-window path (the
+        run owns its carry: a fresh
+        :class:`~repro_torch.core.mega.MegaFleetState` with one slot per
+        control window, so ``n_windows`` must fit the replay capacity).
       mega_slot_dtype: storage of the mega path's transition slots
         (``"float32"`` or ``"bfloat16"``).
       launch_periods: mega only, accepted for the reference's signature
@@ -84,6 +127,18 @@ class Experiment:
         launch of its own already.
       device: where the run's tensors live (``"cuda"`` by default; raises
         without a card unless ``"cpu"`` is asked for).
+      checkpoint_every: windows between checkpoints (0 = off), a multiple
+        of the router's slow period and dwell: the run goes in chunks of
+        this many windows and saves (router carry, env state, telemetry
+        carry, noise position) at every interior boundary.
+      checkpoint_dir: where the checkpoints go (needed with
+        ``checkpoint_every``; defaults to ``resume_from``).
+      resume_from: checkpoint directory of an interrupted run of this same
+        experiment: the run restores the newest readable checkpoint (a
+        corrupt one is skipped with a warning) onto ``device`` and goes on
+        to ``n_windows``.  The final states equal the uninterrupted run's
+        to the bit; the trace covers the resumed windows only (the env's
+        cumulative counters cover the whole horizon).
     """
 
     router: str | router_mod.Router = "aif"
@@ -98,6 +153,9 @@ class Experiment:
     mega_slot_dtype: str = "float32"
     launch_periods: int | None = None
     device: str = "cuda"
+    checkpoint_every: int = 0
+    checkpoint_dir: str | None = None
+    resume_from: str | None = None
 
     def resolve_topology(self) -> Topology:
         return (get_topology(self.topology)
@@ -106,9 +164,6 @@ class Experiment:
     def resolve_router(self, scfg: SimConfig) -> router_mod.Router:
         if isinstance(self.router, router_mod.Router):
             return self.router
-        if self.router in WAITING_ROUTERS:
-            raise NotImplementedError(
-                f"router {self.router!r} is not ported yet (ROADMAP item A5)")
         try:
             make = ROUTERS[self.router]
         except KeyError:
@@ -148,6 +203,36 @@ class RunResult:
     trace: Any
     final_carry: Any
     watchdog_events: float = 0.0  # quarantine-and-reinit events over the run
+    # chunk boundaries (windows): interior checkpoint saves, plus the
+    # restored start window on a resumed run
+    resume_points: tuple = ()
+    # chaos recovery metrics (None: the scenario has no registered control)
+    recovery: dict | None = None
+
+    def summary(self) -> dict:
+        """JSON-safe metric dict (one Table-1 row)."""
+        e = self.experiment
+        return {
+            "router": self.name,
+            "scenario": e.scenario,
+            "n_cells": e.n_cells,
+            "n_windows": e.n_windows,
+            "device": e.device,
+            "success_pct": round(self.success_pct, 2),
+            "success_std": round(self.success_std, 2),
+            "p50_ms": round(self.p50_ms, 1),
+            "p95_ms": round(self.p95_ms, 1),
+            "tier_share_of_success": [round(float(x), 4)
+                                      for x in self.tier_share],
+            "routed_share": [round(float(x), 4) for x in self.routed_share],
+            "restarts": round(self.restarts, 1),
+            "obs_frac": round(self.obs_frac, 4),
+            "wall_s": round(self.wall_s, 2),
+            "watchdog_events": round(self.watchdog_events, 1),
+            **({"recovery": {k: (round(v, 4) if isinstance(v, float) else v)
+                             for k, v in self.recovery.items()}}
+               if self.recovery is not None else {}),
+        }
 
 
 def _build_world(topo: Topology, scenario: str, n_cells: int, n_windows: int,
@@ -172,10 +257,27 @@ def run(experiment: Experiment, noise: Noise | None = None) -> RunResult:
 
     ``noise`` supplies every random draw of the rollout (see
     :mod:`repro_torch.noise`); None draws from a generator seeded with
-    ``experiment.seed``.
+    ``experiment.seed``.  A chaos scenario is run again on its control
+    scenario, with the draws it started from, for ``RunResult.recovery``.
     """
     e = experiment
     dev = resolve_device(e.device)
+    start = get_state(noise)
+    res = _run_dense(e, dev, noise)
+    info = chaos_mod.CHAOS_INFO.get(e.scenario)
+    if info is not None:
+        set_state(noise, start)
+        control = run(dataclasses.replace(
+            e, scenario=info.base, checkpoint_every=0, checkpoint_dir=None,
+            resume_from=None), noise)
+        res.recovery = _recovery_metrics(e, info, res, control)
+    return res
+
+
+def _run_dense(e: Experiment, dev: torch.device,
+               noise: Noise | None) -> RunResult:
+    """One run on the per-tick or the mega engine, in one piece or in
+    checkpointed chunks."""
     topo = e.resolve_topology()
     scfg, params, env_step = _build_world(topo, e.scenario, e.n_cells,
                                           e.n_windows, e.window_s, e.seed,
@@ -194,15 +296,21 @@ def run(experiment: Experiment, noise: Noise | None = None) -> RunResult:
             raise ValueError(
                 f"launch_periods must be >= 1, got {e.launch_periods}")
 
-    # a mega router owns its carry (fresh factored state sized to the run)
-    carry = (None if getattr(router, "mega", False)
-             else router.init_carry(e.n_cells, dev))
-    est = batched.init_fluid_state(params, env_step.n_obs_modalities)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    carry, est, trace = rollout(router, carry, est, env_step, e.n_windows,
-                                noise, seed=e.seed)
+    if e.checkpoint_every or e.resume_from:
+        carry, est, trace, boundaries = _chunked_rollout(e, router, params,
+                                                         env_step, noise,
+                                                         dev)
+    else:
+        # a mega router owns its carry (fresh factored state sized to the run)
+        carry = (None if getattr(router, "mega", False)
+                 else router.init_carry(e.n_cells, dev))
+        est = batched.init_fluid_state(params, env_step.n_obs_modalities)
+        carry, est, trace = rollout(router, carry, est, env_step,
+                                    e.n_windows, noise, seed=e.seed)
+        boundaries = ()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -231,4 +339,218 @@ def run(experiment: Experiment, noise: Noise | None = None) -> RunResult:
         trace=trace,
         final_carry=carry,
         watchdog_events=0.0 if wd is None else float(wd.sum()),
+        resume_points=tuple(boundaries),
     )
+
+
+# ------------------------------------------- checkpointing + recovery metrics
+def _ckpt_template(e: Experiment, router, params, noise,
+                   n_modalities: int) -> dict:
+    """Shapes and dtypes of a checkpoint's tree, for restore.  The carries
+    are built on the ``meta`` device, so a resume allocates them once
+    (restore loads each leaf onto the experiment's device)."""
+    r, meta = e.n_cells, torch.device("meta")
+    if getattr(router, "mega", False):
+        carry = mega_mod.init_mega_state(router.cfg, r, e.n_windows,
+                                         router.slot_dtype, meta)
+    else:
+        carry = router.init_carry(r, meta)
+    env = batched.init_fluid_state(params, n_modalities)
+    tmpl = {"carry": carry,
+            "env": type(env)(*(torch.empty_like(x, device=meta)
+                               for x in env)),
+            "obs": engine_mod._fresh_obs_carry(r, router.n_modalities,
+                                               router.n_tiers, meta)}
+    state = get_state(noise)
+    if state is not None:
+        tmpl["noise"] = state
+    return tmpl
+
+
+def _chunk_sizes(e: Experiment, t_begin: int):
+    t = t_begin
+    while t < e.n_windows:
+        n = (min(e.checkpoint_every, e.n_windows - t) if e.checkpoint_every
+             else e.n_windows - t)
+        yield t, n
+        t += n
+
+
+def _cat(xs):
+    """Concatenate per-chunk traces along time, field by field."""
+    if xs[0] is None:
+        return None
+    if isinstance(xs[0], torch.Tensor):
+        return torch.cat(xs)
+    return type(xs[0])(*(_cat(f) for f in zip(*xs)))
+
+
+def _chunked_rollout(e: Experiment, router, params, env_step,
+                     noise: Noise | None, dev: torch.device):
+    """The run as :func:`~repro_torch.api.engine.resumable_rollout` chunks
+    between boundary-aligned windows, saving (router carry, env state,
+    snapshot) at every interior boundary; from ``resume_from``'s newest
+    readable checkpoint when it is set.
+
+    Returns (carry, env state, trace of the chunks run, boundaries).
+    """
+    if e.checkpoint_every:
+        engine_mod._check_boundary(router, int(e.checkpoint_every))
+    ck_dir = e.checkpoint_dir or e.resume_from
+    if e.checkpoint_every and not ck_dir:
+        raise ValueError("checkpoint_every > 0 needs checkpoint_dir "
+                         "(or resume_from) to say where snapshots go")
+    mega = bool(getattr(router, "mega", False))
+    n_mod = env_step.n_obs_modalities
+    if noise is None:
+        noise = GeneratorNoise(e.seed, dev)
+    if e.resume_from:
+        tree, extra = Checkpointer(e.resume_from).restore(
+            _ckpt_template(e, router, params, noise, n_mod), device=dev)
+        t_begin = int(extra["t"])
+        if extra.get("scenario") not in (None, e.scenario):
+            raise ValueError(
+                f"resume_from checkpoint was written for scenario "
+                f"{extra['scenario']!r}, not {e.scenario!r}: resuming would "
+                f"splice two different worlds")
+        if t_begin >= e.n_windows:
+            raise ValueError(f"checkpoint is at window {t_begin} but the "
+                             f"experiment ends at {e.n_windows}")
+        carry, env = tree["carry"], tree["env"]
+        snapshot = (tuple(tree["obs"]), tree.get("noise"))
+    else:
+        t_begin, snapshot = 0, None
+        carry = None if mega else router.init_carry(e.n_cells, dev)
+        env = batched.init_fluid_state(params, n_mod)
+    ckpt = Checkpointer(ck_dir) if ck_dir else None
+    traces, boundaries = [], ([t_begin] if t_begin else [])
+    for t, n in _chunk_sizes(e, t_begin):
+        carry, env, tr, snapshot = resumable_rollout(
+            router, carry, env, env_step, n, noise, t_begin=t,
+            snapshot=snapshot, n_total=e.n_windows if mega else None)
+        traces.append(tr)
+        if t + n < e.n_windows:
+            boundaries.append(t + n)
+            if ckpt is not None:
+                obs, noise_state = snapshot
+                tree = {"carry": carry, "env": env, "obs": obs}
+                if noise_state is not None:
+                    tree["noise"] = noise_state
+                ckpt.save(t + n, tree, extra={"t": t + n,
+                                              "scenario": e.scenario,
+                                              "seed": e.seed})
+    if ckpt is not None:
+        ckpt.wait()
+    return carry, env, _cat(traces), tuple(boundaries)
+
+
+def _recovery_metrics(e: Experiment, info, res: RunResult,
+                      control: RunResult) -> dict:
+    """Recovery curve of a chaos run against its uninjured control.
+
+    * ``time_to_recover_s``: windows after the fault clears until the
+      fleet success rate is back within 95 % of the control's, in seconds
+      (the horizon's remainder when it never is; ``recovered`` says which);
+    * ``regret_vs_control``: mean per-window success-rate shortfall against
+      the control (clipped at 0);
+    * ``post_resume_forgetting``: mean drop in success rate across the
+      run's resume boundaries (5 windows before minus 5 after); 0 when
+      nothing resumed.
+    """
+    rate = _success_curve(res.trace)
+    rate_c = _success_curve(control.trace)
+    n = min(len(rate), len(rate_c))      # resumed runs trace a suffix only
+    rate, rate_c = rate[-n:], rate_c[-n:]
+    regret = float(np.maximum(rate_c - rate, 0.0).mean())
+
+    t_end = int(np.ceil(info.fault_frac[1] * e.n_windows))
+    i0 = max(t_end - (e.n_windows - n), 0)
+    ok = rate[i0:] >= 0.95 * rate_c[i0:]
+    recovered = bool(ok.any())
+    ttr = int(np.argmax(ok)) if recovered else max(len(rate) - i0, 0)
+
+    offset = e.n_windows - n
+    w = 5
+    drops = [float(rate[b - w:b].mean() - rate[b:b + w].mean())
+             for b in (p - offset for p in res.resume_points)
+             if b - w >= 0 and b + w <= n]
+    return {
+        "time_to_recover_s": float(ttr) * e.window_s,
+        "recovered": recovered,
+        "regret_vs_control": regret,
+        "post_resume_forgetting": (float(np.mean(drops)) if drops else 0.0),
+        "control_success_pct": control.success_pct,
+        "watchdog_events": res.watchdog_events,
+    }
+
+
+def _success_curve(trace) -> np.ndarray:
+    """(T,) fleet success rate per window from a trace."""
+    s = trace.env.success.cpu().numpy().sum(axis=1)
+    f = trace.env.failures.cpu().numpy().sum(axis=1)
+    return s / np.maximum(s + f, _EPS)
+
+
+# ------------------------------------------------------------------ comparison
+@dataclasses.dataclass
+class Comparison:
+    """Results of a comparison grid, renderable as markdown or JSON."""
+
+    results: list[RunResult]
+
+    def markdown(self) -> str:
+        """Table-1-style markdown: one row per (scenario, router)."""
+        lines = [
+            "| scenario | router | success % | P50 ms | P95 ms | "
+            "tier share of success (light->heavy) | obs % |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for res in self.results:
+            share = "/".join(f"{100 * float(x):.0f}" for x in res.tier_share)
+            lines.append(
+                f"| {res.experiment.scenario} | {res.name} "
+                f"| {res.success_pct:.1f} ± {res.success_std:.1f} "
+                f"| {res.p50_ms:.0f} | {res.p95_ms:.0f} "
+                f"| {share} | {100 * res.obs_frac:.0f} |")
+        return "\n".join(lines)
+
+    def to_json(self) -> dict:
+        """{scenario: {router: summary}} nested metric dict.  Rows sharing
+        (scenario, router name), e.g. one router at two seeds, get a ``#2``,
+        ``#3`` ... suffix, so no row of the markdown table is dropped."""
+        out: dict[str, dict] = {}
+        for res in self.results:
+            rows = out.setdefault(res.experiment.scenario, {})
+            name, n = res.name, 1
+            while name in rows:
+                n += 1
+                name = f"{res.name}#{n}"
+            rows[name] = res.summary()
+        return out
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=1)
+
+    __str__ = markdown
+
+
+def compare(experiments: Sequence[Experiment]) -> Comparison:
+    """Run a list of experiments and collect them into a :class:`Comparison`.
+
+    Experiments sharing (scenario, topology, R, T, seed) run against the
+    same world schedules, so rows differ only by routing policy: the
+    paper's Table-1 protocol at fleet scale.
+    """
+    return Comparison(results=[run(e) for e in experiments])
+
+
+def table1_grid(routers: Sequence[str] = TABLE1_ROUTERS,
+                scenario_names: Sequence[str] = ("paper-burst",
+                                                 "flaky-telemetry"),
+                **overrides) -> list[Experiment]:
+    """The paper's comparison grid: every router on clean and degraded
+    telemetry.  ``overrides`` go to every :class:`Experiment` (n_cells,
+    n_windows, seed, topology, fused, device, ...)."""
+    return [Experiment(router=r, scenario=s, **overrides)
+            for s in scenario_names for r in routers]

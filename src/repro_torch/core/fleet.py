@@ -5,12 +5,21 @@ share the same control cadence.  Every function here takes and returns a
 batched :class:`~repro_torch.core.agent.AgentState` whose tensors carry a
 leading router axis R.
 
-One control tick runs the belief update *and* the EFE evaluation of every
-action in one fused launch (:func:`repro_torch.kernels.efe.ops.fleet_belief_efe`:
-the CUDA kernel for tensors on the card, its plain PyTorch version on the
-CPU), reading the quasi-static :class:`~repro_torch.core.generative.ModelCache`
-that :func:`fleet_slow_step` refreshes once per slow period.  The reference's
-vmapped single-agent path (``fused=False``) is ROADMAP item A3.
+Two execution paths for one control tick, as in the reference:
+
+* ``fused=True`` (the port's default) runs the belief update *and* the EFE
+  evaluation of every action in one fused launch
+  (:func:`repro_torch.kernels.efe.ops.fleet_belief_efe`: kernel B1 for
+  tensors on the card, its plain PyTorch version on the CPU);
+* ``fused=False`` is the reference's vmapped single-agent step,
+  :func:`repro_torch.core.agent.fast_step` over the leading R axis: plain
+  PyTorch on every device, as the reference runs it in XLA with no Pallas
+  kernel.
+
+Both read the quasi-static :class:`~repro_torch.core.generative.ModelCache`
+that :func:`fleet_slow_step` refreshes once per slow period.  A
+heterogeneous fleet (:func:`hetero_fleet_rollout`) runs one rollout per
+topology group.
 
 Randomness is an operand: the action categorical takes (R, A) Gumbel noise,
 ``argmax(log p + gumbel)`` — the reference's ``jax.random.categorical``
@@ -19,16 +28,20 @@ replay indices.  The closed loop lives in :func:`repro_torch.api.engine.rollout`
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import warnings
+from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import agent as agent_mod
 from repro_torch.core import belief as belief_mod
 from repro_torch.core import efe as efe_mod
 from repro_torch.core import generative, learning, policies, preferences
+from repro_torch.core import spaces
 from repro_torch.device import resolve_device
 from repro_torch.kernels.efe import ops as efe_ops
+
 
 def _batched(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.unsqueeze(0).expand((n,) + tuple(t.shape)).contiguous()
@@ -192,7 +205,9 @@ def fleet_fast_step(state: agent_mod.AgentState,
                     cfg: generative.AifConfig,
                     util_bins: torch.Tensor | None = None,
                     util_valid: bool = False,
-                    obs_mask: torch.Tensor | None = None):
+                    obs_mask: torch.Tensor | None = None,
+                    *,
+                    fused: bool = True):
     """One fast step (belief → EFE → action) for the fleet; no slow learning.
 
     Args:
@@ -202,9 +217,14 @@ def fleet_fast_step(state: agent_mod.AgentState,
       util_bins: optional (R, K) utilization scrape in state-factor order.
       util_valid: gate for ``util_bins`` (True on scrape ticks).
       obs_mask: (R, M) telemetry-validity mask (None = every modality fresh).
+      fused: the fused belief→EFE launch, or (False) the single-agent step
+        batched over R with the full EFE breakdown.
     """
-    return _fused_fast_step(state, obs_bins, raw_error_rate, gumbel, cfg,
-                            util_bins, util_valid, obs_mask)
+    if fused:
+        return _fused_fast_step(state, obs_bins, raw_error_rate, gumbel, cfg,
+                                util_bins, util_valid, obs_mask)
+    return agent_mod.fast_step(state, obs_bins, raw_error_rate, gumbel, cfg,
+                               util_bins, util_valid, obs_mask)
 
 
 # -------------------------------------------------------- light (held) ticks
@@ -221,19 +241,29 @@ def fleet_light_step(state: agent_mod.AgentState,
                      cfg: generative.AifConfig,
                      util_bins: torch.Tensor | None = None,
                      util_valid: bool = False,
-                     obs_mask: torch.Tensor | None = None):
+                     obs_mask: torch.Tensor | None = None,
+                     *,
+                     fused: bool = True):
     """Fleet fast step for a tick off the action-dwell cadence (``t % dwell
     != 0`` for every router): the sampled action would be discarded, so the
     EFE evaluation — streaming the whole (R, A, S, S) cached B — is skipped
-    and only the cached-model belief update runs.  ``StepInfo.efe`` reads
+    and only the cached-model belief update runs (fused: the fused
+    kernel's posterior math; unfused: the single agent's
+    :func:`~repro_torch.core.agent.pre_action`).  ``StepInfo.efe`` reads
     zero."""
-    model, error_ema, unstable, loglik = _fused_evidence(
-        state, obs_bins, raw_error_rate, cfg, util_bins, util_valid, obs_mask)
-    q_next = efe_ops.fleet_belief_posterior(
-        state.cache.nb, state.belief, state.prev_action, loglik)
-    replay = learning.push_transition(
-        state.replay, state.belief, q_next, obs_bins, state.prev_action,
-        state.dt_since_change, obs_mask)
+    if fused:
+        model, error_ema, unstable, loglik = _fused_evidence(
+            state, obs_bins, raw_error_rate, cfg, util_bins, util_valid,
+            obs_mask)
+        q_next = efe_ops.fleet_belief_posterior(
+            state.cache.nb, state.belief, state.prev_action, loglik)
+        replay = learning.push_transition(
+            state.replay, state.belief, q_next, obs_bins, state.prev_action,
+            state.dt_since_change, obs_mask)
+    else:
+        model, q_next, replay, error_ema, unstable = agent_mod.pre_action(
+            state, obs_bins, raw_error_rate, cfg, util_bins, util_valid,
+            obs_mask)
     new_state, action = agent_mod.apply_action(
         state, model, q_next, replay, error_ema, unstable,
         state.prev_action, cfg)
@@ -254,6 +284,40 @@ def fleet_slow_step(state: agent_mod.AgentState, idx: torch.Tensor,
     period = max(int(cfg.slow_period_s / cfg.fast_period_s), 1)
     do_learn = (state.t % period) == 0                     # (R,)
     return agent_mod.slow_step(state, idx, cfg, learn=do_learn)
+
+
+def fleet_tick(state: agent_mod.AgentState,
+               obs_bins: torch.Tensor,
+               raw_error_rate: torch.Tensor,
+               noise,
+               t: int,
+               cfg: generative.AifConfig,
+               util_bins: torch.Tensor | None = None,
+               util_valid: bool = False,
+               obs_mask: torch.Tensor | None = None,
+               *,
+               fused: bool = True):
+    """One control tick for the whole fleet: the fast step, then the slow
+    step for routers whose clock lands on a slow-period boundary.
+
+    ``noise`` (the :mod:`repro_torch.noise` protocol) gives tick ``t``'s
+    Gumbel noise and, at a boundary, its replay indices.  The fast step
+    updates the replay ring in place: keep the returned state.  Prefer
+    :func:`repro_torch.api.engine.rollout` for closed loops, which runs
+    held ticks without the EFE.
+    """
+    if not fused:
+        return agent_mod.tick(state, obs_bins, raw_error_rate, cfg, noise, t,
+                              util_bins, util_valid, obs_mask)
+    r = state.belief.shape[0]
+    gumbel = noise.gumbel(t, (r, cfg.n_actions))
+    state, info = _fused_fast_step(state, obs_bins, raw_error_rate, gumbel,
+                                   cfg, util_bins, util_valid, obs_mask)
+    period = max(int(cfg.slow_period_s / cfg.fast_period_s), 1)
+    if bool(((state.t % period) == 0).any()):
+        idx = noise.replay_indices(t, state.replay.size, cfg.replay_batch)
+        state = fleet_slow_step(state, idx, cfg)
+    return state, info
 
 
 # ------------------------------------------------------------------ watchdog
@@ -326,3 +390,125 @@ class FleetTrace(NamedTuple):
     obs_frac: torch.Tensor         # (T, R)
     env: Any                       # environment info (stacked WindowInfo)
     watchdog: Any = None           # (T, R) float 0/1 quarantine events
+
+
+def fleet_rollout(agent_state: agent_mod.AgentState,
+                  env_state,
+                  env_step: Callable,
+                  n_steps: int,
+                  noise,
+                  cfg: generative.AifConfig,
+                  disc: spaces.DiscretizationConfig | None = None,
+                  util_edges: tuple[float, ...] | None = None,
+                  util_period: int = 10,
+                  *,
+                  fused: bool = True,
+                  obs_masked: bool | None = None,
+                  t0: int | None = None,
+                  seed: int = 0):
+    """Deprecated AIF-only entry point: use :mod:`repro_torch.api`.
+
+    Packs the old hand-assembled cfg/disc/util_edges/fused signature into a
+    :class:`repro_torch.api.aif.AifRouter` and delegates to
+    :func:`repro_torch.api.engine.rollout` (``noise`` None draws from a
+    generator seeded with ``seed``)::
+
+        router = api.AifRouter(cfg=cfg, disc=disc, fused=fused)
+        api.rollout(router, agent_state, env_state, env_step, n_steps, noise)
+    """
+    warnings.warn(
+        "repro_torch.core.fleet.fleet_rollout is deprecated: build a "
+        "repro_torch.api.AifRouter and call repro_torch.api.rollout (or run "
+        "a declarative repro_torch.api.Experiment); this shim keeps the old "
+        "signature working unchanged",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api.aif import AifRouter
+    from repro_torch.api.engine import rollout
+    router = AifRouter(cfg=cfg, disc=disc,
+                       util_edges=(None if util_edges is None
+                                   else tuple(util_edges)),
+                       util_period=util_period, fused=fused)
+    return rollout(router, agent_state, env_state, env_step, n_steps, noise,
+                   seed=seed, obs_masked=obs_masked, t0=t0)
+
+
+# ------------------------------------------------------- heterogeneous fleet
+class FleetGroup(NamedTuple):
+    """One topology-homogeneous group of a heterogeneous fleet.
+
+    Shapes differ across topologies (|S|, A, K), so cells of different
+    topologies cannot share one batched state: the fleet is grouped by
+    topology and each group runs its own rollout (its own kernel shapes).
+    """
+
+    name: str
+    cfg: generative.AifConfig
+    agent_state: agent_mod.AgentState    # batched, leading dim R_g
+    env_state: Any
+    env_step: Callable
+    # per-group execution path (a 5-tier group can run fused while a
+    # 3-tier group runs the single-agent step)
+    fused: bool = True
+    # per-group observation discretization (None = paper defaults)
+    disc: spaces.DiscretizationConfig | None = None
+
+
+#: Engine options hetero_fleet_rollout forwards to every group's rollout
+#: (per-group options, disc and fused, live on the FleetGroup).
+_HETERO_ROLLOUT_KWARGS = frozenset(
+    {"util_edges", "util_period", "obs_masked", "t0"})
+
+
+def group_seed(seed: int, i: int) -> int:
+    """Seed of group ``i``'s generator in a run seeded with ``seed``: the
+    groups draw independent streams, as the reference folds its key per
+    group."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1)[0])
+
+
+def hetero_fleet_rollout(groups, n_steps: int, noise=None, *, seed: int = 0,
+                         **kwargs) -> dict:
+    """Run a heterogeneous fleet: one engine rollout per topology group.
+
+    Args:
+      groups: sequence of :class:`FleetGroup` (cells pre-grouped by
+        topology, each with its own execution path).
+      n_steps: shared number of control windows.
+      noise: one :mod:`repro_torch.noise` source per group, or None for
+        a generator per group seeded with :func:`group_seed` ``(seed, i)``.
+      **kwargs: engine options shared by every group, among ``util_edges``,
+        ``util_period``, ``obs_masked`` and ``t0``; any other key raises
+        ``TypeError`` here, naming the valid options.
+
+    Returns:
+      dict group name -> (final agent state, final env state, FleetTrace).
+    """
+    unknown = set(kwargs) - _HETERO_ROLLOUT_KWARGS
+    if unknown:
+        raise TypeError(
+            f"hetero_fleet_rollout got unknown engine option(s) "
+            f"{sorted(unknown)}; shared options are "
+            f"{sorted(_HETERO_ROLLOUT_KWARGS)} and per-group options "
+            f"(disc, fused) belong on the FleetGroup")
+    names = [g.name for g in groups]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate FleetGroup names: {names}")
+    if noise is not None and len(noise) != len(groups):
+        raise ValueError(f"{len(noise)} noise sources for {len(groups)} "
+                         f"groups; pass one per group or None")
+    from repro_torch.api.aif import AifRouter
+    from repro_torch.api.engine import rollout
+    rollout_kwargs = {k: kwargs[k] for k in ("obs_masked", "t0")
+                      if k in kwargs}
+    util_edges = kwargs.get("util_edges")
+    out = {}
+    for i, g in enumerate(groups):
+        router = AifRouter(
+            cfg=g.cfg, disc=g.disc,
+            util_edges=None if util_edges is None else tuple(util_edges),
+            util_period=kwargs.get("util_period", 10), fused=g.fused)
+        out[g.name] = rollout(
+            router, g.agent_state, g.env_state, g.env_step, n_steps,
+            None if noise is None else noise[i], seed=group_seed(seed, i),
+            **rollout_kwargs)
+    return out

@@ -396,9 +396,12 @@ def _push_slot(slots: MegaSlots, idx: int | slice, q_prev, q_next,
 
 def _not_ported(forced_down, speed, row_block, graph) -> None:
     if forced_down is not None or speed is not None:
+        # the reference's own dispatch sends chaos windows from its Pallas
+        # kernel to the plain oracle; the port keeps the card path on B3
         raise NotImplementedError(
-            "forced_down/speed (fault schedules) are not ported yet "
-            "(ROADMAP item A8); pass None")
+            "forced_down/speed (fault schedules) in a mega window are not "
+            "ported yet (ROADMAP item A8b: chaos in B3); run chaos "
+            "scenarios on the per-tick path (mega=False)")
     if row_block is not None:
         raise NotImplementedError("row_block (sharded engine) is not ported "
                                   "yet (ROADMAP item A10); pass None")

@@ -8,6 +8,10 @@ from repro_torch.envsim.batched import (N_OBS_MODALITIES,
                                         make_env_step, make_scenario_env_step,
                                         params_from_config, run_fluid,
                                         summarize)
+from repro_torch.envsim.chaos import (CHAOS_INFO, CHAOS_PRESETS, ChaosInfo,
+                                      capacity_flap, crash_restart_storm,
+                                      long_outage, straggler_episodes,
+                                      zone_outage)
 from repro_torch.envsim.config import (TIER_CLASSES, SimConfig, TierConfig,
                                        default_tiers, discretization_for,
                                        sim_config_for, tiers_for_topology)
@@ -24,4 +28,7 @@ __all__ = ["N_OBS_MODALITIES", "FluidIngredients", "FluidParams", "FluidResult",
            "default_tiers", "discretization_for", "sim_config_for",
            "tiers_for_topology", "SCENARIOS", "Profile", "ScenarioBatch",
            "build_scenario", "compile_scenario", "compose",
-           "scrape_blackout", "stale_replay", "telemetry_dropout"]
+           "scrape_blackout", "stale_replay", "telemetry_dropout",
+           "CHAOS_INFO", "CHAOS_PRESETS", "ChaosInfo", "capacity_flap",
+           "crash_restart_storm", "long_outage", "straggler_episodes",
+           "zone_outage"]

@@ -21,11 +21,15 @@ mask is all ones and ``raw_obs`` is the fresh telemetry.
 
 Randomness is an operand: :func:`fluid_window_step` takes the two (R, K)
 uniform arrays of the restart draw (fire, duration) instead of a key.
-Every function is plain PyTorch over tensors with a leading cell axis R;
-:func:`run_fluid` is a Python loop over windows.  The reference's graph
-spillover (ROADMAP A9), fault schedules ``forced_down``/``speed`` (A8) and
-sharded ``row_block`` (A10) are not ported: their ``None`` defaults are the
-only accepted values.
+Fault injection: a scenario's (T, R, K) ``forced_down`` schedule takes
+tiers administratively down (arrivals refused, in-system mass killed,
+liveness probe down, independent of the restart machinery) and its
+``speed`` schedule scales service speed (stragglers: capacity shrinks,
+latency inflates, liveness stays).  Every function is plain PyTorch over
+tensors with a leading cell axis R; :func:`run_fluid` is a Python loop over
+windows.  The reference's graph spillover (ROADMAP A9) and sharded
+``row_block`` (A10) are not ported: their ``None`` defaults are the only
+accepted values.
 """
 from __future__ import annotations
 
@@ -274,21 +278,32 @@ def fluid_window_step(params: FluidParams,
       scrape_every: windows between utilization scrapes.
       obs_valid: optional (R, M) 0/1 telemetry-validity mask this window.
       restart_blackout: a cell with any tier down publishes nothing.
-      row_block / forced_down / speed / graph: not ported; must be None.
+      forced_down: optional (R, K) 0/1 injected downtime this window: the
+        tier refuses arrivals, serves nothing, loses its in-system mass and
+        probes as down, so an outage can outlive ``restart_max_s``.
+      speed: optional (R, K) service-speed multiplier this window (<1
+        shrinks capacity and inflates latency, the tier stays up).
+      row_block / graph: not ported; must be None.
     """
     if row_block is not None:
         raise _waiting("row_block (sharded engine)", "A10")
-    if forced_down is not None or speed is not None:
-        raise _waiting("forced_down/speed (fault schedules)", "A8")
     if graph is not None:
         raise _waiting("graph spillover", "A9")
     w = torch.clamp(weights, min=0.0)
     w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
 
     up = state.down_left <= _EPS                      # (R, K) bool
+    if forced_down is not None:
+        adminf = forced_down.to(torch.float32)        # (R, K) 1 = injected
+        up = up & (adminf <= 0.5)
     upf = up.to(torch.float32)
-    mu_eff = params.mu
-    service_mean = params.service_mean_s
+    if speed is None:
+        mu_eff = params.mu
+        service_mean = params.service_mean_s
+    else:
+        sp = torch.clamp(speed.to(torch.float32), min=1e-3)
+        mu_eff = params.mu * sp
+        service_mean = params.service_mean_s / sp
 
     lam = w * arrival_rate[:, None]                   # (R, K) offered RPS
     arr = lam * dt                                    # (R, K) request mass
@@ -340,6 +355,11 @@ def fluid_window_step(params: FluidParams,
     restarted = (up & (u < p_restart)).to(torch.float32)
     killed = backlog1 * restarted                     # in-system mass dies
     backlog2 = backlog1 * (1.0 - restarted)
+    if forced_down is not None:
+        # injected downtime strands the tier's in-system mass too (a restart
+        # cannot fire on an admin-down tier, so nothing is counted twice)
+        killed = killed + backlog2 * adminf
+        backlog2 = backlog2 * (1.0 - adminf)
     dur = params.restart_min_s + dur_u * (
         params.restart_max_s - params.restart_min_s)
     down_left = torch.clamp(state.down_left - dt, min=0.0)
@@ -380,6 +400,9 @@ def fluid_window_step(params: FluidParams,
                     else obs_valid.to(torch.float32))
         if restart_blackout:
             cell_up = torch.all(down_left <= _EPS, dim=-1)   # (R,) bool
+            if forced_down is not None:
+                # an administratively-down pod emits nothing either
+                cell_up = cell_up & torch.all(adminf <= 0.5, dim=-1)
             obs_mask = obs_mask * cell_up[:, None].to(torch.float32)
             # the utilization scrape endpoint is down too: re-publish the
             # last scrape instead of leaking live state from a dark pod
@@ -408,11 +431,14 @@ def fluid_window_step(params: FluidParams,
         tier_success=state.tier_success + completed,
         n_restarts=state.n_restarts + restarted,
     )
+    tier_up = (down_left <= _EPS).to(torch.float32)
+    if forced_down is not None:
+        tier_up = tier_up * (1.0 - adminf)
     info = WindowInfo(
         raw_obs=published,
         obs_mask=obs_mask,
         tier_utilization=util_scrape,
-        tier_up=(down_left <= _EPS).to(torch.float32),
+        tier_up=tier_up,
         tier_queue=tier_queue,
         tier_latency_s=tier_latency,
         tier_p95_s=tier_p95,
@@ -451,12 +477,11 @@ def run_fluid(params: FluidParams,
       noise: a :class:`repro_torch.noise.Noise` source of the restart
         uniforms (``env_uniforms(t, (R, K))``).
       obs_valid: optional (T, R, M) telemetry-validity schedule.
+      forced_down / speed: optional (T, R, K) fault schedules.
 
     Returns:
       (final FluidState, stacked WindowInfo traces with leading T axis).
     """
-    if forced_down is not None or speed is not None:
-        raise _waiting("forced_down/speed (fault schedules)", "A8")
     t_total = arrival_rate.shape[0]
     r, k = params.n_cells, params.n_tiers
     if weights.ndim == 1:
@@ -471,7 +496,9 @@ def run_fluid(params: FluidParams,
             noise.env_uniforms(t, (r, k)), t, dt=dt,
             scrape_every=scrape_every,
             obs_valid=None if obs_valid is None else obs_valid[t],
-            restart_blackout=restart_blackout)
+            restart_blackout=restart_blackout,
+            forced_down=None if forced_down is None else forced_down[t],
+            speed=None if speed is None else speed[t])
         infos.append(info)
     return state, stack_infos(infos)
 
@@ -483,7 +510,7 @@ class FluidIngredients(NamedTuple):
     launch and needs the schedules as slices, not one-row lookups; it
     reads these from ``env_step.fluid`` so it drives exactly the same
     world (params, schedules, mask semantics) as the per-tick engine.
-    The reference's fault schedules and graph fields wait for A8 and A9.
+    The reference's graph field waits for A9.
     """
 
     params: FluidParams
@@ -493,6 +520,8 @@ class FluidIngredients(NamedTuple):
     scrape_every: int
     obs_valid: torch.Tensor | None     # (T, R, M) or None
     restart_blackout: bool
+    forced_down: torch.Tensor | None = None   # (T, R, K) or None
+    speed: torch.Tensor | None = None         # (T, R, K) or None
 
 
 def make_env_step(params: FluidParams,
@@ -513,8 +542,6 @@ def make_env_step(params: FluidParams,
     ``n_obs_modalities`` the telemetry width and ``fluid`` the
     :class:`FluidIngredients` for whole-window consumers.
     """
-    if forced_down is not None or speed is not None:
-        raise _waiting("forced_down/speed (fault schedules)", "A8")
     if graph is not None:
         raise _waiting("graph spillover", "A9")
     dev = params.servers.device
@@ -522,24 +549,33 @@ def make_env_step(params: FluidParams,
                                    device=dev)
     hazard_scale = torch.as_tensor(hazard_scale, dtype=torch.float32,
                                    device=dev)
-    if obs_valid is not None:
-        obs_valid = torch.as_tensor(obs_valid, dtype=torch.float32,
-                                    device=dev)
+    def schedule(x):
+        return (None if x is None else
+                torch.as_tensor(x, dtype=torch.float32, device=dev))
+
+    obs_valid, forced_down, speed = (schedule(x) for x in
+                                     (obs_valid, forced_down, speed))
 
     def env_step(env_state, weights, t_idx, uniforms):
-        ov = None if obs_valid is None else obs_valid[t_idx]
+        def at(x):
+            return None if x is None else x[t_idx]
+
         return fluid_window_step(params, env_state, weights,
                                  arrival_rate[t_idx], hazard_scale[t_idx],
                                  uniforms, t_idx, dt=dt,
-                                 scrape_every=scrape_every, obs_valid=ov,
-                                 restart_blackout=restart_blackout)
+                                 scrape_every=scrape_every,
+                                 obs_valid=at(obs_valid),
+                                 restart_blackout=restart_blackout,
+                                 forced_down=at(forced_down),
+                                 speed=at(speed))
 
     env_step.emits_mask = obs_valid is not None or restart_blackout
     env_step.n_obs_modalities = N_OBS_MODALITIES
     env_step.fluid = FluidIngredients(
         params=params, arrival_rate=arrival_rate, hazard_scale=hazard_scale,
         dt=dt, scrape_every=scrape_every, obs_valid=obs_valid,
-        restart_blackout=restart_blackout)
+        restart_blackout=restart_blackout, forced_down=forced_down,
+        speed=speed)
     return env_step
 
 

@@ -30,8 +30,10 @@ AIF fleet) treat masked modalities as zero evidence, mask-oblivious routers
 consume the stale value — exactly the failure mode real pipelines exhibit.
 
 All builders are host-side numpy: schedules are *inputs* to the rollout,
-generated once per experiment.  The graph presets and the fault-injection
-presets of the reference wait for later slices (:data:`WAITING`).
+generated once per experiment.  The fault-injection presets live in
+:mod:`repro_torch.envsim.chaos`, which registers them here when the
+package is imported; the graph presets of the reference wait for a later
+slice (:data:`WAITING`).
 """
 from __future__ import annotations
 
@@ -376,8 +378,6 @@ SCENARIOS: dict[str, Callable[..., ScenarioBatch]] = {
 #: Presets of the reference that wait for a later slice of the port.
 WAITING = {
     "ring-spillover": "A9", "grid-hotspot": "A9", "hier-continuum": "A9",
-    "zone-outage": "A8", "straggler-storm": "A8", "capacity-flap": "A8",
-    "mttf-mttr": "A8", "long-outage": "A8",
 }
 
 

@@ -54,8 +54,8 @@ def test_sim_configs_equal_reference_for_every_topology():
 def test_waiting_scenarios_raise():
     with pytest.raises(NotImplementedError, match="A9"):
         scenarios.build_scenario("ring-spillover", SimConfig(), 4, 10)
-    with pytest.raises(NotImplementedError, match="A8"):
-        scenarios.build_scenario("zone-outage", SimConfig(), 4, 10)
+    with pytest.raises(NotImplementedError, match="A9"):
+        scenarios.build_scenario("hier-continuum", SimConfig(), 4, 10)
 
 
 def _world(name, r, t, seed=0):
@@ -156,8 +156,6 @@ def test_waiting_env_options_raise():
     u = (torch.zeros(2, 3), torch.zeros(2, 3))
     args = (params_p, st, torch.ones(2, 3), torch.ones(2), torch.ones(2, 3),
             u, 0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        batched.fluid_window_step(*args, forced_down=torch.zeros(2, 3))
     with pytest.raises(NotImplementedError, match="A9"):
         batched.fluid_window_step(*args, graph=object())
     with pytest.raises(NotImplementedError, match="A10"):

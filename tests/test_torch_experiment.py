@@ -94,8 +94,6 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 def test_waiting_paths_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="A3"):
-        api.AifRouter(fused=False)
     # warm promotion of a dense per-tick carry onto the mega path
     router = api.AifRouter(mega=True)
     warm = router.init_carry(2, "cpu")
@@ -105,12 +103,10 @@ def test_waiting_paths_raise_not_implemented():
                              from_agent_state=warm)
     with pytest.raises(NotImplementedError, match="A14"):
         api.rollout(router, warm, None, None, 10)
-    with pytest.raises(NotImplementedError, match="A3"):
-        api.run(api.Experiment(fused=False, n_cells=2, n_windows=5,
-                               device="cpu"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        api.run(api.Experiment(router="thompson", n_cells=2, n_windows=5,
-                               device="cpu"))
+    # fault schedules in a mega window (chaos in B3)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        api.run(api.Experiment(mega=True, scenario="zone-outage", n_cells=2,
+                               n_windows=20, device="cpu"))
 
 
 def test_uniform_router_weights_are_the_balanced_row():
@@ -139,6 +135,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.attention.ops\n"
         "import repro_torch.kernels.ssd.ops, repro_torch.models.ssm\n"
         "import repro_torch.envsim.routers, repro_torch.envsim.simulator\n"
+        "import repro_torch.checkpoint, repro_torch.envsim.chaos\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

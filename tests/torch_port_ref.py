@@ -9,6 +9,7 @@ reference draws from it:
 
 * the Gumbel noise of the action categorical at ``k_fast``
   (``jax.random.categorical`` is ``argmax(logits + gumbel(key))``),
+* the Thompson bandit's standard-normal sampling noise at ``k_fast``,
 * the replay indices of ``sample_batch`` at the boundary tick's ``k_slow``,
 * the two restart uniforms of ``fluid_window_step`` at ``split(k_env)``.
 
@@ -106,13 +107,13 @@ def assert_tree_close(port, ref, rtol=RTOL, atol=ATOL, path="state"):
 class JaxChainNoise:
     """The reference engine's draws, as a ``repro_torch.noise`` source.
 
-    Replays the per-tick key chain from ``jax.random.key(seed)`` for
-    ``n_steps`` ticks of an ``r``-cell fleet.  Call it in the same PRNG mode
-    as the reference run it is compared with.
+    Replays the per-tick key chain from ``jax.random.key(seed)`` (or from
+    ``key``) for ``n_steps`` ticks of an ``r``-cell fleet.  Call it in the
+    same PRNG mode as the reference run it is compared with.
     """
 
-    def __init__(self, seed: int, r: int, n_steps: int):
-        k = jax.random.key(seed)
+    def __init__(self, seed: int, r: int, n_steps: int, key=None):
+        k = jax.random.key(seed) if key is None else key
         self.k_env, self.k_fast, self.k_slow = [], [], []
         for _ in range(n_steps):
             k, k_env, k_agents = jax.random.split(k, 3)
@@ -125,6 +126,11 @@ class JaxChainNoise:
         a = shape[-1]
         g = jax.vmap(lambda k: jax.random.gumbel(k, (a,)))(self.k_fast[t])
         return torch.tensor(np.asarray(g))
+
+    def normal(self, t, shape):
+        a = shape[-1]
+        e = jax.vmap(lambda k: jax.random.normal(k, (a,)))(self.k_fast[t])
+        return torch.tensor(np.asarray(e))
 
     def replay_indices(self, t, size, batch):
         sizes = jnp.asarray(t2n(size), jnp.int32)
@@ -224,6 +230,31 @@ class RouterKeyChainNoise:
         n = jnp.maximum(jnp.asarray(int(t2n(size)[0]), jnp.int32), 1)
         idx = jax.random.randint(self.k_slow[t], (batch,), 0, n)
         return torch.tensor(np.asarray(idx), dtype=torch.int64)[None]
+
+
+def bandit_carry_to_port(carry):
+    """A reference bandit or round-robin carry (``ThompsonCarry``,
+    ``UcbCarry`` or the (R,) counter) as the port's, on the CPU."""
+    from repro_torch.api import router
+
+    def leaf(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.int64 if x.dtype.kind in "iu"
+                            else torch.float32)
+
+    if not hasattr(carry, "_asdict"):
+        return leaf(carry)
+    port_cls = getattr(router, type(carry).__name__)
+    return port_cls(**{k: leaf(v) for k, v in carry._asdict().items()})
+
+
+def snapshot_to_port(snapshot):
+    """A reference resume snapshot (per-tick: the five telemetry arrays and
+    the chain key; mega: (telemetry, chain key)) as the port's: the
+    telemetry carry and no noise position, which a :class:`JaxChainNoise`
+    indexed by tick does not need."""
+    obs = snapshot[0] if len(snapshot) == 2 else snapshot[:5]
+    return (tuple(torch.tensor(np.asarray(x)) for x in obs), None)
 
 
 def lm_to_port(cfg, params=None, caches=None):
