@@ -59,7 +59,31 @@ failure raising (exit code != 0):
    the uninterrupted run's to the bit, per-tick (zone-outage, B1) and mega
    (paper-burst, B3); with the checkpoint's size and the seconds to
    restore and to write one; the directory is deleted;
-14. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
+14. graph kernel vs plain — B1 at the graph worlds' widths (the paper's
+   testbed with the neighbor-pressure modality: R=1024, S=243, A=20, M=5),
+   unmasked and masked, against its plain version, each launched twice with
+   the two outputs equal to the bit;
+15. graph small — ``Experiment(scenario="ring-spillover", n_cells=6,
+   n_windows=30)`` on the card and on the CPU with the same draws: actions
+   equal, success/P50/P95/offload within 1e-4 relative;
+16. graph — ``Experiment(router="aif", scenario="ring-spillover",
+   n_cells=1024, n_windows=300)``, fused, with every kernel's count read
+   around it (B1: 60), beside its ``graph="none"`` control on the same
+   schedules; the graphed run again through the engine with the same
+   draws, equal to the bit (the spillover's per-cell sums have no
+   atomics), and fleet mass conserved on that run's final state; then
+   ``grid-hotspot`` and ``hier-continuum`` at R=256;
+17. warm kernel vs plain — a fused per-tick run at R=1024 stopped at
+   t=150 and promoted onto the mega path (its dense transition counts
+   become B3's ``b_base`` baseline): one B3 window of the warm branch
+   against its plain version at the promotion and two windows later (the
+   replayed slots then carry weight too), the first launched twice with
+   the outputs equal to the bit, then timed beside its bound;
+18. warm — from that state, 150 more ticks on the mega path (15 B3
+   launches, counted) and, on the same draws, 150 on the per-tick path
+   (30 B1 launches): the count of differing actions; then a small warm run
+   (R=4) on the card against the CPU: actions equal;
+19. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
    against their plain versions ``mha_ref``/``decode_ref`` on the card:
    internlm2-1.8b's heads (Hq=16, Hkv=8, D=128) at b=1, Sq=Skv=1024 causal
    in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
@@ -71,20 +95,20 @@ failure raising (exit code != 0):
    within 1e-6; bf16 B4 and B5 within one bf16 ulp of their model, B4
    closer to ``ref.prefill_two_half_model`` than to the model that drops
    p_lo);
-15. serve small — internlm2-1.8b's widths at 2 layers in f32, one
+20. serve small — internlm2-1.8b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
    the first prompt's prefill and of one decode step after it within 1e-4
    relative, the kernels launched as expected;
-16. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
+21. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
    max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
    1000-1024 prompt tokens with 64 new tokens each, every kernel's count
    read around it (B4: 24 per request, B5: 24 per decode wave);
-17. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
+22. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
    engines sharing the serve phase's weights (max_batch 2/3/8,
    steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
    128-token prompts with 16 new tokens, counts read around it;
-18. times — each kernel's ms per launch (CUDA events around one
+23. times — each kernel's ms per launch (CUDA events around one
    synchronized call, warmed up, median) and its device ms (30 calls
    queued back to back behind a busy-wait, so the host's cost per call
    stays off the clock) beside its bound and its plain version's ms; B3 at the mega slice's
@@ -94,8 +118,9 @@ failure raising (exit code != 0):
    ``scaled_dot_product_attention``'s time on the same inputs (a yardstick
    the port never calls), and B5 at the multitier phase's shapes (B = 2,
    3, 8 over S=512), each with the blocks its launch puts to work; B1
-   also at the hetero phase's 5-tier widths;
-19. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
+   also at the hetero phase's 5-tier widths and at the graph phase's M=5
+   (its own row of the kernels line, as B3's warm branch from phase 17);
+24. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
@@ -106,17 +131,17 @@ failure raising (exit code != 0):
    one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
    the plain model of that route's algebra, and closer to it than to the
    model that drops the lo halves;
-20. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
+25. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
-   tokens each, checked as in phase 15 (B6: 2 per admission);
-21. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
+   tokens each, checked as in phase 20 (B6: 2 per admission);
+26. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
    max_batch=8, max_len=2048)`` in bf16, all 64 layers, answering 8
    requests of 1000-1024 prompt tokens with 32 new tokens each, every
    kernel's count read around it (B6: 64 per request), then one prefill's
    and one decode wave's host and device time; the weights are freed
    after it;
-22. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
+27. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
    bf16) beside its bound and its plain version's ms.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
@@ -661,7 +686,7 @@ def mega_errors(out_k, out_p, t0: int) -> dict:
         (sk.slots.dt_since_change[:, cols], sp.slots.dt_since_change[:, cols])]
     floats += list(zip(ek, ep)) + list(zip(ok, op))
     floats += [(yk[i], yp[i]) for i in (1, 2, 4)]   # weights, raw, frac
-    floats += list(zip(yk[5], yp[5]))
+    floats += [(a, b) for a, b in zip(yk[5], yp[5]) if b is not None]
 
     def f(x):
         return x.float()
@@ -1183,6 +1208,397 @@ def phase_resume() -> None:
                                  f"run: {checks}")
         del r0, r1, r2, tree, like
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- graph worlds, warm fleets
+class TickNoise:
+    """Draws that depend on (seed, tick, kind) alone, from a CPU generator
+    seeded per draw and handed out on ``device``: two paths that ask for
+    them in different orders (the per-tick engine draws a tick's Gumbel
+    noise on selecting ticks only, the mega path on every tick) see the
+    same numbers."""
+
+    def __init__(self, seed: int, device: str):
+        self.seed = seed
+        self.device = torch.device(device)
+
+    def _gen(self, t: int, kind: int) -> torch.Generator:
+        g = torch.Generator()
+        g.manual_seed(self.seed * 1_000_003 + 8 * t + kind)
+        return g
+
+    def gumbel(self, t, shape):
+        u = torch.rand(shape, generator=self._gen(t, 0)).clamp(
+            min=torch.finfo(torch.float32).tiny)
+        return (-torch.log(-torch.log(u))).to(self.device)
+
+    def replay_indices(self, t, size, batch):
+        hi = torch.clamp(size.cpu(), min=1)[:, None]
+        u = torch.rand((hi.shape[0], batch), generator=self._gen(t, 1))
+        return torch.minimum((u * hi).long(), hi - 1).to(self.device)
+
+    def env_uniforms(self, t, shape):
+        g = self._gen(t, 2)
+        return (torch.rand(shape, generator=g).to(self.device),
+                torch.rand(shape, generator=g).to(self.device))
+
+    def normal(self, t, shape):
+        return torch.randn(shape, generator=self._gen(t, 3)).to(self.device)
+
+
+def graph_operands(masked: bool) -> dict:
+    """B1's operands at the graph worlds' widths: the paper's testbed with
+    the neighbor-pressure modality (M=5, 15 observation rows), R=1024."""
+    from repro_torch.core import graph
+    from repro_torch.core.topology import default_topology
+    return full_width_operands(
+        masked, topo=graph.with_neighbor_modality(default_topology()))
+
+
+def phase_graph_kernel_vs_plain() -> float:
+    """B1 against its plain version at M=5, unmasked and masked, each
+    launched twice with the two outputs equal to the bit."""
+    worst = 0.0
+    for masked in (False, True):
+        d = graph_operands(masked)
+        kern, plain = kernel_calls(d)["belief_efe_fleet"]
+        out_k, out_k2, out_p = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        g_err = (out_k[0] - out_p[0]).abs().max().item()
+        q_err = (out_k[1] - out_p[1]).abs().max().item()
+        same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+        finite = bool(torch.isfinite(out_k[0]).all())
+        emit("graph_kernel_vs_plain", kernel="belief_efe_fleet",
+             masked=masked, shape=list(d["nb"].shape),
+             modalities=d["na"].shape[1], obs_rows=d["na"].shape[1]
+             * d["na"].shape[2], g_max_abs_err=g_err, q_max_abs_err=q_err,
+             g_tol=G_TOL, q_tol=Q_TOL, launches_bit_equal=same)
+        if not (finite and same and g_err <= G_TOL and q_err <= Q_TOL):
+            raise AssertionError(
+                f"belief_efe_fleet at M=5 (masked={masked}) disagrees with "
+                f"its plain version or between launches: G err {g_err}, "
+                f"q err {q_err}, bit-equal {same}")
+        worst = max(worst, g_err, q_err)
+        del d, out_k, out_k2, out_p
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_graph_small() -> None:
+    """A small ring-spillover run on the card against the CPU, same draws."""
+    from repro_torch import api
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        e = api.Experiment(router="aif", scenario="ring-spillover",
+                           n_cells=6, n_windows=30, seed=1, device=dev)
+        runs[dev] = api.run(e, noise=MirroredNoise(1, dev))
+    gpu, cpu = runs[DEVICE], runs["cpu"]
+    same_actions = bool(torch.equal(gpu.trace.actions.cpu(),
+                                    cpu.trace.actions))
+    rel = {k: abs(getattr(gpu, k) - getattr(cpu, k))
+           / max(abs(getattr(cpu, k)), 1e-9)
+           for k in ("success_pct", "p50_ms", "p95_ms", "offload_frac")}
+    spill_err = (gpu.trace.env.spill_admitted.cpu()
+                 - cpu.trace.env.spill_admitted).abs().max().item()
+    emit("graph_small", n_cells=6, n_windows=30, actions_equal=same_actions,
+         rel_err=rel, spill_admitted_max_abs_err=spill_err,
+         offload_frac=gpu.offload_frac,
+         modalities=int(gpu.trace.raw_obs.shape[-1]))
+    if (not same_actions or max(rel.values()) > 1e-4
+            or gpu.trace.raw_obs.shape[-1] != 5 or gpu.offload_frac <= 0):
+        raise AssertionError("the CUDA path disagrees with the CPU path on "
+                             "the small ring-spillover run")
+
+
+R_GRAPH_SMALL = 256     # grid-hotspot and hier-continuum
+
+
+def phase_graph() -> int:
+    """The graphed fused slice and its ungraphed control, the graphed run
+    again through the engine (equal to the bit, mass conserved), then the
+    other two graph scenarios at a smaller R.  Returns B1's launches in
+    the graphed slice."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.envsim import batched
+    selecting = math.ceil(T_FULL / api.AifRouter().dwell)
+    want = dict(NO_LAUNCHES, belief_efe_fleet=selecting)
+    e = api.Experiment(router="aif", scenario="ring-spillover",
+                       n_cells=R_FULL, n_windows=T_FULL, seed=0,
+                       device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = run_counted(e)
+    ctl, ctl_launches = run_counted(dataclasses.replace(e, graph="none"))
+    ctl.final_carry = ctl.trace = None    # ~20 GB: keep the numbers only
+    torch.cuda.empty_cache()
+
+    def fleet(r):
+        return float(r.fluid.n_success.sum()) / float(
+            r.fluid.n_requests.sum())
+
+    # the same run through the engine, with the same draws: equal to the
+    # bit, and its final state closes the fleet's mass balance
+    dev = torch.device(DEVICE)
+    g = e.resolve_graph()
+    scfg, params, env_step = experiment._build_world(
+        e.resolve_topology(), e.scenario, R_FULL, T_FULL, 1.0, 0, dev, g)
+    router = e.resolve_router(scfg, g)
+    carry, est, trace = engine.rollout(
+        router, router.init_carry(R_FULL, dev),
+        batched.init_fluid_state(params, env_step.n_obs_modalities),
+        env_step, T_FULL, seed=0)
+    bits = (torch.equal(trace.actions, res.trace.actions)
+            and torch.equal(trace.env.spill_admitted,
+                            res.trace.env.spill_admitted)
+            and all(torch.equal(a, b) for a, b in zip(
+                flatten(carry).values(), flatten(res.final_carry).values()))
+            and np.array_equal(est.n_success.cpu().numpy(),
+                               res.fluid.n_success))
+
+    def tot(x):
+        return float(x.double().sum())
+
+    offered = tot(est.n_requests)
+    accounted = (tot(est.n_success) + tot(est.err_timeout)
+                 + tot(est.err_overflow) + tot(est.err_refused)
+                 + tot(est.err_restart) + tot(est.backlog))
+    mass_rel = abs(accounted - offered) / offered
+    emit("graph", scenario=e.scenario, n_cells=R_FULL, n_windows=T_FULL,
+         wall_s=res.wall_s, launches=launches,
+         success_pct=res.success_pct, p50_ms=res.p50_ms, p95_ms=res.p95_ms,
+         offload_frac=res.offload_frac, fleet_success=fleet(res),
+         control_wall_s=ctl.wall_s, control_launches=ctl_launches,
+         control_success_pct=ctl.success_pct,
+         control_fleet_success=fleet(ctl),
+         control_offload_frac=ctl.offload_frac, rerun_bit_equal=bits,
+         mass_offered=offered, mass_accounted=accounted,
+         mass_rel_err=mass_rel, modalities=int(res.trace.raw_obs.shape[-1]),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches != want or ctl_launches != want:
+        raise AssertionError(f"the graph slice launched {launches} (control "
+                             f"{ctl_launches}), expected {want}")
+    if not bits or mass_rel > 1e-5 or res.offload_frac <= 0.0:
+        raise AssertionError(f"the graph slice is not reproducible to the "
+                             f"bit ({bits}), leaks mass ({mass_rel}) or "
+                             f"spilled nothing ({res.offload_frac})")
+    if not all(math.isfinite(v) for v in (res.success_pct, res.p50_ms,
+                                          res.p95_ms)):
+        raise AssertionError("non-finite graph slice metrics")
+    b1 = launches["belief_efe_fleet"]
+    del res, ctl, carry, est, trace
+    torch.cuda.empty_cache()
+    for scenario in ("grid-hotspot", "hier-continuum"):
+        e = api.Experiment(router="aif", scenario=scenario,
+                           n_cells=R_GRAPH_SMALL, n_windows=T_FULL, seed=0,
+                           device=DEVICE)
+        res, launches = run_counted(e)
+        emit("graph", scenario=scenario, n_cells=R_GRAPH_SMALL,
+             n_windows=T_FULL, wall_s=res.wall_s, launches=launches,
+             success_pct=res.success_pct, p50_ms=res.p50_ms,
+             p95_ms=res.p95_ms, offload_frac=res.offload_frac,
+             fleet_success=fleet(res))
+        if launches != want or not math.isfinite(res.success_pct) or \
+                res.offload_frac <= 0.0:
+            raise AssertionError(f"{scenario}: launches {launches}, success "
+                                 f"{res.success_pct}, offload "
+                                 f"{res.offload_frac}")
+        del res
+        torch.cuda.empty_cache()
+    return b1
+
+
+def graph_times(err: float, launches: int) -> dict:
+    """B1 at M=5 (R=1024): times beside its bound and plain version, with
+    the launches of the graphed slice."""
+    d = graph_operands(masked=False)
+    kern, plain = kernel_calls(d)["belief_efe_fleet"]
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain)
+    dev, ahead = queued_ms(kern)
+    b_ms, b_by = bound(d, "belief_efe_fleet")
+    row = {"name": "belief_efe_fleet", "variant": "graph_m5",
+           "route": "cuda", "source": "src/repro_torch/csrc/efe_fleet.cu",
+           "replaces": "src/repro/kernels/efe/efe.py:250",
+           "shape": list(d["nb"].shape) + [d["na"].shape[1]],
+           "launches": launches, "max_abs_err": err, "max_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "device_ms": dev,
+           "library_device_ms": None}
+    emit("times", kernel="belief_efe_fleet", topology="paper-3tier+neighbor",
+         queued_ahead=ahead, **{k: v for k, v in row.items()
+                                if k not in ("name", "route", "source",
+                                             "replaces")})
+    del d
+    torch.cuda.empty_cache()
+    return row
+
+
+T_WARM = 150            # the per-tick prefix, then as many mega ticks
+
+
+def warm_prefix(r: int, t1: int, horizon: int, device: str, noise):
+    """A fused per-tick run of ``r`` cells on paper-burst stopped at tick
+    ``t1`` of a ``horizon``-tick world: (per-tick router, mega router,
+    env_step, dense carry, env state, snapshot)."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.envsim import batched
+    dev = torch.device(device)
+    e = api.Experiment(router="aif", scenario="paper-burst", n_cells=r,
+                       n_windows=horizon, seed=0, device=device)
+    scfg, params, env_step = experiment._build_world(
+        e.resolve_topology(), e.scenario, r, horizon, 1.0, 0, dev)
+    pt = e.resolve_router(scfg)
+    mg = dataclasses.replace(pt, mega=True)
+    carry, est, _, snap = engine.resumable_rollout(
+        pt, pt.init_carry(r, dev), batched.init_fluid_state(params),
+        env_step, t1, noise)
+    return pt, mg, env_step, carry, est, snap
+
+
+def warm_bound(state, args, t0: int, dwell: int) -> tuple[float, float]:
+    """Least times for one warm B3 window, (bytes ms, operations ms): the
+    fresh window's (``mega_bound``) plus the baseline b_base read once,
+    and its matvecs: one (S, S) row block a tick for the prior, all A of
+    them on each selecting tick for the EFE."""
+    bytes_ms, ops_ms = mega_bound(state, args, t0, dwell)
+    bb = state.cache.b_base
+    r, a_n, s, _ = bb.shape
+    w = args[5].shape[0]
+    n_sel = math.ceil(w / dwell)
+    flops = 2 * r * s * s * (w + n_sel * a_n)
+    return (bytes_ms + 1e3 * bb.numel() * 4 / HBM_BYTES_PER_S,
+            ops_ms + 1e3 * flops / FP32_FLOP_PER_S)
+
+
+def phase_warm() -> dict:
+    """Warm promotion at R=1024: a fused per-tick run to t=150, promoted
+    onto the mega path; one warm B3 window against its plain version at
+    the promotion and two windows later (then the replayed slots carry
+    weight too), the first launched twice (equal to the bit) and timed;
+    then 150 more ticks on the mega path (15 B3 launches) and, on the same
+    draws, 150 on the per-tick path (30 B1 launches), with the count of
+    differing actions; then a small warm run on the card against the CPU.
+    Returns the warm B3 row of the kernels line."""
+    from repro_torch.api import engine
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.core import mega
+    from repro_torch.kernels.efe import mega as mega_kernel
+    horizon = 2 * T_WARM
+    noise = TickNoise(0, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    pt, mg, env_step, carry, est, snap = warm_prefix(R_FULL, T_WARM,
+                                                     horizon, DEVICE, noise)
+    obs = snap[0]
+    state = mega.init_mega_state(mg.cfg, R_FULL, horizon, torch.float32,
+                                 DEVICE, from_agent_state=carry)
+    err = mega_check(mg, env_step, state, est, obs, noise, R_FULL, T_WARM,
+                     scenario="paper-burst", warm=True)
+    # two windows later the replayed slots carry weight beside the baseline
+    st2, est2, _, obs2 = engine.mega_rollout(
+        mg, est, env_step, 2 * mg.period, noise, carry=carry, obs_carry=obs,
+        n_total=horizon - T_WARM)
+    err = max(err, mega_check(mg, env_step, st2, est2, obs2, noise, R_FULL,
+                              T_WARM + 2 * mg.period, scenario="paper-burst",
+                              warm=True))
+    del st2, est2, obs2
+    args, kw = mega_window_inputs(mg, env_step, noise, R_FULL, T_WARM)
+    out1 = mega_kernel.mega_window_cuda(clone_state(state), est, obs, *args,
+                                        **kw)
+    out2 = mega_kernel.mega_window_cuda(clone_state(state), est, obs, *args,
+                                        **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(flatten(out1).values(),
+                                                 flatten(out2).values()))
+    del out1, out2
+    kern = lambda: mega_kernel.mega_window_cuda(state, est, obs, *args, **kw)
+    plain = lambda: mega.mega_window(state, est, obs, *args, **kw)
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain, warmup=1, iters=3)
+    dev, ahead = queued_ms(kern)
+    bytes_ms, ops_ms = warm_bound(state, args, T_WARM, mg.dwell)
+    b_ms, b_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                         else "operations")
+    emit("warm_kernel_vs_plain", r=R_FULL, t0=T_WARM,
+         b_base_gb=state.cache.b_base.numel() * 4 / 1e9,
+         launches_bit_equal=same, max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, device_ms=dev, queued_ahead=ahead,
+         bound_ms=b_ms, bound_by=b_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    if not same:
+        raise AssertionError("two launches of B3's warm branch differ")
+    del state, args, kern, plain
+    torch.cuda.empty_cache()
+
+    # 150 more ticks on the mega path, then the per-tick continuation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (st_m, est_m, tr_m, _), l_mega = counted(lambda: engine.mega_rollout(
+        mg, est, env_step, T_WARM, noise, carry=carry, obs_carry=obs))
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (_, est_p, tr_p, _), l_tick = counted(lambda: engine.resumable_rollout(
+        pt, carry, est, env_step, T_WARM, noise, t_begin=T_WARM,
+        snapshot=snap))
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    diff = int((tr_m.actions != tr_p.actions).sum())
+    windows = T_WARM // mg.period
+    selecting = T_WARM // mg.dwell
+
+    def succ(e):
+        return float(e.n_success.double().sum() / e.n_requests.double().sum())
+
+    q = st_m.belief
+    ok = bool(torch.isfinite(q).all()) and float(
+        (q.sum(-1) - 1).abs().max()) < 1e-4
+    emit("warm", n_cells=R_FULL, t_promote=T_WARM, n_more=T_WARM,
+         mega_wall_s=wall_m, mega_launches=l_mega, per_tick_wall_s=wall_p,
+         per_tick_launches=l_tick, action_diffs=diff,
+         actions=int(tr_m.actions.numel()),
+         mega_fleet_success=succ(est_m), per_tick_fleet_success=succ(est_p),
+         clock=st_m.t.unique().tolist(), beliefs_ok=ok,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if l_mega != dict(NO_LAUNCHES, mega_window=windows):
+        raise AssertionError(f"the warm mega run launched {l_mega}, "
+                             f"expected {windows} mega_window")
+    if l_tick != dict(NO_LAUNCHES, belief_efe_fleet=selecting):
+        raise AssertionError(f"the per-tick continuation launched {l_tick}")
+    if not ok or st_m.t.unique().tolist() != [2 * T_WARM]:
+        raise AssertionError("the warm mega run's beliefs or clock are off")
+    del st_m, est_m, tr_m, est_p, tr_p, carry, est, snap, obs
+    torch.cuda.empty_cache()
+
+    # a small warm run, card against CPU, same draws
+    acts = {}
+    for dev_name in (DEVICE, "cpu"):
+        nz = MirroredNoise(3, dev_name)
+        _, mg_s, env_s, c_s, e_s, sn_s = warm_prefix(4, 20, 40, dev_name, nz)
+        st_s, e_s, tr_s, _ = engine.mega_rollout(
+            mg_s, e_s, env_s, 20, nz, carry=c_s, obs_carry=sn_s[0])
+        acts[dev_name] = (tr_s.actions.cpu(), st_s.belief.cpu(),
+                          e_s.n_success.cpu())
+    same_small = torch.equal(acts[DEVICE][0], acts["cpu"][0])
+    b_err = (acts[DEVICE][1] - acts["cpu"][1]).abs().max().item()
+    s_rel = ((acts[DEVICE][2] - acts["cpu"][2]).abs()
+             / acts["cpu"][2].abs().clamp(min=1.0)).max().item()
+    emit("warm_small", n_cells=4, t_promote=20, n_more=20,
+         actions_equal=same_small, belief_max_abs_err=b_err,
+         n_success_rel_err=s_rel)
+    if not same_small or b_err > 1e-5 or s_rel > 1e-4:
+        raise AssertionError("the warm mega run on the card disagrees with "
+                             "the CPU's")
+    return {"name": "mega_window", "variant": "warm_b_base", "route": "cuda",
+            "source": "src/repro_torch/csrc/mega_window.cu",
+            "replaces": "src/repro/kernels/efe/mega.py:85",
+            "shape": [R_FULL, mg.cfg.n_actions, mg.cfg.topology.n_states],
+            "t0": T_WARM, "launches": l_mega["mega_window"],
+            "max_abs_err": err, "max_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "device_ms": dev, "library_device_ms": None}
 
 
 # ---------------------------------------------------- attention and serving
@@ -1952,12 +2368,17 @@ def main() -> int:
     errs["belief_efe_fleet_5tier"], launches_5tier = phase_hetero()
     phase_chaos()
     phase_resume()
+    graph_err = phase_graph_kernel_vs_plain()
+    phase_graph_small()
+    graph_launches = phase_graph()
+    warm_row = phase_warm()
     errs.update(phase_attn_kernel_vs_plain())
     phase_serve_small()
     weights, serve_counts, lengths = phase_serve()
     phase_multitier(weights)
     del weights
     rows = phase_times(errs, launches, launches_5tier)
+    rows += [graph_times(graph_err, graph_launches), warm_row]
     rows += attn_times(errs, serve_counts, lengths)
     ssd_errs = phase_ssd_kernel_vs_plain()
     phase_serve_small(MAMBA_ARCH, (64, 50, 37, 64), "mamba_serve_small")

@@ -6,7 +6,8 @@
   and :func:`resumable_rollout`, one checkpointable chunk of it,
 * experiments (:mod:`repro_torch.api.experiment`): :class:`Experiment`,
   :func:`run`, and the Table-1 comparison :func:`compare` /
-  :func:`table1_grid`.
+  :func:`table1_grid`; :class:`FleetGraph` for networked fleets
+  (``Experiment(graph=...)``).
 
 Quickstart::
 
@@ -25,9 +26,10 @@ from repro_torch.api.router import (CapacityRouter, LeastLoadedRouter,
                                     Router, RouterObs, ThompsonCarry,
                                     ThompsonRouter, TickInfo, UcbCarry,
                                     UcbRouter, UniformRouter)
+from repro_torch.core.graph import FleetGraph
 
 __all__ = ["AifRouter", "CapacityRouter", "Comparison", "Experiment",
-           "LeastLoadedRouter", "MinResponseRouter", "ROUTERS",
+           "FleetGraph", "LeastLoadedRouter", "MinResponseRouter", "ROUTERS",
            "RoundRobinRouter", "Router", "RouterObs", "RunResult",
            "TABLE1_ROUTERS", "ThompsonCarry", "ThompsonRouter", "TickInfo",
            "UcbCarry", "UcbRouter", "UniformRouter", "compare",

@@ -86,9 +86,10 @@ def rollout(router: Router,
       t0: fast ticks already elapsed on every cell's clock; None asks
         ``router.clock_phase(carry)``.
 
-    A mega router owns its carry: ``carry`` must be None or fresh (clock at
-    0), and the engine builds a :class:`~repro_torch.core.mega.MegaFleetState`
-    sized to the horizon.
+    A mega router builds its own :class:`~repro_torch.core.mega.MegaFleetState`
+    sized to the horizon: from nothing when ``carry`` is None or fresh
+    (clock at 0), or by promoting a warm dense per-tick carry (see
+    :func:`mega_rollout`).
 
     Returns:
       (final carry, final env state, :class:`~repro_torch.core.fleet.FleetTrace`).
@@ -100,18 +101,9 @@ def rollout(router: Router,
             raise ValueError(
                 f"mega rollouts start on a fresh fleet clock (t0=0), got "
                 f"t0={t0}: transition slots are indexed by the global tick")
-        t = getattr(carry, "t", None)
-        if t is not None and bool(torch.any(t != 0)):
-            if isinstance(carry, mega_mod.MegaFleetState):
-                raise ValueError(
-                    "a warm MegaFleetState cannot seed a new rollout: its "
-                    "slots were sized for the previous horizon")
-            raise NotImplementedError(
-                "promoting a warm dense carry onto the mega path is not "
-                "ported yet: ROADMAP item A14")
         state, est, trace, _ = mega_rollout(
             router, env_state, env_step, n_steps, noise, seed=seed,
-            obs_masked=obs_masked)
+            obs_masked=obs_masked, carry=carry)
         return state, est, trace
     if noise is None:
         noise = GeneratorNoise(seed, env_state[0].device)
@@ -205,8 +197,9 @@ def mega_rollout(router,
                  n_total: int | None = None,
                  t_begin: int = 0,
                  state_in: mega_mod.MegaFleetState | None = None,
-                 obs_carry=None):
-    """Whole-window engine path of a ``mega`` router, on a fresh fleet.
+                 obs_carry=None,
+                 carry=None):
+    """Whole-window engine path of a ``mega`` router.
 
     Full ``period``-tick windows, each one launch of
     :func:`repro_torch.kernels.efe.ops.mega_window` followed by
@@ -227,9 +220,20 @@ def mega_rollout(router,
       t_begin / state_in / obs_carry: a later chunk of a chunked run (see
         :func:`resumable_rollout`): its first global tick (a slow-period
         boundary), the previous chunk's state and telemetry carry.
+      carry: the router carry when ``state_in`` is None: None or a fresh
+        carry starts a fresh fleet; a warm dense per-tick
+        :class:`~repro_torch.core.agent.AgentState` whose uniform clock
+        sits on a slow-period and dwell boundary is *promoted* onto the
+        mega path (:func:`~repro_torch.core.mega.init_mega_state`'s
+        ``from_agent_state``: its dense transition counts become the
+        ``b_base`` baseline).  The run then covers ticks ``[t_warm, t_warm
+        + n_steps)`` of the same world, so the env schedules and the noise
+        are indexed globally, and the slots are sized to ``t_warm +
+        n_total``.  Warm promotion cannot be combined with ``t_begin``.
 
-    A scenario with fault schedules (``forced_down``/``speed``) raises
-    ``NotImplementedError``: chaos in B3 is ROADMAP item A8b.
+    A world with fault schedules (``forced_down``/``speed``) or a fleet
+    graph raises ``NotImplementedError``: chaos and graphs in B3 are
+    ROADMAP item A8b.
 
     Returns (state, env state, FleetTrace, obs_carry).
     """
@@ -241,7 +245,7 @@ def mega_rollout(router,
             "make_env_step); rebuild the adapter or set mega=False")
     if n_steps < 1:
         raise ValueError("mega rollouts need n_steps >= 1")
-    mega_mod._not_ported(fl.forced_down, fl.speed, None, None)
+    mega_mod._not_ported(fl.forced_down, fl.speed, None, fl.graph)
     cfg = router.cfg
     est0 = env_state[0]
     r, dev = est0.shape[0], est0.device
@@ -250,10 +254,23 @@ def mega_rollout(router,
         noise = GeneratorNoise(seed, dev)
     if obs_masked is None:
         obs_masked = bool(getattr(env_step, "emits_mask", False))
+    warm = 0 if state_in is not None else _warm_clock(router, carry)
+    if warm:
+        if t_begin:
+            raise ValueError("warm promotion and a resumable t_begin "
+                             "cannot be combined")
+        if fl.arrival_rate.shape[0] < warm + n_steps:
+            raise ValueError(
+                f"warm mega promotion indexes the env schedules globally "
+                f"(same world): need at least {warm + n_steps} scheduled "
+                f"ticks, got {fl.arrival_rate.shape[0]}; build the env_step "
+                f"over the whole run's schedules")
+        t_begin = warm
     if state_in is None:
-        n_slots = t_begin + n_steps if n_total is None else int(n_total)
-        state = mega_mod.init_mega_state(cfg, r, n_slots, router.slot_dtype,
-                                         dev)
+        horizon = n_steps if n_total is None else int(n_total)
+        state = mega_mod.init_mega_state(
+            cfg, r, warm + horizon, router.slot_dtype, dev,
+            from_agent_state=carry if warm else None)
     else:
         state = state_in
     if t_begin + n_steps > state.slots.action.shape[1]:
@@ -283,9 +300,37 @@ def mega_rollout(router,
         actions=torch.cat(actions), routing_weights=torch.cat(weights),
         raw_obs=torch.cat(raw_obs), unstable=torch.cat(unstable),
         obs_frac=torch.cat(obs_frac),
-        env=WindowInfo(*(torch.cat(f) for f in zip(*win))),
+        env=WindowInfo(*(None if f[0] is None else torch.cat(f)
+                         for f in zip(*win))),
         watchdog=torch.cat(wd))
     return state, est, trace, obs
+
+
+def _warm_clock(router, carry) -> int:
+    """The fleet clock of a warm dense carry to promote onto the mega path
+    (0 for None or a fresh carry).  It must be uniform and sit on a
+    slow-period and dwell boundary."""
+    t = getattr(carry, "t", None)
+    if t is None or not bool(torch.any(t != 0)):
+        return 0
+    if isinstance(carry, mega_mod.MegaFleetState):
+        raise ValueError(
+            "a warm MegaFleetState cannot seed a new rollout (its slots were "
+            "sized for the previous horizon): densify it with "
+            "repro_torch.core.mega.to_agent_state and pass the dense carry, "
+            "which is promoted again at the new size")
+    vals = torch.unique(t)
+    if vals.numel() != 1:
+        raise ValueError(f"warm mega promotion needs a uniform fleet clock; "
+                         f"got t in {vals[:8].tolist()}")
+    warm = int(vals[0])
+    period = max(int(router.period), 1)
+    dwell = max(int(router.dwell), 1)
+    if warm % period or warm % dwell:
+        raise ValueError(
+            f"warm mega promotion must start on a slow-period and dwell "
+            f"boundary (t % {period} == 0 and % {dwell} == 0), got t={warm}")
+    return warm
 
 
 def _mega_window(state, est, obs, fl, noise, t_start: int, w_ticks: int, *,
@@ -360,8 +405,9 @@ def resumable_rollout(router: Router,
     clock's phase is zero.  For ``mega`` routers chunk 0 takes ``n_total``
     (the whole horizon) so the slots are sized once, and a later chunk's
     ``carry`` is the previous chunk's
-    :class:`~repro_torch.core.mega.MegaFleetState` (chunk 0's is ignored:
-    the chunk builds a fresh state).
+    :class:`~repro_torch.core.mega.MegaFleetState`; chunk 0's is None, a
+    fresh carry, or a warm dense carry to promote (see
+    :func:`mega_rollout`).
 
     Returns (router carry, env state, trace of this chunk, snapshot).
     """
@@ -381,7 +427,7 @@ def resumable_rollout(router: Router,
             router, env_state, env_step, n_steps, noise,
             obs_masked=obs_masked, n_total=n_total, t_begin=t_begin,
             state_in=None if snapshot is None else carry,
-            obs_carry=obs_init)
+            obs_carry=obs_init, carry=carry if snapshot is None else None)
         return state, est, trace, (obs_out, get_state(noise))
     if obs_masked is None:
         obs_masked = bool(getattr(env_step, "emits_mask", False))

@@ -26,7 +26,11 @@ against their uninjured control scenario (``RunResult.recovery``).
 Differences from the reference's ``repro.api.Experiment``: ``fused=True`` is
 the default, ``use_pallas`` is gone (the device decides between kernel and
 plain version), and ``device`` defaults to ``"cuda"``.  ``mega=True`` runs
-the whole-window engine path.  Sharding is ROADMAP item A10 and graphs A9.
+the whole-window engine path.  ``graph`` attaches a fleet graph
+(:mod:`repro_torch.core.graph`): rejected load spills to graph neighbors
+and the routers see a fifth, neighbor-pressure, telemetry column; the
+graph scenario presets attach theirs by default.  Sharding is ROADMAP
+item A10.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.api.aif import AifRouter
 from repro_torch.api.engine import resumable_rollout, rollout
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import generative
+from repro_torch.core import graph as graph_mod
 from repro_torch.core import mega as mega_mod
 from repro_torch.core.topology import Topology, default_topology, get_topology
 from repro_torch.device import resolve_device
@@ -57,10 +62,17 @@ _EPS = 1e-9
 
 
 def _make_aif(topo: Topology, scfg: SimConfig, fused: bool, mega: bool,
-              mega_slot_dtype: str = "float32") -> AifRouter:
-    return AifRouter(cfg=generative.AifConfig(topology=topo),
-                     disc=discretization_for(scfg), fused=fused, mega=mega,
-                     mega_slot_dtype=mega_slot_dtype)
+              mega_slot_dtype: str = "float32",
+              graph: graph_mod.FleetGraph | None = None) -> AifRouter:
+    disc = discretization_for(scfg)
+    if graph is not None:
+        # graphed worlds publish a fifth telemetry column (neighbor
+        # pressure): grow the topology's modalities and the bin edges
+        topo = graph_mod.with_neighbor_modality(topo)
+        disc = dataclasses.replace(
+            disc, edges=disc.modality_edges() + (graph_mod.NEIGHBOR_EDGES,))
+    return AifRouter(cfg=generative.AifConfig(topology=topo), disc=disc,
+                     fused=fused, mega=mega, mega_slot_dtype=mega_slot_dtype)
 
 
 def _capacity_weights(scfg: SimConfig) -> tuple[float, ...]:
@@ -102,6 +114,29 @@ TABLE1_ROUTERS = ("aif", "uniform", "capacity", "round_robin",
                   "least_loaded", "thompson", "ucb", "nn_offload")
 
 
+def _graphify_router(r: router_mod.Router,
+                     graph: graph_mod.FleetGraph | None) -> router_mod.Router:
+    """Grow a router to the graphed engine's 5-column observation.
+
+    Baselines carry an ``extra_modalities`` field: the neighbor-pressure
+    column rides their observation buffers unread.  A router without the
+    field (an :class:`AifRouter` instance) must already consume the
+    neighbor modality; a mismatch raises here.
+    """
+    if graph is None:
+        return r
+    if getattr(r, "extra_modalities", None) == 0:
+        r = dataclasses.replace(r, extra_modalities=1)
+    expect = batched.N_OBS_MODALITIES + 1
+    if r.n_modalities != expect:
+        raise ValueError(
+            f"graphed worlds emit {expect} observation modalities (neighbor "
+            f"pressure appended) but router {r.name!r} consumes "
+            f"{r.n_modalities}; build AIF via router='aif' or with "
+            f"repro_torch.core.graph.with_neighbor_modality(topology)")
+    return r
+
+
 @dataclasses.dataclass(frozen=True)
 class Experiment:
     """One declarative fleet experiment.
@@ -139,6 +174,14 @@ class Experiment:
         to ``n_windows``.  The final states equal the uninterrupted run's
         to the bit; the trace covers the resumed windows only (the env's
         cumulative counters cover the whole horizon).
+      graph: fleet graph — None (ungraphed, except that the graph scenario
+        presets attach their :data:`repro_torch.core.graph.GRAPH_SCENARIOS`
+        preset), a preset name (``"ring"`` / ``"grid"`` / ``"hier"`` /
+        ``"none"``, the last forcing the ungraphed program on any
+        scenario) or a :class:`~repro_torch.core.graph.FleetGraph`.  A
+        graphed world spills rejected load to graph neighbors and publishes
+        a fifth, neighbor-pressure, telemetry modality; registry routers
+        grow to consume it.
     """
 
     router: str | router_mod.Router = "aif"
@@ -156,21 +199,35 @@ class Experiment:
     checkpoint_every: int = 0
     checkpoint_dir: str | None = None
     resume_from: str | None = None
+    graph: graph_mod.FleetGraph | str | None = None
 
     def resolve_topology(self) -> Topology:
         return (get_topology(self.topology)
                 if isinstance(self.topology, str) else self.topology)
 
-    def resolve_router(self, scfg: SimConfig) -> router_mod.Router:
+    def resolve_graph(self) -> graph_mod.FleetGraph | None:
+        """The effective fleet graph (None = the exact ungraphed program):
+        an explicit graph or preset name wins, else the graph scenario
+        presets attach theirs; ``graph="none"`` always resolves to None."""
+        return graph_mod.resolve_graph(self.graph, self.n_cells,
+                                       scenario=self.scenario)
+
+    def resolve_router(self, scfg: SimConfig,
+                       graph: graph_mod.FleetGraph | None = None
+                       ) -> router_mod.Router:
         if isinstance(self.router, router_mod.Router):
-            return self.router
+            return _graphify_router(self.router, graph)
         try:
             make = ROUTERS[self.router]
         except KeyError:
             raise KeyError(f"unknown router {self.router!r}; "
                            f"available: {sorted(ROUTERS)}") from None
-        return make(self.resolve_topology(), scfg, self.fused, self.mega,
-                    self.mega_slot_dtype)
+        if self.router == "aif":
+            return _make_aif(self.resolve_topology(), scfg, self.fused,
+                             self.mega, self.mega_slot_dtype, graph=graph)
+        return _graphify_router(
+            make(self.resolve_topology(), scfg, self.fused, self.mega,
+                 self.mega_slot_dtype), graph)
 
     @property
     def name(self) -> str:
@@ -185,12 +242,15 @@ class RunResult:
     Scalar metrics aggregate over the R cells; the per-cell
     :class:`~repro_torch.envsim.batched.FluidResult`, the
     :class:`~repro_torch.core.fleet.FleetTrace` and the final router carry
-    stay attached for drill-down.
+    stay attached for drill-down.  ``success_pct`` is the mean of per-cell
+    success rates on ungraphed worlds and the fleet-global ratio
+    ΣnSuccess/ΣnRequests on graphed ones (spillover credits a completion
+    to the receiving cell, so per-cell ratios mean little there).
     """
 
     experiment: Experiment
     name: str
-    success_pct: float            # mean over cells, percent
+    success_pct: float            # percent (see the class docstring)
     success_std: float            # std over cells, percent
     p50_ms: float
     p95_ms: float
@@ -208,6 +268,9 @@ class RunResult:
     resume_points: tuple = ()
     # chaos recovery metrics (None: the scenario has no registered control)
     recovery: dict | None = None
+    # share of the offered load absorbed at a graph neighbor after
+    # spillover (0.0 on ungraphed worlds)
+    offload_frac: float = 0.0
 
     def summary(self) -> dict:
         """JSON-safe metric dict (one Table-1 row)."""
@@ -227,6 +290,7 @@ class RunResult:
             "routed_share": [round(float(x), 4) for x in self.routed_share],
             "restarts": round(self.restarts, 1),
             "obs_frac": round(self.obs_frac, 4),
+            "offload_frac": round(self.offload_frac, 4),
             "wall_s": round(self.wall_s, 2),
             "watchdog_events": round(self.watchdog_events, 1),
             **({"recovery": {k: (round(v, 4) if isinstance(v, float) else v)
@@ -236,19 +300,25 @@ class RunResult:
 
 
 def _build_world(topo: Topology, scenario: str, n_cells: int, n_windows: int,
-                 window_s: float, seed: int, device: torch.device):
+                 window_s: float, seed: int, device: torch.device,
+                 graph: graph_mod.FleetGraph | None = None):
     """(sim config, fluid params, env_step) for one experiment's world.
 
     The paper's testbed keeps its calibrated 50 RPS config; other
     topologies get the just-under-saturation config of their tier classes.
+    A graph is built at the true fleet size: no edge reaches past
+    ``n_cells``.
     """
+    if graph is not None:
+        graph.validate_true_rows(n_cells)
     scfg = (SimConfig() if topo == default_topology()
             else sim_config_for(topo))
     sc = scenarios.build_scenario(scenario, scfg, n_cells, n_windows,
                                   window_s=window_s, seed=seed)
     params = batched.params_from_config(scfg, n_cells, sc.capacity_scale,
                                         device=device)
-    env_step = batched.make_scenario_env_step(params, sc, dt=window_s)
+    env_step = batched.make_scenario_env_step(params, sc, dt=window_s,
+                                              graph=graph)
     return scfg, params, env_step
 
 
@@ -279,10 +349,11 @@ def _run_dense(e: Experiment, dev: torch.device,
     """One run on the per-tick or the mega engine, in one piece or in
     checkpointed chunks."""
     topo = e.resolve_topology()
+    graph = e.resolve_graph()
     scfg, params, env_step = _build_world(topo, e.scenario, e.n_cells,
                                           e.n_windows, e.window_s, e.seed,
-                                          dev)
-    router = e.resolve_router(scfg)
+                                          dev, graph)
+    router = e.resolve_router(scfg, graph)
     if router.n_tiers != topo.n_tiers:
         raise ValueError(
             f"router {router.name!r} routes over {router.n_tiers} tiers but "
@@ -317,16 +388,26 @@ def _run_dense(e: Experiment, dev: torch.device,
 
     res = batched.summarize(est, trace.env)
     succ = 100.0 * res.success_rate
+    total_req = max(float(res.n_requests.sum()), 1.0)
+    # spillover credits a completion to the receiving cell while the
+    # request counts at its origin, so per-cell ratios can pass 1 on a
+    # graph: report the fleet-global ratio there
+    succ_mean = (100.0 * float(res.n_success.sum()) / total_req
+                 if env_step.has_graph else float(succ.mean()))
     n_success = np.maximum(res.n_success, _EPS)
     n_req = np.maximum(res.n_requests, _EPS)
     obs_frac = trace.obs_frac.cpu().numpy()
     # obs_frac[0] is the all-valid warm-up mask; report the steady part
     obs = float(obs_frac[1:].mean()) if obs_frac.shape[0] > 1 else 1.0
+    spill = trace.env.spill_admitted
+    offload = (0.0 if spill is None else
+               float(spill.cpu().numpy().astype(np.float64).sum())
+               / total_req)
     wd = trace.watchdog
     return RunResult(
         experiment=e,
         name=e.name,
-        success_pct=float(succ.mean()),
+        success_pct=succ_mean,
         success_std=float(succ.std()),
         p50_ms=float(res.p50_ms.mean()),
         p95_ms=float(res.p95_ms.mean()),
@@ -340,6 +421,7 @@ def _run_dense(e: Experiment, dev: torch.device,
         final_carry=carry,
         watchdog_events=0.0 if wd is None else float(wd.sum()),
         resume_points=tuple(boundaries),
+        offload_frac=offload,
     )
 
 
@@ -502,8 +584,8 @@ class Comparison:
         """Table-1-style markdown: one row per (scenario, router)."""
         lines = [
             "| scenario | router | success % | P50 ms | P95 ms | "
-            "tier share of success (light->heavy) | obs % |",
-            "|---|---|---|---|---|---|---|",
+            "tier share of success (light->heavy) | obs % | offload % |",
+            "|---|---|---|---|---|---|---|---|",
         ]
         for res in self.results:
             share = "/".join(f"{100 * float(x):.0f}" for x in res.tier_share)
@@ -511,7 +593,8 @@ class Comparison:
                 f"| {res.experiment.scenario} | {res.name} "
                 f"| {res.success_pct:.1f} ± {res.success_std:.1f} "
                 f"| {res.p50_ms:.0f} | {res.p95_ms:.0f} "
-                f"| {share} | {100 * res.obs_frac:.0f} |")
+                f"| {share} | {100 * res.obs_frac:.0f} "
+                f"| {100 * res.offload_frac:.1f} |")
         return "\n".join(lines)
 
     def to_json(self) -> dict:

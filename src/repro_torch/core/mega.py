@@ -6,10 +6,11 @@ slow loop rewrites them every period and every belief update streams an
 
     b_counts = b0 + α_B · Σ_j  w_j · 1[act_j = a] · q_next_j ⊗ q_prev_j,
 
-where ``b0`` is the sticky prior and the sum runs over the pushed
-transition slots ``j`` with weights that change only on slow boundaries
-(``w_j = settle(Δt_j) · #times-sampled``).  This module keeps that factored
-bookkeeping:
+where ``b0`` is the sticky prior (or, for a warm-promoted fleet, the
+source fleet's learned dense counts ``b_base``) and the sum runs over the
+pushed transition slots ``j`` with weights that change only on slow
+boundaries (``w_j = settle(Δt_j) · #times-sampled``).  This module keeps
+that factored bookkeeping:
 
 * :class:`MegaSlots` — every pushed transition of the rollout, one slot per
   tick (the horizon is bounded by the replay capacity, so slot index ==
@@ -35,10 +36,12 @@ caller's tape; everything else returns new tensors.  Randomness is an
 operand: the window takes the Gumbel noise and the env restart uniforms,
 the slow step the replay indices.
 
-Warm promotion of a dense fleet onto this path (the reference's
-``init_mega_state(from_agent_state=...)`` and the ``b_base`` baseline
-branches) is ROADMAP item A14; those entry points raise
-``NotImplementedError``.
+Warm promotion: ``init_mega_state(from_agent_state=...)`` moves a trained
+dense per-tick fleet onto this path mid-life.  Its dense ``b_counts``
+become the cache's ``b_base`` baseline (read, never rewritten: only the
+slot terms grow), its replay entries the leading slots, and its clock
+continues; the prior and the EFE then take the baseline's (S, S) rows in
+place of the scalar sticky prior.
 """
 from __future__ import annotations
 
@@ -53,12 +56,6 @@ from repro_torch.core import generative, learning, policies, preferences
 from repro_torch.core import spaces
 from repro_torch.device import resolve_device
 from repro_torch.envsim import batched
-
-
-def _warm_waiting(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (warm promotion of a dense fleet onto the mega path) is "
-        f"not ported yet: ROADMAP item A14")
 
 
 class MegaSlots(NamedTuple):
@@ -86,7 +83,9 @@ class MegaCache(NamedTuple):
 
     With ``u = b_prior_uniform / S`` and ``d = b_prior_sticky``:
 
-      colsum[a, s]  = (u·S + d) + Σ_j coefact[j, a] · Σ_t q_next_j[t] · q_prev_j[s]
+      colsum[a, s]  = col0[a, s] + Σ_j coefact[j, a] · Σ_t q_next_j[t] · q_prev_j[s]
+                      (col0 the scalar prior column sum u·S + d, or
+                      Σ_t b_base[a, t, s] for a warm-promoted fleet)
       coefw[j]      = α_B · settle(Δt_j) · wcount_j
       coefact[j, a] = coefw[j] · 1[action_j = a]
       proj          = the EFE's (P, S) projection rows: the M·NB normalized
@@ -94,7 +93,9 @@ class MegaCache(NamedTuple):
       qnproj[j, p]  = proj[p] · q_next_j
       sumqn[j]      = Σ_t q_next_j[t]
       logna         = log max(na, 1e-16), the evidence gather's rows
-      b_base        = the warm-promotion baseline; always None here (A14)
+      b_base        = None on a fresh fleet (the scalar sticky prior
+                      suffices), else the (R, A, S, S) dense transition
+                      counts of a warm promotion, read and never rewritten
     """
 
     colsum: torch.Tensor    # (R, A, S)
@@ -160,22 +161,22 @@ def _qnproj(proj: torch.Tensor, qn: torch.Tensor) -> torch.Tensor:
 def _refresh_cache(a_counts: torch.Tensor, slots: MegaSlots,
                    cfg: generative.AifConfig,
                    b_base: torch.Tensor | None = None) -> MegaCache:
-    """Recompute every derived tensor from scratch (init, quarantine and
-    the tests' full-refresh twin; the engine advances the cache with
-    :func:`_advance_cache`)."""
-    if b_base is not None:
-        raise _warm_waiting("a b_base transition baseline")
+    """Recompute every derived tensor from scratch (init, quarantine, warm
+    promotion and the tests' full-refresh twin; the engine advances the
+    cache with :func:`_advance_cache`).  ``b_base`` replaces the fresh
+    sticky prior as the transition-count baseline."""
     qp = slots.q_prev.to(torch.float32)
     qn = slots.q_next.to(torch.float32)
     coefw, coefact = slot_coefficients(slots, cfg)
     sumqn = torch.sum(qn, dim=-1)                                  # (R, J)
-    col0 = cfg.b_prior_uniform + cfg.b_prior_sticky
+    col0 = (cfg.b_prior_uniform + cfg.b_prior_sticky if b_base is None
+            else torch.sum(b_base, dim=-2))                        # (R, A, S)
     colsum = col0 + torch.bmm((coefact * sumqn[..., None]).transpose(1, 2),
                               qp)
     proj, projsum, logna = _a_cache(a_counts, cfg.topology)
     return MegaCache(colsum=colsum, proj=proj, projsum=projsum,
                      qnproj=_qnproj(proj, qn), sumqn=sumqn, coefw=coefw,
-                     coefact=coefact, logna=logna)
+                     coefact=coefact, logna=logna, b_base=b_base)
 
 
 def _advance_cache(cache: MegaCache, a_counts: torch.Tensor,
@@ -202,35 +203,46 @@ def _advance_cache(cache: MegaCache, a_counts: torch.Tensor,
     return MegaCache(colsum=cache.colsum + d_col, proj=proj,
                      projsum=projsum, qnproj=_qnproj(proj, qn),
                      sumqn=torch.sum(qn, dim=-1), coefw=coefw,
-                     coefact=coefact, logna=logna)
+                     coefact=coefact, logna=logna, b_base=cache.b_base)
 
 
 def init_mega_state(cfg: generative.AifConfig, r: int, n_slots: int,
                     slot_dtype: torch.dtype = torch.float32,
                     device: str | torch.device = "cuda",
                     from_agent_state=None) -> MegaFleetState:
-    """Fresh factored fleet state with ``n_slots`` (== rollout horizon)
-    slots on ``device``.
+    """Factored fleet state with ``n_slots`` (== rollout horizon) slots on
+    ``device``.
 
     Raises if the horizon exceeds the replay capacity: the factored form
     relies on the per-tick engine's replay ring never wrapping (slot ==
-    tick).  ``from_agent_state`` (warm promotion) is ROADMAP item A14.
+    tick).
+
+    ``from_agent_state`` promotes a trained dense per-tick
+    :class:`~repro_torch.core.agent.AgentState` (the per-tick engine's
+    carry, or :func:`to_agent_state`'s output) onto the mega path: its
+    dense ``b_counts`` become the cache's ``b_base``, its replay entries the
+    leading slots (in tick order, so the ring must not have wrapped) and
+    its clock continues; it needs a uniform fleet clock.  Every tensor is
+    copied, so the source stays untouched.  ``init_mega_state(
+    from_agent_state=to_agent_state(s))`` is an exact round trip.
     """
-    if from_agent_state is not None:
-        raise _warm_waiting("init_mega_state(from_agent_state=...)")
     if n_slots > cfg.replay_capacity:
         raise ValueError(
             f"the mega path supports horizons up to the replay capacity "
             f"({cfg.replay_capacity}); got {n_slots} ticks — beyond that "
             f"the per-tick replay ring overwrites slots and the factored "
             f"slot==tick invariant breaks.  Raise cfg.replay_capacity or "
-            f"split the run into shorter rollouts.")
+            f"split the run into shorter rollouts (promote the carry again "
+            f"with init_mega_state(from_agent_state=to_agent_state(...)) "
+            f"between them).")
     if slot_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"slot_dtype must be float32 or bfloat16, got "
                         f"{slot_dtype}")
     dev = resolve_device(device)
     topo = cfg.topology
     s, m, nb = topo.n_states, topo.n_modalities, topo.max_bins
+    if from_agent_state is not None:
+        return _promote(from_agent_state, cfg, r, n_slots, slot_dtype, dev)
     a0 = generative.init_generative_model(cfg, dev).a_counts
     a0 = a0.expand(r, m, nb, s).clone()
     slots = MegaSlots(
@@ -256,6 +268,66 @@ def init_mega_state(cfg: generative.AifConfig, r: int, n_slots: int,
     )
 
 
+def _promote(src, cfg: generative.AifConfig, r: int, n_slots: int,
+             slot_dtype: torch.dtype, dev: torch.device) -> MegaFleetState:
+    """The warm branch of :func:`init_mega_state`."""
+    t = src.t
+    if t.shape[0] != r:
+        raise ValueError(
+            f"from_agent_state carries {t.shape[0]} cells, expected {r}")
+    vals = torch.unique(t)
+    if vals.numel() != 1:
+        raise ValueError(
+            "warm promotion needs a uniform fleet clock (every cell at the "
+            "same t): mixed-phase fleets cannot share the slot==tick "
+            "invariant")
+    t_warm = int(vals[0])
+    if t_warm > cfg.replay_capacity:
+        raise ValueError(
+            f"warm promotion at t={t_warm} > replay_capacity="
+            f"{cfg.replay_capacity}: the source ring has wrapped, so its "
+            f"entries no longer sit at their tick index")
+    if t_warm > n_slots:
+        raise ValueError(
+            f"warm promotion needs n_slots >= the source clock ({t_warm}); "
+            f"got {n_slots}: size the slots to the promoted fleet's whole "
+            f"remaining horizon")
+
+    def head(arr, fill, dtype):
+        out = torch.full((r, n_slots) + tuple(arr.shape[2:]), fill,
+                         dtype=dtype, device=dev)
+        n = min(n_slots, arr.shape[1])
+        out[:, :n] = arr[:, :n].to(device=dev, dtype=dtype)
+        return out
+
+    def copy(x, dtype=None):
+        return x.to(device=dev, dtype=dtype or x.dtype, copy=True)
+
+    rep = src.replay
+    slots = MegaSlots(
+        q_prev=head(rep.q_prev, 0.0, slot_dtype),
+        q_next=head(rep.q_next, 0.0, slot_dtype),
+        obs_bins=head(rep.obs_bins, 0, torch.int64),
+        obs_mask=head(rep.obs_mask, 1.0, torch.float32),
+        action=head(rep.action, 0, torch.int64),
+        dt_since_change=head(rep.dt_since_change, 0.0, torch.float32),
+        wcount=torch.zeros((r, n_slots), device=dev),
+    )
+    a_counts = copy(src.model.a_counts)
+    return MegaFleetState(
+        a_counts=a_counts,
+        slots=slots,
+        cache=_refresh_cache(a_counts, slots, cfg,
+                             b_base=copy(src.model.b_counts)),
+        belief=copy(src.belief),
+        prev_action=copy(src.prev_action, torch.int64),
+        dt_since_change=copy(src.dt_since_change),
+        error_ema=copy(src.error_ema),
+        unstable=copy(src.unstable),
+        t=copy(src.t, torch.int64),
+    )
+
+
 def mega_state_from_numpy(arrays: dict, cfg: generative.AifConfig,
                           device: str | torch.device = "cuda",
                           slot_dtype: torch.dtype | None = None
@@ -267,11 +339,10 @@ def mega_state_from_numpy(arrays: dict, cfg: generative.AifConfig,
     reference state, leaves through ``np.asarray``).  Integer leaves become
     int64, ``unstable`` bool, the rest float32; the slot planes keep
     ``slot_dtype`` (None: bfloat16 if the source is bfloat16, else
-    float32).  A non-None ``cache["b_base"]`` is warm promotion (A14).
+    float32).  A non-None ``cache["b_base"]`` is a warm-promoted fleet's
+    dense baseline.
     """
     dev = resolve_device(device)
-    if arrays["cache"].get("b_base") is not None:
-        raise _warm_waiting("a b_base transition baseline")
 
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
@@ -290,8 +361,10 @@ def mega_state_from_numpy(arrays: dict, cfg: generative.AifConfig,
         action=i64(sl["action"]),
         dt_since_change=f32(sl["dt_since_change"]),
         wcount=f32(sl["wcount"]))
+    b_base = arrays["cache"].get("b_base")
     cache = MegaCache(**{k: f32(arrays["cache"][k])
-                         for k in MegaCache._fields if k != "b_base"})
+                         for k in MegaCache._fields if k != "b_base"},
+                      b_base=None if b_base is None else f32(b_base))
     state = MegaFleetState(
         a_counts=f32(arrays["a_counts"]), slots=slots, cache=cache,
         belief=f32(arrays["belief"]), prev_action=i64(arrays["prev_action"]),
@@ -319,11 +392,12 @@ def factored_prior(cache: MegaCache, slots: MegaSlots, belief: torch.Tensor,
 
     With ``q̃ = q / colsum[a_prev]``:
 
-      prior[t] ∝ u·Σ_s q̃[s] + d·q̃[t] + Σ_j pend_j · q_next_j[t],
-      pend_j = coefact[j, a_prev] · (q_prev_j · q̃).
+      prior[t] ∝ base[t] + Σ_j pend_j · q_next_j[t],
+      pend_j = coefact[j, a_prev] · (q_prev_j · q̃),
+
+    where ``base`` is ``u·Σ_s q̃[s] + d·q̃[t]`` on a fresh fleet and the
+    warm baseline's (S, S) matvec ``b_base[a_prev] q̃`` otherwise.
     """
-    if cache.b_base is not None:
-        raise _warm_waiting("the b_base prior branch")
     s = belief.shape[-1]
     rows = _rows(belief)
     qp = slots.q_prev.to(torch.float32)
@@ -333,9 +407,13 @@ def factored_prior(cache: MegaCache, slots: MegaSlots, belief: torch.Tensor,
     cw = cache.coefact[rows, :, a]                                 # (R, J)
     pend = cw * torch.bmm(qp, qt[..., None])[..., 0]
     slot_term = torch.bmm(pend[:, None], qn)[:, 0]                 # (R, S)
-    u = cfg.b_prior_uniform / s
-    d = cfg.b_prior_sticky
-    num = u * torch.sum(qt, -1, keepdim=True) + d * qt + slot_term
+    if cache.b_base is None:
+        u = cfg.b_prior_uniform / s
+        d = cfg.b_prior_sticky
+        num = u * torch.sum(qt, -1, keepdim=True) + d * qt + slot_term
+    else:
+        brow = cache.b_base[rows, a]                               # (R, S, S)
+        num = torch.bmm(brow, qt[..., None])[..., 0] + slot_term
     return num / torch.clamp(torch.sum(num, -1, keepdim=True), min=1e-30)
 
 
@@ -348,10 +426,10 @@ def factored_efe(cache: MegaCache, slots: MegaSlots, q: torch.Tensor,
     The predicted state ``ŝ_a ∝ B_a q`` is never formed: the predicted
     observation and the ambiguity term are both linear in it, so only its
     P projections through ``cache.proj`` are computed, with the slot sum
-    entering through ``qnproj``.
+    entering through ``qnproj``.  A warm baseline adds its dense
+    contraction ``s_num[a] = b_base[a] qa[a]`` (the one path that streams
+    ``b_base``).
     """
-    if cache.b_base is not None:
-        raise _warm_waiting("the b_base EFE branch")
     topo = cfg.topology
     r, s = q.shape
     m, nb = topo.n_modalities, topo.max_bins
@@ -362,11 +440,18 @@ def factored_efe(cache: MegaCache, slots: MegaSlots, q: torch.Tensor,
     pend = (cache.coefact * dots).transpose(1, 2)                  # (R, A, J)
     slot_o = torch.bmm(pend, cache.qnproj)                         # (R, A, P)
     slot_den = torch.bmm(pend, cache.sumqn[..., None])[..., 0]     # (R, A)
-    u = cfg.b_prior_uniform / s
-    d = cfg.b_prior_sticky
-    o_num = (u * sqa[:, :, None] * cache.projsum[:, None, :]
-             + d * torch.bmm(qa, cache.proj.transpose(1, 2)) + slot_o)
-    sden = torch.clamp((u * s + d) * sqa + slot_den, min=1e-30)
+    if cache.b_base is None:
+        u = cfg.b_prior_uniform / s
+        d = cfg.b_prior_sticky
+        o_num = (u * sqa[:, :, None] * cache.projsum[:, None, :]
+                 + d * torch.bmm(qa, cache.proj.transpose(1, 2)) + slot_o)
+        sden = torch.clamp((u * s + d) * sqa + slot_den, min=1e-30)
+    else:
+        a_n = qa.shape[1]
+        s_num = torch.bmm(cache.b_base.reshape(r * a_n, s, s),
+                          qa.reshape(r * a_n, s, 1)).reshape(r, a_n, s)
+        o_num = torch.bmm(s_num, cache.proj.transpose(1, 2)) + slot_o
+        sden = torch.clamp(torch.sum(s_num, dim=-1) + slot_den, min=1e-30)
     o_pred = o_num / sden[..., None]
     o_obs = o_pred[:, :, :m * nb].reshape(r, -1, m, nb)
     terms = torch.where(o_obs > 1e-20,
@@ -406,8 +491,12 @@ def _not_ported(forced_down, speed, row_block, graph) -> None:
         raise NotImplementedError("row_block (sharded engine) is not ported "
                                   "yet (ROADMAP item A10); pass None")
     if graph is not None:
-        raise NotImplementedError("graph spillover is not ported yet "
-                                  "(ROADMAP item A9); pass None")
+        # the reference sends graph windows to its plain oracle as well;
+        # B3 has no lane for the cross-cell exchange yet
+        raise NotImplementedError(
+            "a fleet graph in a mega window is not ported yet (ROADMAP item "
+            "A8b: spillover in B3); run graph worlds on the per-tick paths "
+            "(mega=False)")
 
 
 # -------------------------------------------------------------- hot window
@@ -576,7 +665,8 @@ def mega_slow_step(state: MegaFleetState, idx: torch.Tensor,
         cache = _advance_cache(state.cache, a_counts, slots, qp_b, qn_b,
                                act_b, dt_b, valid, cfg)
     else:
-        cache = _refresh_cache(a_counts, slots, cfg)
+        cache = _refresh_cache(a_counts, slots, cfg,
+                               b_base=state.cache.b_base)
     return state._replace(a_counts=a_counts, slots=slots, cache=cache)
 
 
@@ -606,14 +696,20 @@ def mega_quarantine(state: MegaFleetState, bad: torch.Tensor,
     A bad cell's belief returns to uniform, its pseudo-counts to the fresh
     prior and its slots are cleared (a NaN slot would re-poison the next A
     update through ``NaN * 0``); its cache rows are recomputed from the
-    cleaned rows.  ``t`` is untouched: slot index == global tick is a
-    fleet-wide invariant.  Every tensor is written **in place** at the
-    flagged rows.
+    cleaned rows.  A warm-promoted cell's baseline returns to the fresh
+    dense prior too (the baseline is part of the possibly poisoned model).
+    ``t`` is untouched: slot index == global tick is a fleet-wide
+    invariant.  Every tensor is written **in place** at the flagged rows.
     """
     rows = torch.nonzero(bad).flatten()
     sl = state.slots
     fresh = init_mega_state(cfg, int(rows.numel()), sl.action.shape[1],
                             sl.q_prev.dtype, state.belief.device)
+    if state.cache.b_base is not None:
+        fresh = fresh._replace(cache=_refresh_cache(
+            fresh.a_counts, fresh.slots, cfg,
+            b_base=_dense_prior(cfg, state.belief.device).expand(
+                (rows.numel(),) + state.cache.b_base.shape[1:])))
 
     def reset_all(olds, news):
         for old, new in zip(olds, news):
@@ -630,15 +726,21 @@ def mega_quarantine(state: MegaFleetState, bad: torch.Tensor,
 
 
 # ----------------------------------------------------------------- densify
+def _dense_prior(cfg: generative.AifConfig,
+                 device: torch.device) -> torch.Tensor:
+    """The fresh sticky prior as one dense (S, S) count matrix."""
+    s = cfg.topology.n_states
+    return (cfg.b_prior_uniform / s
+            + cfg.b_prior_sticky * torch.eye(s, device=device))
+
+
 def to_agent_state(state: MegaFleetState,
                    cfg: generative.AifConfig) -> agent_mod.AgentState:
     """Densify the factored carry into a batched per-tick
     :class:`~repro_torch.core.agent.AgentState`: the (R, A, S, S) transition
-    counts (sticky prior plus the slots' weighted outer products) and the
-    replay ring.  Expensive by design; for interop and tests, not the hot
-    loop."""
-    if state.cache.b_base is not None:
-        raise _warm_waiting("densifying a b_base baseline")
+    counts (the baseline — the sticky prior or a warm promotion's
+    ``b_base`` — plus the slots' weighted outer products) and the replay
+    ring.  Expensive by design; for interop and tests, not the hot loop."""
     topo = cfg.topology
     slots = state.slots
     r, j = slots.action.shape
@@ -646,12 +748,15 @@ def to_agent_state(state: MegaFleetState,
     dev = state.belief.device
     qp = slots.q_prev.to(torch.float32)
     qn = slots.q_next.to(torch.float32)
-    b0 = (cfg.b_prior_uniform / s
-          + cfg.b_prior_sticky * torch.eye(s, device=dev))
+    if state.cache.b_base is None:
+        base_rows = [_dense_prior(cfg, dev)] * a_n
+    else:
+        base_rows = [state.cache.b_base[:, a] for a in range(a_n)]
     coefact = state.cache.coefact                                 # (R, J, A)
     # one action at a time keeps the peak temp at (R, J, S), not (R, A, S, S)
     b_counts = torch.stack(
-        [b0 + torch.bmm((coefact[:, :, a, None] * qn).transpose(1, 2), qp)
+        [base_rows[a]
+         + torch.bmm((coefact[:, :, a, None] * qn).transpose(1, 2), qp)
          for a in range(a_n)], dim=1)
 
     cap = cfg.replay_capacity

@@ -11,10 +11,14 @@
 //   evidence  loglik[s] = sum_m mask_m logna[m, bin_m, s] (+ scrape term)
 //   prior     qt = q / colsum[a_prev];  pend_j = coefact[j, a_prev] (qp_j.qt)
 //             num = u sum(qt) + d qt + sum_j pend_j qn_j;  prior = norm(num)
+//             (warm: num = b_base[a_prev] qt + sum_j pend_j qn_j)
 //   posterior q' = norm(exp(loglik + log max(prior, 1e-30) - max))
 //   EFE       on selecting ticks (w % dwell == 0): qa_a = q' / colsum[a],
 //             o_a = (u sqa_a projsum + d proj qa_a + sum_j pend_ja qnproj_j)
 //                   / max((uS + d) sqa_a + sum_j pend_ja sumqn_j, 1e-30),
+//             (warm: s_num_a = b_base[a] qa_a, o_a = (proj s_num_a + sum_j
+//             pend_ja qnproj_j) / max(sum s_num_a + sum_j pend_ja sumqn_j,
+//             1e-30)),
 //             G = risk + ambiguity + cost; sampled = argmax(log max(softmax(
 //             -beta G), 1e-30) + gumbel), lowest index on ties
 //   dwell     the action changes only where (t + w) % dwell == 0
@@ -72,6 +76,21 @@
 // A coefact with more nonzero entries than used slots (the cache never
 // builds one) does not fit the lists: the router's belief comes back NaN.
 //
+// Warm fleets.  A fleet promoted from the dense per-tick path carries its
+// learned transition counts as a dense baseline b_base (R, A, S, S) in
+// place of the scalar sticky prior (the second template switch, kWarm; a
+// fresh fleet's launch compiles and computes as before).  The prior's base
+// term becomes the (S, S) matvec b_base[a_prev] qt, one warp per output
+// row t reading the row's S contiguous floats (coalesced), into shared
+// memory that the selecting branch's qa takes over later; on a selecting
+// tick the EFE forms s_num[a] = b_base[a] qa[a] the same way, one warp per
+// (a, t) row, into an (A, S) array of shared memory, and projects s_num
+// where the fresh branch projects qa.  One router's b_base is A S^2 4 B,
+// 4.7 MB at the paper's widths, far above an SM's 228 KB, so it streams
+// from L2/HBM: all of it on each selecting tick, one (S, S) slab on every
+// tick.  Each dot sums its lane's terms in s order, then across the warp:
+// a fixed order, so two launches give the same bits.
+//
 // The tape rows are still reread on every tick that needs them; keeping
 // them in L2 or shared memory across ticks, TMA copies and wgmma are later
 // work.
@@ -99,6 +118,7 @@ struct MegaArgs {
   const float* sumqn;       // (R, J)
   const float* coefact;     // (R, J, A)
   const float* logna;       // (R, M, NB, S)
+  const float* b_base;      // (R, A, S, S) warm baseline, or null (fresh)
   // router carry, updated in place
   float* belief;            // (R, S)
   long long* prev_action;   // (R)
@@ -430,8 +450,8 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
 
 // Four blocks an SM (64 registers a thread, no spills at the paper's
 // widths): the per-tick scalar chains and barriers of one router hide
-// behind the others'.
-template <typename TS>
+// behind the others'.  kWarm: the fleet has a dense b_base baseline.
+template <typename TS, bool kWarm>
 __global__ void __launch_bounds__(kThreads, 4)
 mega_window_kernel(const MegaArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -451,8 +471,9 @@ mega_window_kernel(const MegaArgs a) {
   float* gsh = pd + A * P;        // A   G
   float* sqa = gsh + A;           // A
   float* red = sqa + A;           // kWarps
+  float* sn = red + kWarps;       // A * S  s_num (kWarm only)
   Stage g;
-  g.arrival = red + kWarps;
+  g.arrival = sn + (kWarm ? A * S : 0);
   g.hazard = g.arrival + W;
   g.uni = g.hazard + W * K;
   g.gumbel = g.uni + 2 * W * K;
@@ -478,6 +499,7 @@ mega_window_kernel(const MegaArgs a) {
   const float* sumqn_r = a.sumqn + (size_t)r * J;
   const float* projsum_r = a.projsum + (size_t)r * P;
   const float* logna_r = a.logna + (size_t)r * MNB * S;
+  const float* bb_r = kWarm ? a.b_base + (size_t)r * A * S * S : nullptr;
   const size_t rk = (size_t)r * K, pl = (size_t)a.R * K;
   const size_t rm = (size_t)r * M, ml = (size_t)a.R * M;
   const int n_used = a.n_used;
@@ -635,6 +657,15 @@ mega_window_kernel(const MegaArgs a) {
       const float v = g.coef[i] * row_dot(qp_r + (size_t)g.slot[i] * S, qt, S);
       if (lane == 0) g.pend[i] = v;
     }
+    // warm: the baseline term b_base[a_prev] qt, one warp per row t, into
+    // qa's first S floats (qa is free until the selecting branch)
+    if (kWarm) {
+      const float* bp = bb_r + (size_t)ap * S * S;
+      for (int t = warp; t < S; t += kWarps) {
+        const float v = row_dot(bp + (size_t)t * S, qt, S);
+        if (lane == 0) qa[t] = v;
+      }
+    }
     __syncthreads();
     for (int i = l0; i < l1; ++i) {
       const float pj = g.pend[i];
@@ -653,7 +684,8 @@ mega_window_kernel(const MegaArgs a) {
     for (int i = 0; i < kSPer; ++i) {
       const int s = tid + i * kThreads;
       if (s < S) {
-        const float num = a.u_c * sum_qt + a.d_c * qt[s] + acc[i];
+        const float num =
+            kWarm ? qa[s] + acc[i] : a.u_c * sum_qt + a.d_c * qt[s] + acc[i];
         qn[s] = num;
         part += num;
       }
@@ -681,9 +713,20 @@ mega_window_kernel(const MegaArgs a) {
       for (int i = tid; i < A * S; i += kThreads)
         qa[i] = qn[i % S] / colsum_r[i];
       __syncthreads();
+      // warm: s_num[a] = b_base[a] qa[a], one warp per (a, t) row; the
+      // sums and projections below then read s_num where they read qa
+      if (kWarm) {
+        for (int u = warp; u < A * S; u += kWarps) {
+          const int ai = u / S;
+          const float v = row_dot(bb_r + (size_t)u * S, qa + (size_t)ai * S, S);
+          if (lane == 0) sn[u] = v;
+        }
+        __syncthreads();
+      }
+      const float* src = kWarm ? sn : qa;
       for (int ai = warp; ai < A; ai += kWarps) {
         float v = 0.f;
-        for (int s = lane; s < S; s += 32) v += qa[(size_t)ai * S + s];
+        for (int s = lane; s < S; s += 32) v += src[(size_t)ai * S + s];
         v = warp_sum(v);
         if (lane == 0) sqa[ai] = v;
       }
@@ -697,7 +740,7 @@ mega_window_kernel(const MegaArgs a) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = 0.f;
         for (int s = lane; s < S; s += 32) {
-          const float x = qa[(size_t)ai * S + s];
+          const float x = src[(size_t)ai * S + s];
 #pragma unroll
           for (int j = 0; j < 8; ++j)
             if (p0 + j < P) v[j] = fmaf(proj[(size_t)(p0 + j) * S + s], x, v[j]);
@@ -745,11 +788,15 @@ mega_window_kernel(const MegaArgs a) {
       const float* logc = g.logc + (e.unstable ? MNB : 0);
       for (int ai = tid; ai < A; ai += kThreads) {
         const float sq = sqa[ai];
-        const float sden = fmaxf(a.usd * sq + so[ai * P1 + P], 1e-30f);
+        const float sden = fmaxf(
+            kWarm ? sq + so[ai * P1 + P] : a.usd * sq + so[ai * P1 + P],
+            1e-30f);
         float risk = 0.f, amb = 0.f;
         for (int p = 0; p < P; ++p) {
-          const float onum = a.u_c * sq * projsum_r[p] +
-                             a.d_c * pd[ai * P + p] + so[ai * P1 + p];
+          const float onum =
+              kWarm ? pd[ai * P + p] + so[ai * P1 + p]
+                    : a.u_c * sq * projsum_r[p] + a.d_c * pd[ai * P + p] +
+                          so[ai * P1 + p];
           const float o = onum / sden;
           if (p < MNB) {
             float term =
@@ -859,14 +906,15 @@ mega_window_kernel(const MegaArgs a) {
 size_t smem_bytes(const MegaArgs& a) {
   const size_t floats = (size_t)a.P * a.S + (size_t)a.A * a.S + 4 * a.S +
                         (size_t)a.A * (a.P + 1) + (size_t)a.A * a.P +
-                        2 * a.A + kWarps + stage_words(a);
+                        2 * a.A + kWarps + stage_words(a) +
+                        (a.b_base ? (size_t)a.A * a.S : 0);
   return floats * sizeof(float) + sizeof(Env);
 }
 
-template <typename TS>
+template <typename TS, bool kWarm>
 int launch(const MegaArgs& a, void* stream) {
   const size_t smem = smem_bytes(a);
-  auto kern = mega_window_kernel<TS>;
+  auto kern = mega_window_kernel<TS, kWarm>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -887,8 +935,11 @@ int mega_window_launch(const MegaArgs* a, void* stream) {
   if (a->S > kSPer * kThreads || a->A * (a->P + 1) > kAccPer * kThreads ||
       a->K > kMaxKM || a->M > kMaxKM || a->M > 4 || a->W < 1)
     return (int)cudaErrorInvalidValue;
-  return a->bf16_slots ? launch<__nv_bfloat16>(*a, stream)
-                       : launch<float>(*a, stream);
+  if (a->b_base)
+    return a->bf16_slots ? launch<__nv_bfloat16, true>(*a, stream)
+                         : launch<float, true>(*a, stream);
+  return a->bf16_slots ? launch<__nv_bfloat16, false>(*a, stream)
+                       : launch<float, false>(*a, stream);
 }
 
 }  // extern "C"

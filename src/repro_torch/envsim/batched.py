@@ -25,11 +25,13 @@ Fault injection: a scenario's (T, R, K) ``forced_down`` schedule takes
 tiers administratively down (arrivals refused, in-system mass killed,
 liveness probe down, independent of the restart machinery) and its
 ``speed`` schedule scales service speed (stragglers: capacity shrinks,
-latency inflates, liveness stays).  Every function is plain PyTorch over
-tensors with a leading cell axis R; :func:`run_fluid` is a Python loop over
-windows.  The reference's graph spillover (ROADMAP A9) and sharded
-``row_block`` (A10) are not ported: their ``None`` defaults are the only
-accepted values.
+latency inflates, liveness stays).  Fleet graphs
+(:class:`repro_torch.core.graph.FleetGraph`): the mass a cell rejects is
+re-offered to its graph neighbors (cross-cell spillover) and each cell
+publishes the mean pressure of its neighbors as a fifth telemetry column.
+Every function is plain PyTorch over tensors with a leading cell axis R;
+:func:`run_fluid` is a Python loop over windows.  The reference's sharded
+``row_block`` (ROADMAP A10) is not ported: None is the only accepted value.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.graph import GraphData, segment_sum
 from repro_torch.device import resolve_device
 from repro_torch.envsim.config import SimConfig
 
@@ -105,7 +108,12 @@ class FluidState(NamedTuple):
 
 
 class WindowInfo(NamedTuple):
-    """Per-window observables + diagnostics (what a router may see)."""
+    """Per-window observables + diagnostics (what a router may see).
+
+    The trailing ``spill_*`` / ``nbr_pressure`` fields are set only when
+    the world has a fleet graph (cross-cell spillover); ungraphed runs
+    carry None there.
+    """
 
     raw_obs: torch.Tensor          # (R, M): p95_s, rps, queue_depth, err_rate
     obs_mask: torch.Tensor         # (R, M) 1 = fresh sample, 0 = stale/missing
@@ -118,6 +126,10 @@ class WindowInfo(NamedTuple):
     success: torch.Tensor          # (R,)
     failures: torch.Tensor         # (R,)
     restarted: torch.Tensor        # (R, K) 1.0 where a pod restarted
+    spill_out: torch.Tensor | None = None       # (R,) mass sent to neighbors
+    spill_in: torch.Tensor | None = None        # (R,) mass offered by them
+    spill_admitted: torch.Tensor | None = None  # (R,) offered mass absorbed
+    nbr_pressure: torch.Tensor | None = None    # (R,) mean neighbor pressure
 
 
 class FluidResult(NamedTuple):
@@ -283,12 +295,20 @@ def fluid_window_step(params: FluidParams,
         probes as down, so an outage can outlive ``restart_max_s``.
       speed: optional (R, K) service-speed multiplier this window (<1
         shrinks capacity and inflates latency, the tier stays up).
-      row_block / graph: not ported; must be None.
+      row_block: not ported; must be None.
+      graph: optional :class:`repro_torch.core.graph.GraphData` — turns on
+        cross-cell spillover: the mass a cell rejects this window (down-pod
+        refusals and queue overflow) is re-offered to its out-neighbors
+        (split 1/out_degree), pays the edge's hop latency and is admitted
+        into whatever live headroom the receivers have whose estimated
+        response still beats the timeout; the rest fails as overflow at the
+        receiving side.  The per-cell sums over the edge list are gathers
+        with a fixed-order reduction (no atomics).  Cells also publish a
+        fifth telemetry column, the mean pressure of their out-neighbors.
+        None runs the exact ungraphed program.
     """
     if row_block is not None:
         raise _waiting("row_block (sharded engine)", "A10")
-    if graph is not None:
-        raise _waiting("graph spillover", "A9")
     w = torch.clamp(weights, min=0.0)
     w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
 
@@ -365,11 +385,57 @@ def fluid_window_step(params: FluidParams,
     down_left = torch.clamp(state.down_left - dt, min=0.0)
     down_left = torch.where(restarted > 0, dur, down_left)
 
+    over_sum = torch.sum(over, dim=-1)
+    # ---- cross-cell spillover (graph worlds only) -------------------------
+    # Fleet-global request mass is conserved: Σ requests == Σ success +
+    # Σ every failure cause + Σ final backlog.
+    spill_out = spill_in = spill_admitted = nbr_press = None
+    if graph is not None:
+        rej = refused + over_sum                      # (R,) rejected mass
+        up2 = down_left <= _EPS                       # post-restart liveness
+        if forced_down is not None:
+            up2 = up2 & (adminf <= 0.5)
+        up2f = up2.to(torch.float32)
+        # cell pressure: in-system mass over live system capacity (fully
+        # down cells saturate the clip)
+        press = torch.clamp(
+            torch.sum(backlog2, dim=-1)
+            / torch.clamp(torch.sum(syscap * up2f, dim=-1), min=_EPS),
+            max=1e3)
+        offer = rej[graph.src] * graph.share          # (E,) per-edge offer
+        spill_in = segment_sum(offer, graph.in_edges)
+        hop_mass = segment_sum(offer * graph.hop, graph.in_edges)
+        nbr_press = segment_sum(press[graph.dst] * graph.share,
+                                graph.out_edges)
+        hop_mean = hop_mass / torch.clamp(spill_in, min=_EPS)     # (R,)
+        est_resp = (hop_mean[:, None]
+                    + backlog2 / torch.clamp(cap_rate, min=_EPS)
+                    + service_mean)                               # (R, K)
+        viable = (est_resp <= params.timeout_s).to(torch.float32) * up2f
+        room = torch.clamp(syscap - backlog2, min=0.0) * viable   # (R, K)
+        room_tot = torch.sum(room, dim=-1)
+        spill_admitted = torch.minimum(spill_in, room_tot)        # (R,)
+        admit = room * (spill_admitted
+                        / torch.clamp(room_tot, min=_EPS))[:, None]
+        spill_dropped = spill_in - spill_admitted
+        backlog2 = backlog2 + admit
+        keep = 1.0 - graph.has_out    # exporters keep none of their rejects
+        spill_out = rej * graph.has_out
+
     # ---- accounting -------------------------------------------------------
     win_success = torch.sum(completed, dim=-1)
-    over_sum = torch.sum(over, dim=-1)
-    win_fail = (refused + over_sum + torch.sum(timed_out, dim=-1)
-                + torch.sum(killed, dim=-1))
+    if graph is None:
+        win_fail = (refused + over_sum + torch.sum(timed_out, dim=-1)
+                    + torch.sum(killed, dim=-1))
+        err_refused_new = state.err_refused + refused
+        err_overflow_new = state.err_overflow + over_sum
+    else:
+        win_fail = (refused * keep + over_sum * keep + spill_dropped
+                    + torch.sum(timed_out, dim=-1)
+                    + torch.sum(killed, dim=-1))
+        err_refused_new = state.err_refused + refused * keep
+        err_overflow_new = (state.err_overflow + over_sum * keep
+                            + spill_dropped)
 
     # ---- router observables (EMA ≈ the event sim's sliding windows) -------
     a_lat = min(1.0, 2.0 * dt / params.latency_window_s)
@@ -391,7 +457,12 @@ def fluid_window_step(params: FluidParams,
     queue_depth = torch.sum(tier_queue, dim=-1)
 
     # ---- telemetry pipeline (validity mask + stale-hold emission) ---------
-    fresh_obs = torch.stack([p95_ema, rps_ema, queue_depth, err_ema], dim=-1)
+    obs_cols = [p95_ema, rps_ema, queue_depth, err_ema]
+    if nbr_press is not None:
+        # graph worlds publish the mean out-neighbor pressure as a fifth
+        # column (same mask / stale-hold pipeline as the rest)
+        obs_cols.append(nbr_press)
+    fresh_obs = torch.stack(obs_cols, dim=-1)
     if obs_valid is None and not restart_blackout:
         obs_mask = torch.ones_like(fresh_obs)
         published = fresh_obs
@@ -424,8 +495,8 @@ def fluid_window_step(params: FluidParams,
         n_requests=state.n_requests + torch.sum(arr, dim=-1),
         n_success=state.n_success + win_success,
         err_timeout=state.err_timeout + torch.sum(timed_out, dim=-1),
-        err_overflow=state.err_overflow + over_sum,
-        err_refused=state.err_refused + refused,
+        err_overflow=err_overflow_new,
+        err_refused=err_refused_new,
         err_restart=state.err_restart + torch.sum(killed, dim=-1),
         tier_requests=state.tier_requests + arr,
         tier_success=state.tier_success + completed,
@@ -446,13 +517,19 @@ def fluid_window_step(params: FluidParams,
         success=win_success,
         failures=win_fail,
         restarted=restarted,
+        spill_out=spill_out,
+        spill_in=spill_in,
+        spill_admitted=spill_admitted,
+        nbr_pressure=nbr_press,
     )
     return new_state, info
 
 
 def stack_infos(infos: list) -> WindowInfo:
-    """Stack per-window :class:`WindowInfo` records along a new T axis."""
-    return WindowInfo(*(torch.stack(f) for f in zip(*infos)))
+    """Stack per-window :class:`WindowInfo` records along a new T axis
+    (fields that are None in every record stay None)."""
+    return WindowInfo(*(None if f[0] is None else torch.stack(f)
+                        for f in zip(*infos)))
 
 
 # ------------------------------------------------------------------ rollouts
@@ -510,7 +587,6 @@ class FluidIngredients(NamedTuple):
     launch and needs the schedules as slices, not one-row lookups; it
     reads these from ``env_step.fluid`` so it drives exactly the same
     world (params, schedules, mask semantics) as the per-tick engine.
-    The reference's graph field waits for A9.
     """
 
     params: FluidParams
@@ -522,6 +598,7 @@ class FluidIngredients(NamedTuple):
     restart_blackout: bool
     forced_down: torch.Tensor | None = None   # (T, R, K) or None
     speed: torch.Tensor | None = None         # (T, R, K) or None
+    graph: GraphData | None = None            # edge tensors or None
 
 
 def make_env_step(params: FluidParams,
@@ -541,9 +618,14 @@ def make_env_step(params: FluidParams,
     tells mask-aware consumers whether degradation is configured,
     ``n_obs_modalities`` the telemetry width and ``fluid`` the
     :class:`FluidIngredients` for whole-window consumers.
+
+    ``graph``: a :class:`repro_torch.core.graph.FleetGraph` built at the
+    fleet size turns on cross-cell spillover and the neighbor-pressure
+    column.  The closure then has ``has_graph = True`` and
+    ``n_obs_modalities = 5``, and a 4-column ``obs_valid`` schedule grows
+    an always-valid neighbor column.  ``graph=None`` or an empty edge list
+    runs the exact ungraphed program.
     """
-    if graph is not None:
-        raise _waiting("graph spillover", "A9")
     dev = params.servers.device
     arrival_rate = torch.as_tensor(arrival_rate, dtype=torch.float32,
                                    device=dev)
@@ -555,6 +637,14 @@ def make_env_step(params: FluidParams,
 
     obs_valid, forced_down, speed = (schedule(x) for x in
                                      (obs_valid, forced_down, speed))
+    gd = None if graph is None else graph.device_data(params.n_cells, dev)
+    if (gd is not None and obs_valid is not None
+            and obs_valid.shape[-1] == N_OBS_MODALITIES):
+        # the neighbor pressure is engine-internal, not scraped telemetry:
+        # degradation schedules leave it always valid
+        obs_valid = torch.cat(
+            [obs_valid, torch.ones(obs_valid.shape[:-1] + (1,), device=dev)],
+            dim=-1)
 
     def env_step(env_state, weights, t_idx, uniforms):
         def at(x):
@@ -567,15 +657,16 @@ def make_env_step(params: FluidParams,
                                  obs_valid=at(obs_valid),
                                  restart_blackout=restart_blackout,
                                  forced_down=at(forced_down),
-                                 speed=at(speed))
+                                 speed=at(speed), graph=gd)
 
     env_step.emits_mask = obs_valid is not None or restart_blackout
-    env_step.n_obs_modalities = N_OBS_MODALITIES
+    env_step.has_graph = gd is not None
+    env_step.n_obs_modalities = N_OBS_MODALITIES + (gd is not None)
     env_step.fluid = FluidIngredients(
         params=params, arrival_rate=arrival_rate, hazard_scale=hazard_scale,
         dt=dt, scrape_every=scrape_every, obs_valid=obs_valid,
         restart_blackout=restart_blackout, forced_down=forced_down,
-        speed=speed)
+        speed=speed, graph=gd)
     return env_step
 
 

@@ -32,8 +32,10 @@ consume the stale value — exactly the failure mode real pipelines exhibit.
 All builders are host-side numpy: schedules are *inputs* to the rollout,
 generated once per experiment.  The fault-injection presets live in
 :mod:`repro_torch.envsim.chaos`, which registers them here when the
-package is imported; the graph presets of the reference wait for a later
-slice (:data:`WAITING`).
+package is imported.  The graph presets (``ring-spillover``,
+``grid-hotspot``, ``hier-continuum``) concentrate load on a subset of
+cells so a fleet graph has excess to shed to neighbors; an experiment
+attaches their graph (:data:`repro_torch.core.graph.GRAPH_SCENARIOS`).
 """
 from __future__ import annotations
 
@@ -196,6 +198,30 @@ def flash_crowd(n_windows: int, n_cells: int, window_s: float = 1.0,
     inside = (t[:, None] >= starts[None, :]) & (
         t[:, None] < starts[None, :] + duration_s)
     mult = np.where(inside, magnitude, 1.0)
+    return Profile(rate=mult.astype(np.float32))
+
+
+def localized_surge(n_windows: int, n_cells: int, window_s: float = 1.0,
+                    start_s: float = 120.0, duration_s: float = 60.0,
+                    magnitude: float = 5.0,
+                    cells: tuple[int, ...] | None = None,
+                    frac: float = 0.25) -> Profile:
+    """A flash crowd confined to a subset of cells (the rest stay at ×1).
+
+    Unlike :func:`flash_crowd` — which lifts the whole fleet — this drives a
+    *spatially localized* hotspot: by default the first ``frac`` of the cell
+    axis surges ×``magnitude`` while its neighbors idle, exactly the regime
+    where cross-cell spillover (``FleetGraph``) pays off and an ungraphed
+    fleet just refuses the excess.  Pass ``cells`` for an explicit hot set.
+    """
+    t = (np.arange(n_windows, dtype=np.float64) + 0.5) * window_s
+    inside_t = (t >= start_s) & (t < start_s + duration_s)
+    hot = np.zeros(n_cells, bool)
+    if cells is None:
+        hot[:max(int(round(frac * n_cells)), 1)] = True
+    else:
+        hot[list(cells)] = True
+    mult = np.where(inside_t[:, None] & hot[None, :], magnitude, 1.0)
     return Profile(rate=mult.astype(np.float32))
 
 
@@ -363,6 +389,52 @@ def _stale_cascade(cfg, r, t, w, seed):
         cfg, r, t)
 
 
+# --------------------------------------------- graph / spillover presets
+# Load shapes tuned for the networked-continuum engine: each concentrates
+# offered load on a subset of cells so a FleetGraph has excess to shed to
+# neighbors.  Experiment auto-attaches the matching graph preset (see
+# repro_torch.core.graph.GRAPH_SCENARIOS) when run with graph=None.
+def _ring_spillover(cfg, r, t, w, seed):
+    """Moderate base load plus a ×6 flash crowd on the first quarter of a
+    ring — the canonical spillover demo (hot arc sheds around the ring)."""
+    return compile_scenario(
+        compose(Profile(rate=np.full((t, r), 0.6, np.float32)),
+                localized_surge(t, r, w, start_s=t * w * 0.3,
+                                duration_s=max(30.0, t * w * 0.4),
+                                magnitude=6.0, frac=0.25)),
+        cfg, r, t)
+
+
+def _grid_hotspot(cfg, r, t, w, seed):
+    """Diurnal fleet with a persistent corner hotspot on a 2-D grid."""
+    side = max(int(math.isqrt(max(r, 1))), 1)
+    corner = tuple(i * side + j
+                   for i in range(min(2, side)) for j in range(min(2, side))
+                   if i * side + j < r)
+    return compile_scenario(
+        compose(Profile(rate=np.full((t, r), 0.55, np.float32)),
+                diurnal(t, r, w, period_s=max(600.0, t * w / 3),
+                        amplitude=0.3, phase_spread=0.5),
+                localized_surge(t, r, w, start_s=t * w * 0.2,
+                                duration_s=t * w * 0.6,
+                                magnitude=5.0, cells=corner)),
+        cfg, r, t)
+
+
+def _hier_continuum(cfg, r, t, w, seed):
+    """Heterogeneous leaf capacity plus a leaf-side surge on a hierarchy —
+    leaves shed upward to cluster heads over the uplink edges."""
+    leaves = tuple(i for i in range(r) if i % 4 != 0)  # graph.hier cluster=4
+    return compile_scenario(
+        compose(Profile(rate=np.full((t, r), 0.6, np.float32)),
+                heterogeneous_capacity(r, spread=0.45, seed=seed,
+                                       n_tiers=len(cfg.tiers)),
+                localized_surge(t, r, w, start_s=t * w * 0.25,
+                                duration_s=max(30.0, t * w * 0.45),
+                                magnitude=4.0, cells=leaves or (0,))),
+        cfg, r, t)
+
+
 SCENARIOS: dict[str, Callable[..., ScenarioBatch]] = {
     "steady": _steady,
     "paper-burst": _paper_burst,
@@ -373,12 +445,14 @@ SCENARIOS: dict[str, Callable[..., ScenarioBatch]] = {
     "flaky-telemetry": _flaky_telemetry,
     "scrape-blackout": _scrape_blackout,
     "stale-cascade": _stale_cascade,
+    "ring-spillover": _ring_spillover,
+    "grid-hotspot": _grid_hotspot,
+    "hier-continuum": _hier_continuum,
 }
 
-#: Presets of the reference that wait for a later slice of the port.
-WAITING = {
-    "ring-spillover": "A9", "grid-hotspot": "A9", "hier-continuum": "A9",
-}
+#: Presets of the reference that wait for a later slice of the port (name
+#: -> ROADMAP item); :func:`build_scenario` raises for them.
+WAITING: dict[str, str] = {}
 
 
 def build_scenario(name: str, cfg: SimConfig, n_cells: int, n_windows: int,

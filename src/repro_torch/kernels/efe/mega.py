@@ -18,8 +18,11 @@ three EMA windows) are plain floats in the port's
 The ~40 operands travel as one :class:`MegaArgs` structure of device
 pointers, mirrored by ``struct MegaArgs`` in the CUDA source.
 
-The slot pushes go in place into the caller's tape at columns
-``[t0, t0 + W)``; every other output is a new tensor.  The kernel draws
+A warm-promoted fleet (``state.cache.b_base`` set) passes its dense
+(R, A, S, S) baseline and runs the kernel's warm instantiation; a fresh
+fleet passes a null pointer and runs the fresh one.  The slot pushes go in
+place into the caller's tape at columns ``[t0, t0 + W)``; every other
+output is a new tensor.  The kernel draws
 nothing: the Gumbel noise and the restart uniforms are operands.  Launches
 are counted in ``mega_window_cuda.launches``.
 """
@@ -57,7 +60,7 @@ class MegaArgs(ctypes.Structure):
             "q_prev", "q_next", "slot_bins", "slot_mask", "slot_action",
             "slot_dt",
             "colsum", "proj", "projsum", "qnproj", "sumqn", "coefact",
-            "logna",
+            "logna", "b_base",
             "belief", "prev_action", "scal", "t",
             "obsm", "tier_util", "envk", "envr", "pstack",
             "arrival", "hazard", "obs_valid", "uniforms", "gumbel",
@@ -122,16 +125,13 @@ def mega_window_cuda(state, est, obs_carry, params,
     Arguments and results as :func:`repro_torch.core.mega.mega_window`.
     ``t0`` must sit on a dwell boundary and the window must fit the tape
     (``t0 + W <= J``).  Raises for non-CUDA tensors and for the options
-    that are not ported (fault schedules, row blocks, graphs, warm
-    ``b_base`` fleets).
+    that are not ported (fault schedules, row blocks, graphs).
     """
     mega_core._not_ported(forced_down, speed, row_block, graph)
     dev = state.belief.device
     if dev.type != "cuda":
         raise ValueError(f"mega_window_cuda runs on CUDA tensors, got {dev}")
     cache, slots = state.cache, state.slots
-    if cache.b_base is not None:
-        raise mega_core._warm_waiting("the b_base kernel branch")
     topo = cfg.topology
     r, j, s = slots.q_prev.shape
     a_n, m, nb, k = cfg.n_actions, topo.n_modalities, topo.max_bins, \
@@ -180,6 +180,8 @@ def mega_window_cuda(state, est, obs_carry, params,
     ]
     if obs_valid is not None:
         checks.append(("obs_valid", obs_valid, (w, r, m), f32))
+    if cache.b_base is not None:
+        checks.append(("cache.b_base", cache.b_base, (r, a_n, s, s), f32))
     for name, t, shape, dtype in checks:
         _check(name, t, shape, dev, dtype)
 
@@ -230,7 +232,7 @@ def mega_window_cuda(state, est, obs_carry, params,
         colsum=cache.colsum.data_ptr(), proj=cache.proj.data_ptr(),
         projsum=cache.projsum.data_ptr(), qnproj=cache.qnproj.data_ptr(),
         sumqn=cache.sumqn.data_ptr(), coefact=cache.coefact.data_ptr(),
-        logna=cache.logna.data_ptr(),
+        logna=cache.logna.data_ptr(), b_base=_ptr(cache.b_base),
         belief=belief.data_ptr(), prev_action=prev_action.data_ptr(),
         scal=scal.data_ptr(), t=state.t.data_ptr(),
         obsm=obsm.data_ptr(), tier_util=tier_util.data_ptr(),

@@ -24,12 +24,11 @@ from repro.envsim import scenarios as ref_scen
 from repro_torch import api
 from repro_torch.api import engine, experiment
 from repro_torch.checkpoint import Checkpointer, CorruptCheckpointError
-from repro_torch.checkpoint.checkpointer import flatten
 from repro_torch.core import fleet, generative
 from repro_torch.envsim import SimConfig, batched, scenarios
-from torch_port_ref import (JaxChainNoise, assert_close, assert_tree_close,
-                            mega_state_to_port, snapshot_to_port, t2n,
-                            to_numpy)
+from torch_port_ref import (JaxChainNoise, assert_bits_equal, assert_close,
+                            assert_tree_close, mega_state_to_port,
+                            snapshot_to_port, t2n, to_numpy)
 
 R, T = 4, 40
 
@@ -45,13 +44,6 @@ def _world(scenario, r=R, t=T):
     params = batched.params_from_config(SimConfig(), r, sc.capacity_scale,
                                         device="cpu")
     return params, batched.make_scenario_env_step(params, sc)
-
-
-def assert_bits_equal(a, b):
-    fa, fb = flatten(a), flatten(b)
-    assert fa.keys() == fb.keys()
-    for name in fa:
-        assert torch.equal(fa[name], fb[name]), name
 
 
 def _cat(a, b):

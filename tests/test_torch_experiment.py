@@ -94,15 +94,17 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 def test_waiting_paths_raise_not_implemented():
-    # warm promotion of a dense per-tick carry onto the mega path
+    # warm promotion of a dense per-tick carry onto the mega path is ported
     router = api.AifRouter(mega=True)
     warm = router.init_carry(2, "cpu")
     warm = warm._replace(t=torch.full_like(warm.t, 10))
-    with pytest.raises(NotImplementedError, match="A14"):
-        mega.init_mega_state(router.cfg, 2, 20, device="cpu",
-                             from_agent_state=warm)
-    with pytest.raises(NotImplementedError, match="A14"):
-        api.rollout(router, warm, None, None, 10)
+    state = mega.init_mega_state(router.cfg, 2, 20, device="cpu",
+                                 from_agent_state=warm)
+    assert state.cache.b_base is not None
+    # a fleet graph in a mega window (spillover in B3)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        api.run(api.Experiment(mega=True, scenario="ring-spillover",
+                               n_cells=2, n_windows=20, device="cpu"))
     # fault schedules in a mega window (chaos in B3)
     with pytest.raises(NotImplementedError, match="A8b"):
         api.run(api.Experiment(mega=True, scenario="zone-outage", n_cells=2,

@@ -92,9 +92,12 @@ def test_mega_matches_the_ports_fused_path(scenario):
                                    t2n(getattr(fused.trace, name)),
                                    atol=1e-4, err_msg=name)
     for f in whole.trace.env._fields:
-        np.testing.assert_allclose(t2n(getattr(whole.trace.env, f)),
-                                   t2n(getattr(fused.trace.env, f)),
-                                   atol=1e-4, err_msg=f"env.{f}")
+        a, b = getattr(whole.trace.env, f), getattr(fused.trace.env, f)
+        if b is None:       # the graph fields of an ungraphed world
+            assert a is None, f
+            continue
+        np.testing.assert_allclose(t2n(a), t2n(b), atol=1e-4,
+                                   err_msg=f"env.{f}")
     np.testing.assert_allclose(t2n(whole.final_carry.belief),
                                t2n(fused.final_carry.belief), atol=1e-4)
 

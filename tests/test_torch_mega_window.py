@@ -242,14 +242,21 @@ def test_state_converter_round_trip_and_warm_paths_raise():
     assert_tree_close(state, st_r)
     back = mega_state_to_port(st_r, p_cfg)
     assert_tree_close(back, st_r)
-    warm = state._replace(cache=state.cache._replace(b_base=torch.zeros(1)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        mega.factored_prior(warm.cache, warm.slots, warm.belief,
-                            warm.prev_action, p_cfg)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # a warm state (dense b_base baseline) carries across both ways too
+    dense = mega.to_agent_state(state, p_cfg)
+    warm = mega.init_mega_state(p_cfg, 3, 30, device="cpu",
+                                from_agent_state=dense)
+    warm_r = mega_state_to_ref(port_to_numpy(warm))
+    assert_tree_close(warm, warm_r)
+    assert_tree_close(mega_state_to_port(warm_r, p_cfg), warm_r)
+    # the warm paths still raise where the promotion cannot hold
+    with pytest.raises(ValueError, match="uniform fleet clock"):
         mega.init_mega_state(p_cfg, 3, 30, device="cpu",
-                             from_agent_state=mega.to_agent_state(state,
-                                                                  p_cfg))
+                             from_agent_state=dense._replace(
+                                 t=torch.tensor([20, 21, 20])))
+    with pytest.raises(ValueError, match="n_slots"):
+        mega.init_mega_state(p_cfg, 3, 10, device="cpu",
+                             from_agent_state=dense)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_unported_options():
@@ -273,6 +280,6 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_unported_options():
         mega_kernel.mega_window_cuda(*args, **kw)
     with pytest.raises(NotImplementedError, match="A8"):
         mega_kernel.mega_window_cuda(*args, **kw, forced_down=fl.arrival_rate)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A8b"):
         ops.mega_window(*args, **kw, graph=object())
     assert mega_kernel.mega_window_cuda.launches == launches

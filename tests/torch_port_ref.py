@@ -181,7 +181,8 @@ def mega_state_to_port(state, cfg, slot_dtype=None):
 
 def mega_state_to_ref(arrays: dict, slot_dtype=jnp.float32):
     """A :func:`port_to_numpy` dict of the port's ``MegaFleetState`` as the
-    reference's (int32 indices, ``slot_dtype`` slot planes)."""
+    reference's (int32 indices, ``slot_dtype`` slot planes; a warm fleet's
+    ``b_base`` baseline carried along)."""
     from repro.core import mega as ref_mega
 
     def f32(x):
@@ -197,15 +198,45 @@ def mega_state_to_ref(arrays: dict, slot_dtype=jnp.float32):
         obs_bins=i32(sl["obs_bins"]), obs_mask=f32(sl["obs_mask"]),
         action=i32(sl["action"]), dt_since_change=f32(sl["dt_since_change"]),
         wcount=f32(sl["wcount"]))
+    b_base = arrays["cache"].get("b_base")
     cache = ref_mega.MegaCache(
         **{k: f32(v) for k, v in arrays["cache"].items() if k != "b_base"},
-        b_base=None)
+        b_base=None if b_base is None else f32(b_base))
     return ref_mega.MegaFleetState(
         a_counts=f32(arrays["a_counts"]), slots=slots, cache=cache,
         belief=f32(arrays["belief"]), prev_action=i32(arrays["prev_action"]),
         dt_since_change=f32(arrays["dt_since_change"]),
         error_ema=f32(arrays["error_ema"]),
         unstable=jnp.asarray(arrays["unstable"], bool), t=i32(arrays["t"]))
+
+
+def assert_bits_equal(a, b):
+    """Every tensor leaf of the port trees ``a`` and ``b`` equal to the bit
+    (the same leaves, by path)."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    fa, fb = flatten(a), flatten(b)
+    assert fa.keys() == fb.keys()
+    for name in fa:
+        assert torch.equal(fa[name], fb[name]), name
+
+
+def agent_state_to_port(state, cfg):
+    """The reference's dense per-tick ``AgentState`` (a fleet carry) as the
+    port's, on the CPU."""
+    from repro_torch.core import fleet
+    return fleet.agent_state_from_numpy(to_numpy(state), cfg, "cpu")
+
+
+def clone_tree(tree):
+    """A copy of a port NamedTuple of tensors (None leaves stay None): the
+    port updates some carries in place."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    leaves = [clone_tree(x) for x in tree]
+    return type(tree)(*leaves) if hasattr(tree, "_fields") else \
+        type(tree)(leaves)
 
 
 class RouterKeyChainNoise:
