@@ -83,7 +83,28 @@ failure raising (exit code != 0):
    launches, counted) and, on the same draws, 150 on the per-tick path
    (30 B1 launches): the count of differing actions; then a small warm run
    (R=4) on the card against the CPU: actions equal;
-19. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
+19. mega chaos kernel vs plain — B3 on chaos windows at R=4096 from the
+   mega path's own states: zone-outage's and straggler-storm's schedules
+   at t0=150 and zone-outage at t0=120 (inside its outage), each against
+   its plain version ``core.mega.mega_window`` within MEGA_TOL and
+   launched twice with the outputs equal to the bit; straggler-storm's
+   window timed beside its plain version and its bound;
+20. mega graph kernel vs plain — the same on a ring-spillover window
+   (M=5, every ``spill_*`` field and the neighbor pressure; a graph window
+   is 11 launches: one a tick, and one more to publish the last tick);
+21. mega chaos — the five chaos presets with ``mega=True`` at R=4096 x
+   T=300, each with its mega control (B3 for every window of both, 60
+   launches, counted), walls, recovery metrics; and each at R=1024 on the
+   per-tick and the mega path with the same draws (``TickNoise``): the
+   share of actions that differ;
+22. mega chaos resume — zone-outage on the mega path at R=32,
+   checkpointed and resumed as in phase 13, equal to the bit;
+23. mega graph — ring-spillover with ``mega=True`` at R=4096 x T=300 (330
+   B3 launches, counted) beside its ``graph="none"`` mega control (30);
+   the graphed run again through the engine, equal to the bit, with the
+   fleet's mass balance closed; at R=1024 against the per-tick run on the
+   same draws: the actions that differ, offload_frac within 1e-5;
+24. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
    against their plain versions ``mha_ref``/``decode_ref`` on the card:
    internlm2-1.8b's heads (Hq=16, Hkv=8, D=128) at b=1, Sq=Skv=1024 causal
    in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
@@ -95,20 +116,20 @@ failure raising (exit code != 0):
    within 1e-6; bf16 B4 and B5 within one bf16 ulp of their model, B4
    closer to ``ref.prefill_two_half_model`` than to the model that drops
    p_lo);
-20. serve small — internlm2-1.8b's widths at 2 layers in f32, one
+25. serve small — internlm2-1.8b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
    the first prompt's prefill and of one decode step after it within 1e-4
    relative, the kernels launched as expected;
-21. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
+26. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
    max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
    1000-1024 prompt tokens with 64 new tokens each, every kernel's count
    read around it (B4: 24 per request, B5: 24 per decode wave);
-22. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
+27. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
    engines sharing the serve phase's weights (max_batch 2/3/8,
    steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
    128-token prompts with 16 new tokens, counts read around it;
-23. times — each kernel's ms per launch (CUDA events around one
+28. times — each kernel's ms per launch (CUDA events around one
    synchronized call, warmed up, median) and its device ms (30 calls
    queued back to back behind a busy-wait, so the host's cost per call
    stays off the clock) beside its bound and its plain version's ms; B3 at the mega slice's
@@ -119,8 +140,9 @@ failure raising (exit code != 0):
    the port never calls), and B5 at the multitier phase's shapes (B = 2,
    3, 8 over S=512), each with the blocks its launch puts to work; B1
    also at the hetero phase's 5-tier widths and at the graph phase's M=5
-   (its own row of the kernels line, as B3's warm branch from phase 17);
-24. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
+   (its own row of the kernels line, as B3's warm branch from phase 17
+   and B3 on chaos and graph windows from phases 19-20);
+29. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
@@ -131,17 +153,17 @@ failure raising (exit code != 0):
    one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
    the plain model of that route's algebra, and closer to it than to the
    model that drops the lo halves;
-25. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
+30. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
-   tokens each, checked as in phase 20 (B6: 2 per admission);
-26. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
+   tokens each, checked as in phase 25 (B6: 2 per admission);
+31. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
    max_batch=8, max_len=2048)`` in bf16, all 64 layers, answering 8
    requests of 1000-1024 prompt tokens with 32 new tokens each, every
    kernel's count read around it (B6: 64 per request), then one prefill's
    and one decode wave's host and device time; the weights are freed
    after it;
-27. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
+32. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
    bf16) beside its bound and its plain version's ms.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
@@ -171,6 +193,7 @@ FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 R_FULL, T_FULL = 1024, 300
 R_MEGA, T0_MEGA = 4096, 150   # the mega slice's fleet; B3's timed window
+T0_OUTAGE = 120               # a window inside zone-outage's outage (90-149)
 DEVICE = "cuda"
 G_TOL, Q_TOL = 1e-4, 1e-5     # kernel vs plain version, max abs error
 # B3 vs its plain version: every float output within MEGA_TOL·max(1, |plain|)
@@ -604,7 +627,8 @@ def bound(d, name: str) -> tuple[float, str]:
 def mega_midrun(r: int, t0: int, slot: str, scenario: str = "paper-burst",
                 horizon: int = T_FULL, seed: int = 0):
     """The mega path on the card stopped at tick ``t0`` of a ``horizon``-tick
-    run: (router, env_step, state, env state, obs carry, noise)."""
+    run: (router, env_step, state, env state, obs carry, noise).  A graph
+    scenario attaches its fleet graph, as ``Experiment`` does."""
     from repro_torch import api
     from repro_torch.api import engine, experiment
     from repro_torch.core import mega
@@ -613,12 +637,13 @@ def mega_midrun(r: int, t0: int, slot: str, scenario: str = "paper-burst",
     e = api.Experiment(router="aif", scenario=scenario, n_cells=r,
                        n_windows=horizon, seed=seed, mega=True,
                        mega_slot_dtype=slot, device=DEVICE)
+    g = e.resolve_graph()
     scfg, params, env_step = experiment._build_world(
         e.resolve_topology(), e.scenario, r, horizon, e.window_s, seed,
-        torch.device(DEVICE))
-    router = e.resolve_router(scfg)
+        torch.device(DEVICE), g)
+    router = e.resolve_router(scfg, g)
     noise = GeneratorNoise(seed, DEVICE)
-    est = batched.init_fluid_state(params)
+    est = batched.init_fluid_state(params, env_step.n_obs_modalities)
     if t0 == 0:                 # the first window starts on a fresh fleet
         dtype = torch.bfloat16 if slot == "bfloat16" else torch.float32
         state = mega.init_mega_state(router.cfg, r, horizon, dtype, DEVICE)
@@ -631,7 +656,9 @@ def mega_midrun(r: int, t0: int, slot: str, scenario: str = "paper-burst",
 
 
 def mega_window_inputs(router, env_step, noise, r: int, t0: int):
-    """(positional args after the carries, keyword args) of one window."""
+    """(positional args after the carries, keyword args) of one window;
+    the fault schedules' slices and the fleet graph where the world has
+    them."""
     fl = env_step.fluid
     ticks = range(t0, t0 + router.period)
     k = fl.params.n_tiers
@@ -649,6 +676,11 @@ def mega_window_inputs(router, env_step, noise, r: int, t0: int):
               scrape_every=fl.scrape_every,
               restart_blackout=fl.restart_blackout,
               emits_mask=bool(env_step.emits_mask))
+    extra = dict(forced_down=None if fl.forced_down is None
+                 else fl.forced_down[sl],
+                 speed=None if fl.speed is None else fl.speed[sl],
+                 graph=fl.graph)
+    kw.update({k: v for k, v in extra.items() if v is not None})
     return args, kw
 
 
@@ -702,7 +734,7 @@ def mega_errors(out_k, out_p, t0: int) -> dict:
 
 
 def mega_check(router, env_step, state, est, obs, noise, r: int, t0: int,
-               **fields) -> float:
+               phase: str = "mega_kernel_vs_plain", **fields) -> float:
     """One B3 window against its plain version on copies of the same
     state: every integer output equal, every float finite and within
     MEGA_TOL of the plain version's; returns the max abs error."""
@@ -715,7 +747,7 @@ def mega_check(router, env_step, state, est, obs, noise, r: int, t0: int,
     torch.cuda.synchronize()
     err = mega_errors(out_k, out_p, t0)
     weighted = int((state.cache.coefw[:, :t0] != 0).sum())
-    emit("mega_kernel_vs_plain", r=r, t0=t0,
+    emit(phase, r=r, t0=t0,
          slot=router.mega_slot_dtype, **fields,
          weighted_slots_per_router=weighted / r, tol=MEGA_TOL, **err)
     if not (err["ints_equal"] and err["finite"]
@@ -1134,12 +1166,14 @@ R_CKPT = 32        # a checkpoint of R=1024 AIF carries would be ~20 GB
 CKPT_EVERY = 100
 
 
-def phase_resume() -> None:
+def phase_resume(cases=(("zone-outage", False), ("paper-burst", True)),
+                 phase: str = "resume") -> None:
     """Checkpointed runs at R=32 x T=300 (checkpoint_every=100), then
     resumed from the newest checkpoint: the final carry and n_success must
     equal the uninterrupted run's to the bit, per-tick (zone-outage, fused
-    AIF, B1) and mega (paper-burst, B3).  Also the checkpoint's size and
-    the seconds to write and to restore one."""
+    AIF, B1) and mega (paper-burst, B3), or the given (scenario, mega)
+    cases.  Also the checkpoint's size and the seconds to write and to
+    restore one."""
     import shutil
     import tempfile
     from repro_torch import api
@@ -1148,7 +1182,7 @@ def phase_resume() -> None:
     from repro_torch.checkpoint.checkpointer import flatten
     from repro_torch.noise import GeneratorNoise
     dev = torch.device(DEVICE)
-    for scenario, mega in (("zone-outage", False), ("paper-burst", True)):
+    for scenario, mega in cases:
         base = dict(router="aif", scenario=scenario, n_cells=R_CKPT,
                     n_windows=T_FULL, seed=0, mega=mega, device=DEVICE)
         r0, l0 = run_counted(api.Experiment(**base))
@@ -1194,7 +1228,7 @@ def phase_resume() -> None:
                 r0.fluid.n_success, r1.fluid.n_success)),
             resumed_n_success_equal=bool(np.array_equal(
                 r0.fluid.n_success, r2.fluid.n_success)))
-        emit("resume", path="mega" if mega else "per-tick",
+        emit(phase, path="mega" if mega else "per-tick",
              scenario=scenario, n_cells=R_CKPT, n_windows=T_FULL,
              checkpoint_every=CKPT_EVERY, resume_points=[r1.resume_points,
                                                   r2.resume_points],
@@ -1599,6 +1633,271 @@ def phase_warm() -> dict:
             "max_abs_err": err, "max_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "device_ms": dev, "library_device_ms": None}
+
+
+# ------------------------------------ chaos and fleet graphs on the mega path
+def world_bound(state, args, kw, t0: int, dwell: int) -> tuple[float, float]:
+    """Least times for one B3 window on a chaos or graph world, (bytes ms,
+    operations ms): the fresh window's (``mega_bound``; a graph world's
+    M=5 comes with the slots) plus the fault schedules' slices and the
+    graph's edge arrays and padded lists read once, and the spill traces
+    written once."""
+    bytes_ms, ops_ms = mega_bound(state, args, t0, dwell)
+    extra = [kw.get("forced_down"), kw.get("speed")]
+    g = kw.get("graph")
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in extra + list(g or ()) if x is not None)
+    if g is not None:
+        nbytes += args[5].shape[0] * 4 * state.belief.shape[0] * 4
+    return bytes_ms + 1e3 * nbytes / HBM_BYTES_PER_S, ops_ms
+
+
+def mega_world_check(scenario: str, t0: int, phase: str,
+                     timed: bool = True) -> dict:
+    """B3 on one window of a chaos or graph world at R=4096, from the mega
+    path's own state at ``t0``: against its plain version (``mega_check``),
+    launched twice with the outputs equal to the bit, then (``timed``)
+    beside its plain version and its bound."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.core import mega
+    from repro_torch.kernels.efe import mega as mega_kernel
+    router, env_step, state, est, obs, noise = mega_midrun(
+        R_MEGA, t0, "float32", scenario)
+    args, kw = mega_window_inputs(router, env_step, noise, R_MEGA, t0)
+    fd, sp = kw.get("forced_down"), kw.get("speed")
+    live = dict(admin_down_tier_ticks=0 if fd is None else int(fd.sum()),
+                slow_tier_ticks=0 if sp is None else int((sp < 1).sum()),
+                graph="graph" in kw, modalities=router.n_modalities)
+    err = mega_check(router, env_step, state, est, obs, noise, R_MEGA, t0,
+                     phase=phase, scenario=scenario, **live)
+    n0 = mega_kernel.mega_window_cuda.launches
+    out1 = mega_kernel.mega_window_cuda(clone_state(state), est, obs, *args,
+                                        **kw)
+    per_window = mega_kernel.mega_window_cuda.launches - n0
+    out2 = mega_kernel.mega_window_cuda(clone_state(state), est, obs, *args,
+                                        **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(flatten(out1).values(),
+                                                 flatten(out2).values()))
+    del out1, out2
+    row = dict(scenario=scenario, r=R_MEGA, t0=t0, max_abs_err=err,
+               launches_per_window=per_window, launches_bit_equal=same,
+               **live)
+    if timed:
+        kern = lambda: mega_kernel.mega_window_cuda(state, est, obs, *args,
+                                                    **kw)
+        plain = lambda: mega.mega_window(state, est, obs, *args, **kw)
+        row["ms"] = time_ms(kern)
+        row["plain_ms"] = time_ms(plain, warmup=1, iters=3)
+        row["device_ms"], ahead = queued_ms(kern)
+        bytes_ms, ops_ms = world_bound(state, args, kw, t0, router.dwell)
+        row.update(bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, queued_ahead=ahead)
+        del kern, plain
+    emit(phase + "_times" if timed else phase + "_bits", **row)
+    if not same:
+        raise AssertionError(f"two launches of B3 on {scenario} differ")
+    del state, est, obs, args, kw
+    torch.cuda.empty_cache()
+    return row
+
+
+def world_row(variant: str, checks: list, main: dict) -> dict:
+    """A kernels-line row of B3 on chaos or graph windows: the times of
+    ``main``, the worst error over ``checks``."""
+    err = max(c["max_abs_err"] for c in checks)
+    return {"name": "mega_window", "variant": variant, "route": "cuda",
+            "source": "src/repro_torch/csrc/mega_window.cu",
+            "replaces": "src/repro/kernels/efe/mega.py:85",
+            "scenario": main["scenario"], "r": main["r"], "t0": main["t0"],
+            "launches_per_window": main["launches_per_window"],
+            "max_abs_err": err, "max_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "device_ms": main["device_ms"], "library_device_ms": None}
+
+
+def phase_mega_chaos_kernel_vs_plain() -> dict:
+    """B3 against its plain version on chaos windows at R=4096, t0=150:
+    zone-outage's schedules (its outage has ended by then, ticks 90-149)
+    and straggler-storm's (stragglers live; timed), then zone-outage at
+    t0=120, inside the outage.  Returns the kernels line's chaos row."""
+    phase = "mega_chaos_kernel_vs_plain"
+    checks = [mega_world_check("zone-outage", T0_MEGA, phase, timed=False),
+              mega_world_check("straggler-storm", T0_MEGA, phase),
+              mega_world_check("zone-outage", T0_OUTAGE, phase, timed=False)]
+    if checks[2]["admin_down_tier_ticks"] == 0:
+        raise AssertionError(f"zone-outage's outage is not live at "
+                             f"t0={T0_OUTAGE}")
+    return world_row("chaos", checks, checks[1])
+
+
+def phase_mega_graph_kernel_vs_plain() -> dict:
+    """B3 against its plain version on a ring-spillover window at R=4096,
+    t0=150 (M=5, every spill field; 11 launches a window), launched twice
+    with the outputs equal to the bit, timed.  Returns the kernels line's
+    graph row."""
+    check = mega_world_check("ring-spillover", T0_MEGA,
+                             "mega_graph_kernel_vs_plain")
+    if check["launches_per_window"] != api_period() + 1:
+        raise AssertionError(f"a graph window took "
+                             f"{check['launches_per_window']} launches")
+    return world_row("graph", [check], check)
+
+
+def api_period() -> int:
+    from repro_torch import api
+    return api.AifRouter().period
+
+
+def per_tick_vs_mega(scenario: str, r: int) -> dict:
+    """``scenario`` at R x T=300 on the per-tick (fused) path and on the
+    mega path with the same draws (``TickNoise``): the actions that differ,
+    both walls and both results."""
+    import dataclasses
+    from repro_torch import api
+    e = api.Experiment(router="aif", scenario=scenario, n_cells=r,
+                       n_windows=T_FULL, seed=0, device=DEVICE)
+    out = {}
+    for mega in (False, True):
+        res = api.run(dataclasses.replace(e, mega=mega),
+                      noise=TickNoise(0, DEVICE))
+        out[mega] = (res.trace.actions, res.wall_s, res.success_pct,
+                     res.offload_frac, res.recovery)
+        del res
+        torch.cuda.empty_cache()
+    diff = int((out[True][0] != out[False][0]).sum())
+    n = int(out[True][0].numel())
+    return dict(n_cells=r, action_diffs=diff, actions=n, diff_share=diff / n,
+                per_tick_wall_s=out[False][1], mega_wall_s=out[True][1],
+                per_tick_success_pct=out[False][2],
+                mega_success_pct=out[True][2],
+                per_tick_offload_frac=out[False][3],
+                mega_offload_frac=out[True][3])
+
+
+def phase_mega_chaos() -> int:
+    """The five chaos presets on the mega path at R=4096 x T=300, each with
+    its mega control (B3 for every window of both: 60 launches, counted),
+    their walls and recovery metrics; then each at R=1024 on the per-tick
+    and the mega path with the same draws, with the share of actions that
+    differ.  Returns B3's launches over the five runs with their
+    controls."""
+    from repro_torch import api
+    from repro_torch.envsim import chaos
+    windows = math.ceil(T_FULL / api_period())
+    total = 0
+    for scenario in sorted(chaos.CHAOS_PRESETS):
+        e = api.Experiment(router="aif", scenario=scenario, n_cells=R_MEGA,
+                           n_windows=T_FULL, seed=0, mega=True, device=DEVICE)
+        t0 = time.perf_counter()
+        res, launches = run_counted(e)
+        with_control = time.perf_counter() - t0
+        rec = res.recovery
+        metrics = dict(success_pct=res.success_pct, p50_ms=res.p50_ms,
+                       p95_ms=res.p95_ms, **{k: v for k, v in rec.items()
+                                             if isinstance(v, float)})
+        q = res.final_carry.belief
+        ok = bool(torch.isfinite(q).all()) and float(
+            (q.sum(-1) - 1).abs().max()) < 1e-4
+        wall = res.wall_s
+        del res, q
+        torch.cuda.empty_cache()
+        cmp = per_tick_vs_mega(scenario, R_FULL)
+        emit("mega_chaos", scenario=scenario, n_cells=R_MEGA,
+             n_windows=T_FULL, wall_s=wall, with_control_s=with_control,
+             launches=launches, recovery=rec, beliefs_ok=ok, **{
+                 k: metrics[k] for k in ("success_pct", "p50_ms", "p95_ms")},
+             r1024=cmp)
+        if launches != dict(NO_LAUNCHES, mega_window=2 * windows):
+            raise AssertionError(f"mega {scenario} (with its control) "
+                                 f"launched {launches}")
+        if not ok or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"mega {scenario}: non-finite metrics "
+                                 f"{metrics} or beliefs")
+        total += launches["mega_window"]
+    return total
+
+
+def phase_mega_graph() -> int:
+    """ring-spillover on the mega path at R=4096 x T=300 (B3: 11 launches a
+    window, counted) beside its ``graph="none"`` mega control; the graphed
+    run again through the engine with the same draws, equal to the bit,
+    with the fleet's mass balance closed; then at R=1024 against the
+    per-tick ring-spillover run on the same draws: the actions that differ
+    and offload_frac within 1e-5.  Returns B3's launches in the graphed
+    run."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.envsim import batched
+    windows = math.ceil(T_FULL / api_period())
+    e = api.Experiment(router="aif", scenario="ring-spillover",
+                       n_cells=R_MEGA, n_windows=T_FULL, seed=0, mega=True,
+                       device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = run_counted(e)
+    ctl, ctl_launches = run_counted(dataclasses.replace(e, graph="none"))
+    ctl_nums = dict(control_wall_s=ctl.wall_s,
+                    control_launches=ctl_launches,
+                    control_success_pct=ctl.success_pct,
+                    control_fleet_success=float(ctl.fluid.n_success.sum())
+                    / float(ctl.fluid.n_requests.sum()),
+                    control_offload_frac=ctl.offload_frac)
+    del ctl
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    g = e.resolve_graph()
+    scfg, params, env_step = experiment._build_world(
+        e.resolve_topology(), e.scenario, R_MEGA, T_FULL, 1.0, 0, dev, g)
+    router = e.resolve_router(scfg, g)
+    carry, est, trace = engine.rollout(
+        router, None, batched.init_fluid_state(params,
+                                               env_step.n_obs_modalities),
+        env_step, T_FULL, seed=0)
+    bits = (torch.equal(trace.actions, res.trace.actions)
+            and torch.equal(trace.env.spill_admitted,
+                            res.trace.env.spill_admitted)
+            and all(torch.equal(a, b) for a, b in zip(
+                flatten(carry).values(), flatten(res.final_carry).values()))
+            and np.array_equal(est.n_success.cpu().numpy(),
+                               res.fluid.n_success))
+
+    def tot(x):
+        return float(x.double().sum())
+
+    offered = tot(est.n_requests)
+    accounted = (tot(est.n_success) + tot(est.err_timeout)
+                 + tot(est.err_overflow) + tot(est.err_refused)
+                 + tot(est.err_restart) + tot(est.backlog))
+    mass_rel = abs(accounted - offered) / offered
+    nums = dict(wall_s=res.wall_s, launches=launches,
+                success_pct=res.success_pct, p50_ms=res.p50_ms,
+                p95_ms=res.p95_ms, offload_frac=res.offload_frac,
+                modalities=int(res.trace.raw_obs.shape[-1]))
+    del res, carry, est, trace
+    torch.cuda.empty_cache()
+    cmp = per_tick_vs_mega("ring-spillover", R_FULL)
+    offload_gap = abs(cmp["mega_offload_frac"] - cmp["per_tick_offload_frac"])
+    emit("mega_graph", scenario=e.scenario, n_cells=R_MEGA,
+         n_windows=T_FULL, **nums, **ctl_nums, rerun_bit_equal=bits,
+         mass_offered=offered, mass_accounted=accounted,
+         mass_rel_err=mass_rel, r1024=cmp, offload_gap=offload_gap,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches != dict(NO_LAUNCHES, mega_window=windows * (api_period() + 1)):
+        raise AssertionError(f"the mega graph run launched {launches}")
+    if ctl_launches != dict(NO_LAUNCHES, mega_window=windows):
+        raise AssertionError(f"its control launched {ctl_launches}")
+    if not bits or mass_rel > 1e-5 or nums["offload_frac"] <= 0.0:
+        raise AssertionError(f"the mega graph run is not reproducible to the "
+                             f"bit ({bits}), leaks mass ({mass_rel}) or "
+                             f"spilled nothing ({nums['offload_frac']})")
+    if offload_gap > 1e-5 or not math.isfinite(nums["success_pct"]):
+        raise AssertionError(f"mega and per-tick ring-spillover at R=1024 "
+                             f"differ in offload by {offload_gap}")
+    return launches["mega_window"]
 
 
 # ---------------------------------------------------- attention and serving
@@ -2372,13 +2671,19 @@ def main() -> int:
     phase_graph_small()
     graph_launches = phase_graph()
     warm_row = phase_warm()
+    chaos_row = phase_mega_chaos_kernel_vs_plain()
+    graph_row = phase_mega_graph_kernel_vs_plain()
+    chaos_row["launches"] = phase_mega_chaos()
+    phase_resume((("zone-outage", True),), "mega_chaos_resume")
+    graph_row["launches"] = phase_mega_graph()
     errs.update(phase_attn_kernel_vs_plain())
     phase_serve_small()
     weights, serve_counts, lengths = phase_serve()
     phase_multitier(weights)
     del weights
     rows = phase_times(errs, launches, launches_5tier)
-    rows += [graph_times(graph_err, graph_launches), warm_row]
+    rows += [graph_times(graph_err, graph_launches), warm_row, chaos_row,
+             graph_row]
     rows += attn_times(errs, serve_counts, lengths)
     ssd_errs = phase_ssd_kernel_vs_plain()
     phase_serve_small(MAMBA_ARCH, (64, 50, 37, 64), "mamba_serve_small")

@@ -231,9 +231,10 @@ def mega_rollout(router,
         are indexed globally, and the slots are sized to ``t_warm +
         n_total``.  Warm promotion cannot be combined with ``t_begin``.
 
-    A world with fault schedules (``forced_down``/``speed``) or a fleet
-    graph raises ``NotImplementedError``: chaos and graphs in B3 are
-    ROADMAP item A8b.
+    Fault schedules (``forced_down``/``speed``) and a fleet graph ride
+    along: each window takes its slice of the schedules and the graph's
+    edge tensors, and on a graph world the telemetry carry is five
+    columns wide (the neighbor pressure).
 
     Returns (state, env state, FleetTrace, obs_carry).
     """
@@ -245,7 +246,6 @@ def mega_rollout(router,
             "make_env_step); rebuild the adapter or set mega=False")
     if n_steps < 1:
         raise ValueError("mega rollouts need n_steps >= 1")
-    mega_mod._not_ported(fl.forced_down, fl.speed, None, fl.graph)
     cfg = router.cfg
     est0 = env_state[0]
     r, dev = est0.shape[0], est0.device
@@ -346,10 +346,15 @@ def _mega_window(state, est, obs, fl, noise, t_start: int, w_ticks: int, *,
     uniforms = torch.stack([torch.stack(noise.env_uniforms(t, (r, k)))
                             for t in ticks]).to(dev)
     sl = slice(t_start, t_start + w_ticks)
+
+    def window(x):
+        return None if x is None else x[sl]
+
     state, est, obs, ys = efe_ops.mega_window(
         state, est, obs, fl.params, fl.arrival_rate[sl], fl.hazard_scale[sl],
-        None if fl.obs_valid is None else fl.obs_valid[sl], uniforms, gumbel,
-        t_start, **statics)
+        window(fl.obs_valid), uniforms, gumbel, t_start,
+        forced_down=window(fl.forced_down), speed=window(fl.speed),
+        graph=fl.graph, **statics)
     if do_slow:
         size = torch.clamp(state.t, max=state.slots.action.shape[1])
         idx = noise.replay_indices(t_start + w_ticks - 1, size,

@@ -21,9 +21,11 @@ that factored bookkeeping:
 * the factored belief prior and EFE (:func:`factored_prior`,
   :func:`factored_efe`) and the whole window (:func:`mega_window`):
   belief update → EFE → Gumbel-argmax sample → dwell gate → env window,
-  W ticks per call.  :func:`mega_window` is the plain PyTorch version of
-  the CUDA kernel in :mod:`repro_torch.kernels.efe.mega` and what its
-  wrapper runs for CPU tensors.
+  W ticks per call, under fault schedules and on fleet graphs too.
+  :func:`mega_window` is the plain PyTorch version of the CUDA kernel in
+  :mod:`repro_torch.kernels.efe.mega` and what its wrapper runs for CPU
+  tensors; :func:`mega_window_launches` is the plain model of the
+  kernel's split of a graph window into W + 1 launches.
 
 Slow boundaries stream: :func:`mega_slow_step` folds the replayed batch
 into the cached column sums (:func:`_advance_cache`) and bumps the slot-hit
@@ -479,24 +481,10 @@ def _push_slot(slots: MegaSlots, idx: int | slice, q_prev, q_next,
     return slots
 
 
-def _not_ported(forced_down, speed, row_block, graph) -> None:
-    if forced_down is not None or speed is not None:
-        # the reference's own dispatch sends chaos windows from its Pallas
-        # kernel to the plain oracle; the port keeps the card path on B3
-        raise NotImplementedError(
-            "forced_down/speed (fault schedules) in a mega window are not "
-            "ported yet (ROADMAP item A8b: chaos in B3); run chaos "
-            "scenarios on the per-tick path (mega=False)")
+def _not_ported(row_block) -> None:
     if row_block is not None:
         raise NotImplementedError("row_block (sharded engine) is not ported "
                                   "yet (ROADMAP item A10); pass None")
-    if graph is not None:
-        # the reference sends graph windows to its plain oracle as well;
-        # B3 has no lane for the cross-cell exchange yet
-        raise NotImplementedError(
-            "a fleet graph in a mega window is not ported yet (ROADMAP item "
-            "A8b: spillover in B3); run graph worlds on the per-tick paths "
-            "(mega=False)")
 
 
 # -------------------------------------------------------------- hot window
@@ -522,7 +510,13 @@ def mega_window(state: MegaFleetState, est, obs_carry, params,
       uniforms: (W, 2, R, K) env restart uniforms (fire, duration).
       gumbel: (W, R, A) Gumbel noise of the action categorical.
       t0: global tick of the window's first tick; on a dwell boundary.
-      forced_down / speed / row_block / graph: not ported; None only.
+      forced_down / speed: optional (W, R, K) fault schedules of the
+        window (admin-down tiers, service-speed multipliers).
+      graph: optional :class:`repro_torch.core.graph.GraphData`: the
+        env's cross-cell spillover runs in every tick, and the fifth
+        (neighbor-pressure) telemetry column rides the obs carry, so the
+        slots' ``obs_bins``/``obs_mask`` and ``cache.logna`` are M=5 wide.
+      row_block: not ported (ROADMAP A10); None only.
 
     The window's W slot pushes land in place in ``state.slots`` at columns
     ``[t0, t0 + W)`` after the loop: in-window slots carry ``coefact == 0``
@@ -532,31 +526,114 @@ def mega_window(state: MegaFleetState, est, obs_carry, params,
     (action, weights, raw_obs, unstable, obs_frac, WindowInfo), each leaf
     stacked (W, ...) in tick order.
     """
-    _not_ported(forced_down, speed, row_block, graph)
-    topo = cfg.topology
-    dev = state.belief.device
-    w_ticks = gumbel.shape[0]
-    dwell = max(int(cfg.action_dwell_s / cfg.fast_period_s), 1)
-    raw_obs, tier_util, tier_up, tier_queue, obs_mask = obs_carry
-    logc_nom, logc_uns = preferences.preference_log_tables(cfg, dev)
-    cost = cfg.cost_weight * policies.policy_concentration_cost(topo, dev)
-    edges = torch.tensor(util_edges, dtype=torch.float32, device=dev)
-    err_ix = topo.modalities.index("error")
+    _not_ported(row_block)
+    ctx = _WindowContext(cfg, disc, util_edges, util_period, emits_mask,
+                         state.belief.device)
     ys, pushes = [], []
+    for w in range(gumbel.shape[0]):
+        state, push, y = ctx.agent_tick(state, obs_carry, w, t0 + w,
+                                        gumbel[w])
+        pushes.append(push)
+        est, win = batched.fluid_window_step(
+            params, est, y[1], arrival[w], hazard[w],
+            (uniforms[w, 0], uniforms[w, 1]), t0 + w, dt=dt,
+            scrape_every=scrape_every, obs_valid=_at(obs_valid, w),
+            restart_blackout=restart_blackout,
+            forced_down=_at(forced_down, w), speed=_at(speed, w),
+            graph=graph)
+        ys.append(y + (win,))
+        obs_carry = ctx.next_carry(obs_carry, win)
+    return _land_window(state, est, obs_carry, ys, pushes, t0)
 
-    for w in range(w_ticks):
-        t_idx = t0 + w
-        mask = obs_mask if emits_mask else None
+
+def mega_window_launches(state: MegaFleetState, est, obs_carry, params,
+                         arrival: torch.Tensor, hazard: torch.Tensor,
+                         obs_valid: torch.Tensor | None,
+                         uniforms: torch.Tensor, gumbel: torch.Tensor,
+                         t0: int, *, cfg: generative.AifConfig, disc,
+                         util_edges, util_period: int, dt: float,
+                         scrape_every: int, restart_blackout: bool,
+                         emits_mask: bool, forced_down=None, speed=None,
+                         graph=None):
+    """Plain model of kernel B3's launch split of a graph window.
+
+    Arguments and results as :func:`mega_window`.  The window runs as the
+    kernel runs it, W + 1 launches: launch i publishes tick i - 1
+    (:func:`repro_torch.envsim.batched.fluid_publish`, whose spillover
+    reads every cell's :class:`~repro_torch.envsim.batched.FlowMid` of
+    that tick, the kernel's exchange rows), then runs tick i's agent step
+    and :func:`~repro_torch.envsim.batched.fluid_flow`.  Across a launch
+    boundary only what the kernel keeps in global memory survives: the
+    router and env carries, the telemetry carry, the exchange rows, and
+    the traces and slot pushes written so far.  Returns what
+    :func:`mega_window` returns, to the bit.
+    """
+    ctx = _WindowContext(cfg, disc, util_edges, util_period, emits_mask,
+                         state.belief.device)
+    w_ticks = gumbel.shape[0]
+    ys, pushes = [], []
+    mid = tiers = y = None
+    for i in range(w_ticks + 1):
+        if i > 0:
+            est, win = batched.fluid_publish(
+                params, est, mid, tiers, arrival[i - 1], dt=dt,
+                obs_valid=_at(obs_valid, i - 1),
+                restart_blackout=restart_blackout,
+                forced_down=_at(forced_down, i - 1),
+                speed=_at(speed, i - 1), graph=graph)
+            ys.append(y + (win,))
+            obs_carry = ctx.next_carry(obs_carry, win)
+        if i < w_ticks:
+            state, push, y = ctx.agent_tick(state, obs_carry, i, t0 + i,
+                                            gumbel[i])
+            pushes.append(push)
+            est, mid, tiers = batched.fluid_flow(
+                params, est, y[1], arrival[i], hazard[i],
+                (uniforms[i, 0], uniforms[i, 1]), t0 + i, dt=dt,
+                scrape_every=scrape_every, restart_blackout=restart_blackout,
+                forced_down=_at(forced_down, i), speed=_at(speed, i),
+                spill=graph is not None)
+    return _land_window(state, est, obs_carry, ys, pushes, t0)
+
+
+def _at(x, w: int):
+    return None if x is None else x[w]
+
+
+class _WindowContext:
+    """The tables and settings one window's agent ticks share."""
+
+    def __init__(self, cfg, disc, util_edges, util_period, emits_mask, dev):
+        topo = cfg.topology
+        self.cfg, self.disc, self.topo = cfg, disc, topo
+        self.util_period, self.emits_mask = util_period, emits_mask
+        self.dwell = max(int(cfg.action_dwell_s / cfg.fast_period_s), 1)
+        self.logc_nom, self.logc_uns = preferences.preference_log_tables(
+            cfg, dev)
+        self.cost = cfg.cost_weight * policies.policy_concentration_cost(
+            topo, dev)
+        self.edges = torch.tensor(util_edges, dtype=torch.float32,
+                                  device=dev)
+        self.err_ix = topo.modalities.index("error")
+
+    def agent_tick(self, state: MegaFleetState, obs_carry, w: int,
+                   t_idx: int, gumbel_w: torch.Tensor):
+        """Tick ``w`` of the window up to the env: observe, belief, EFE and
+        sample on selecting ticks, dwell gate.  Returns (state, the slot
+        push, the trace's (action, weights, raw_obs, unstable, obs_frac))."""
+        cfg, topo = self.cfg, self.topo
+        raw_obs, tier_util, _, _, obs_mask = obs_carry
+        mask = obs_mask if self.emits_mask else None
 
         # --- observe
-        obs_bins = spaces.discretize_observation(raw_obs, disc)
+        obs_bins = spaces.discretize_observation(raw_obs, self.disc)
         util_hml = torch.flip(tier_util, dims=(-1,))
-        util_bins = torch.sum(util_hml[..., None] >= edges, dim=-1)
-        util_valid = (t_idx % util_period) == 0 and t_idx > 0
+        util_bins = torch.sum(util_hml[..., None] >= self.edges, dim=-1)
+        util_valid = (t_idx % self.util_period) == 0 and t_idx > 0
 
         # --- adaptive preferences + evidence
         error_ema = agent_mod.masked_error_ema(
-            state.error_ema, raw_obs[:, err_ix], cfg, mask)
+            state.error_ema, raw_obs[:, self.err_ix], cfg, mask)
         unstable = error_ema > cfg.error_trigger
         idx = obs_bins[..., None, None].expand(
             obs_bins.shape + (1, state.cache.logna.shape[-1]))
@@ -577,49 +654,46 @@ def mega_window(state: MegaFleetState, est, obs_carry, params,
             torch.sum(q_unnorm, -1, keepdim=True), min=1e-30)
 
         # --- EFE + categorical via the Gumbel noise
-        if w % dwell == 0:
-            logc = torch.where(unstable[:, None, None], logc_uns, logc_nom)
-            g = factored_efe(state.cache, state.slots, q_next, logc, cost,
-                             cfg, obs_mask=mask)
+        if w % self.dwell == 0:
+            logc = torch.where(unstable[:, None, None], self.logc_uns,
+                               self.logc_nom)
+            g = factored_efe(state.cache, state.slots, q_next, logc,
+                             self.cost, cfg, obs_mask=mask)
             probs = torch.softmax(-cfg.beta * g, dim=-1)
             sampled = torch.argmax(
-                torch.log(torch.clamp(probs, min=1e-30)) + gumbel[w], dim=-1)
+                torch.log(torch.clamp(probs, min=1e-30)) + gumbel_w, dim=-1)
         else:
             sampled = state.prev_action
 
-        pushes.append((state.belief, q_next, obs_bins,
-                       mask if mask is not None else torch.ones_like(obs_mask),
-                       state.prev_action, state.dt_since_change))
+        push = (state.belief, q_next, obs_bins,
+                mask if mask is not None else torch.ones_like(obs_mask),
+                state.prev_action, state.dt_since_change)
 
-        # --- dwell gate + env window
+        # --- dwell gate
         action, dtc = agent_mod.dwell_gate(
             state.t, state.prev_action, state.dt_since_change, sampled, cfg)
         state = state._replace(
             belief=q_next, prev_action=action, dt_since_change=dtc,
             error_ema=error_ema, unstable=unstable, t=state.t + 1)
         weights = policies.routing_weights(action, topo)
-        est, win = batched.fluid_window_step(
-            params, est, weights, arrival[w], hazard[w],
-            (uniforms[w, 0], uniforms[w, 1]), t_idx, dt=dt,
-            scrape_every=scrape_every,
-            obs_valid=None if obs_valid is None else obs_valid[w],
-            restart_blackout=restart_blackout)
+        return state, push, (action, weights, raw_obs, unstable,
+                             torch.mean(obs_mask, dim=-1))
 
-        ys.append((action, weights, raw_obs, unstable,
-                   torch.mean(obs_mask, dim=-1), win))
-        raw_obs, tier_util = win.raw_obs, win.tier_utilization
-        tier_up, tier_queue = win.tier_up, win.tier_queue
-        if emits_mask:
-            obs_mask = win.obs_mask
+    def next_carry(self, obs_carry, win):
+        """The telemetry carry after a tick's published window."""
+        obs_mask = win.obs_mask if self.emits_mask else obs_carry[4]
+        return (win.raw_obs, win.tier_utilization, win.tier_up,
+                win.tier_queue, obs_mask)
 
-    # --- land the window's slot block: one contiguous write per buffer
-    _push_slot(state.slots, slice(t0, t0 + w_ticks),
+
+def _land_window(state, est, obs_carry, ys, pushes, t0: int):
+    """Land the window's slot block (one contiguous write per buffer) and
+    stack the trace: (state, env state, obs_carry, trace)."""
+    _push_slot(state.slots, slice(t0, t0 + len(pushes)),
                *(torch.stack(vals, dim=1) for vals in zip(*pushes)))
-
     trace = tuple(torch.stack(xs) for xs in zip(*(y[:5] for y in ys)))
     trace = trace + (batched.stack_infos([y[5] for y in ys]),)
-    return (state, est,
-            (raw_obs, tier_util, tier_up, tier_queue, obs_mask), trace)
+    return state, est, obs_carry, trace
 
 
 # -------------------------------------------------------------- slow update

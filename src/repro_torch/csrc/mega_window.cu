@@ -25,7 +25,9 @@
 //   push      slot t0 + w of the tape gets (q, q', bins, mask, a_prev, dt)
 //   env       the fluid window of repro_torch/envsim/batched.py
 //             ::fluid_window_step: queues, restarts from the given uniforms,
-//             the completion-weighted P95, masked and blacked-out telemetry
+//             the completion-weighted P95, masked and blacked-out telemetry,
+//             the fault schedules and, on a fleet graph, the cross-cell
+//             spillover and the neighbour-pressure column
 //
 // What bounds it: HBM bytes.  The slot tape q_prev/q_next (R, J, S) is the
 // big operand; only slots j < t0 carry weight (the slow steps have sampled
@@ -91,6 +93,34 @@
 // tick.  Each dot sums its lane's terms in s order, then across the warp:
 // a fixed order, so two launches give the same bits.
 //
+// Fault schedules (chaos).  forced_down and speed (W, R, K) are staged
+// with the other schedules; a null pointer leaves the env's arithmetic as
+// it was without them, and a window with neither them nor a graph runs the
+// instantiation without their code (the third template switch, kWorld).  env_flow takes the admin-down mask into up, the
+// post-restart liveness, the blackout's cell liveness and the published
+// tier_up, kills an admin-down tier's in-system mass, and scales service
+// rate and time by the speed (clamped at 1e-3), in fluid_window_step's
+// order.
+//
+// Graph windows.  The spillover is a cross-cell exchange inside every
+// tick: tick w's admission and fifth telemetry column need the neighbours'
+// rejected mass and pressure of the same tick, and tick w + 1's belief
+// needs this cell's telemetry of tick w.  With one block a router and far
+// more routers than resident blocks (R=4096 against 4 x 132), no barrier
+// across the grid exists inside one launch, so a graph window is W + 1
+// launches of this kernel over the tick range [w_lo, w_hi): launch i first
+// publishes tick i - 1 (env_publish gathers the neighbours' rows of xch,
+// written by every block of launch i - 1, along the padded edge lists in
+// core/graph.py::segment_sum's order), then runs tick i up to env_flow,
+// whose rejected mass and pressure it leaves in xch for launch i + 1.  xch
+// holds two ticks by parity, so a launch never overwrites a row that
+// another block of it still reads.  The router's carries go back to global
+// memory and the slot lists are rebuilt at every launch; no float atomics,
+// so two runs give the same bits.  A window without a graph is one launch
+// over [0, W) and runs as before.  A cooperative persistent grid looping
+// over routers would need the same per-router save and restore of the
+// block's state at every tick; the launch split keeps the kernel's shape.
+//
 // The tape rows are still reread on every tick that needs them; keeping
 // them in L2 or shared memory across ticks, TMA copies and wgmma are later
 // work.
@@ -149,9 +179,23 @@ struct MegaArgs {
   float* tr_rk;             // (W, 8, R, K)
   float* tr_r;              // (W, 4, R)
   float* tr_rm;             // (W, 3, R, M)
+  // fault schedules of this window, or null
+  const float* forced_down; // (W, R, K) 1 = tier administratively down
+  const float* speed;       // (W, R, K) service-speed multiplier
+  // fleet graph (null src: no graph), see core/graph.py::GraphData
+  const long long* g_src;   // (G_E) edge sources
+  const long long* g_dst;   // (G_E) edge destinations
+  const float* g_share;     // (G_E) 1 / out-degree of the source
+  const float* g_hop;       // (G_E) hop latency, seconds
+  const float* g_has_out;   // (R) 1 where the cell has an out-edge
+  const long long* g_in;    // (R, G_din) in-edges in edge order, padded with G_E
+  const long long* g_out;   // (R, G_dout) out-edges, padded with G_E
+  float* xch;               // (2, R, kMid) per-tick exchange, by tick parity
+  float* tr_g;              // (W, 4, R): spill_out, spill_in, spill_admitted,
+                            //   nbr_pressure
   int R, J, S, A, M, NB, K, W, P, E, n_util_edges, n_used, t0, dwell,
       util_period, scrape_every, err_ix, emits_mask, masked_obs,
-      restart_blackout, bf16_slots;
+      restart_blackout, bf16_slots, G_E, G_din, G_dout, w_lo, w_hi;
   float dt, fast_period_s, err_decay, err_keep, error_trigger, beta, u_c, d_c,
       usd, log_match, log_miss, timeout_s, a_lat, a_err, a_rps, keep_lat,
       keep_err, keep_rps, scrape_den;
@@ -167,6 +211,12 @@ constexpr int kSPer = 4;         // S <= kSPer * kThreads
 constexpr int kAccPer = 4;       // A * (P + 1) <= kAccPer * kThreads
 constexpr int kMaxKM = 8;        // K, M <= 8
 constexpr float kEps = 1e-9f;    // envsim.batched._EPS
+// The env's per-router results of a tick's flow that its publish step
+// reads (Env::mid; on a graph window also xch's rows between launches).
+enum Mid {
+  kSuccess, kOver, kTimedOut, kKilled, kArrived, kRefused, kP95, kCellUp,
+  kRej, kPress, kMid
+};
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -235,6 +285,7 @@ struct Env {
   float ema, dtc;
   long long pa;             // prev_action[r] as carried (a_prev is clamped)
   int bad;                  // coefact had more nonzeros than the lists hold
+  float mid[kMid];          // env_flow's results for env_publish
 };
 
 // The window's operands of one router, copied into shared memory once at
@@ -246,6 +297,8 @@ struct Stage {
   float *uni;               // (W, 2, K): fire, duration
   float *gumbel;            // (W, A)
   float *ov;                // (W, M), when obs_valid is given
+  float *fd;                // (W, K), when forced_down is given
+  float *sp;                // (W, K), when speed is given
   float *ps;                // (12, K) this router's pstack rows
   float *obs_edges;         // (M, E)
   float *util_edges;        // (n_util_edges)
@@ -264,7 +317,7 @@ struct Stage {
 
 // floats (or ints) of shared memory the Stage takes.
 __host__ __device__ inline size_t stage_words(const MegaArgs& a) {
-  return (size_t)a.W * (1 + 3 * a.K + a.A + a.M) + 12 * a.K +
+  return (size_t)a.W * (1 + 5 * a.K + a.A + a.M) + 12 * a.K +
          (size_t)a.M * a.E + a.n_util_edges + 2 * a.M * a.NB + a.A +
          (size_t)a.A * a.K + a.M + (a.A + 1) + 4 * (size_t)a.n_used;
 }
@@ -276,14 +329,23 @@ __device__ __forceinline__ float tier_sum(float v, int K) {
   return s;
 }
 
-// One fluid window for router r: the arithmetic of
-// envsim/batched.py::fluid_window_step in the same order, on the window's
-// operands staged in shared memory, run by warp 0.  Lane k < K does tier
-// k's work; every sum over the tiers is taken in tier order (tier_sum),
-// and the router's scalars are updated by lane 0.
-__device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
-                           int w, int action, int lane) {
-  const int R = a.R, K = a.K, M = a.M;
+// One fluid window for router r, in two steps that run on warp 0 over the
+// window's operands staged in shared memory: the arithmetic of
+// envsim/batched.py::fluid_window_step in the same order.  Lane k < K does
+// tier k's work; every sum over the tiers is taken in tier order
+// (tier_sum), and the router's scalars are updated by lane 0.
+//
+// env_flow: arrivals, service, queue caps, the restart draw and, with the
+// fault schedules, admin-down tiers (refuse arrivals, serve nothing, lose
+// their in-system mass, probe as down) and the speed multiplier (capacity
+// and service time, speed clamped at 1e-3); then the sums over the tiers,
+// the P95 atom, the tier traces and, on a graph window, the cell's
+// rejected mass and pressure, the two numbers its neighbours read.  Its
+// per-router results go to e.mid.
+template <bool kWorld>
+__device__ void env_flow(const MegaArgs& a, const Stage& g, Env& e, int r,
+                         int w, int action, int lane) {
+  const int R = a.R, K = a.K;
   const int k = lane;
   const bool tier = k < K;
   const size_t rk = (size_t)r * K;
@@ -293,17 +355,27 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
   wsum = fmaxf(wsum, 1e-12f);
   const float rate = g.arrival[w];
   float lam = 0.f, arr = 0.f, over = 0.f, lat = 0.f, p95 = 0.f, timed = 0.f,
-        comp = 0.f, cap_rate = 0.f, b1 = 0.f, refusing = 0.f;
+        comp = 0.f, cap_rate = 0.f, b1 = 0.f, refusing = 0.f, adminf = 0.f;
   bool up = false;
   if (tier) {
     const float wn = fmaxf(g.ptable[action * K + k], 0.f) / wsum;
     up = e.down_left[k] <= kEps;
+    if (kWorld && a.forced_down) {
+      adminf = g.fd[w * K + k];
+      up = up && adminf <= 0.5f;
+    }
     const float upf = up ? 1.f : 0.f;
+    float mu = ps[1 * K + k], svc = ps[2 * K + k];
+    if (kWorld && a.speed) {
+      const float sp = fmaxf(g.sp[w * K + k], 1e-3f);
+      mu = mu * sp;
+      svc = svc / sp;
+    }
     lam = wn * rate;
     arr = lam * a.dt;
     refusing = arr * (1.f - upf);
     const float admitted = arr * upf;
-    const float servers = ps[0 * K + k], mu = ps[1 * K + k];
+    const float servers = ps[0 * K + k];
     cap_rate = servers * mu;
     const float cap = cap_rate * a.dt * upf;
     const float avail = e.backlog[k] + admitted;
@@ -315,7 +387,6 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
     const float wait =
         cap_rate > 0.f ? 0.5f * (e.backlog[k] + b1) / fmaxf(cap_rate, kEps)
                        : 0.f;
-    const float svc = ps[2 * K + k];
     lat = wait + svc;
     p95 = wait + svc * ps[3 * K + k];
     timed = lat > a.timeout_s ? served : 0.f;
@@ -344,6 +415,12 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
     restarted = (up && g.uni[(w * 2 + 0) * K + k] < p_restart) ? 1.f : 0.f;
     killed = b1 * restarted;
     e.backlog[k] = b1 * (1.f - restarted);
+    if (kWorld && a.forced_down) {
+      // an admin-down tier strands its in-system mass (a restart cannot
+      // fire there, so nothing is counted twice)
+      killed = killed + e.backlog[k] * adminf;
+      e.backlog[k] = e.backlog[k] * (1.f - adminf);
+    }
     const float rmin = ps[10 * K + k], rmax = ps[11 * K + k];
     const float dur = rmin + g.uni[(w * 2 + 1) * K + k] * (rmax - rmin);
     const float dl = fmaxf(e.down_left[k] - a.dt, 0.f);
@@ -354,7 +431,6 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
   const float win_success = tier_sum(comp, K), over_sum = tier_sum(over, K),
               to_sum = tier_sum(timed, K), kill_sum = tier_sum(killed, K),
               arr_sum = tier_sum(arr, K);
-  const float win_fail = refused + over_sum + to_sum + kill_sum;
 
   // completion-weighted P95: stable (latency, index) order, first atom
   // whose cumulative share reaches 0.95 (every lane, on the gathered atoms)
@@ -383,24 +459,35 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
       break;
     }
   }
-  const float queue = tier ? fmaxf(e.backlog[k] - ps[0 * K + k], 0.f) : 0.f;
-  const float depth = tier_sum(queue, K);
-  const bool cell_up =
-      __ballot_sync(0xffffffffu, tier && !(e.down_left[k] <= kEps)) == 0;
+  // post-restart liveness (admin-down tiers are down): the blackout's cell
+  // liveness and the spillover's live capacity
+  const bool live = tier && e.down_left[k] <= kEps && adminf <= 0.5f;
+  const bool cell_up = __ballot_sync(0xffffffffu, tier && !live) == 0;
   if (a.masked_obs && a.restart_blackout && !cell_up && tier)
     e.util_scrape[k] = util_old;
+  float press = 0.f;
+  if (kWorld && a.g_src) {
+    // in-system mass over live system capacity (down cells saturate the
+    // clip): the pressure a neighbour publishes
+    const float bsum = tier_sum(tier ? e.backlog[k] : 0.f, K);
+    const float csum = tier_sum(
+        tier ? (ps[4 * K + k] + ps[0 * K + k]) * (live ? 1.f : 0.f) : 0.f,
+        K);
+    press = fminf(bsum / fmaxf(csum, kEps), 1e3f);
+  }
   if (tier) {
     e.tier_requests[k] += arr;
     e.tier_success[k] += comp;
     e.n_restarts[k] += restarted;
     e.prev_rps[k] = lam;
-    // traces
+    // traces (the queue row is env_publish's)
     const size_t rl = (size_t)R * K;  // one trace plane
     float* rk_row = a.tr_rk + (size_t)w * 8 * rl + rk + k;
+    float tier_up = e.down_left[k] <= kEps ? 1.f : 0.f;
+    if (kWorld && a.forced_down) tier_up = tier_up * (1.f - adminf);
     rk_row[0 * rl] = g.ptable[action * K + k];
     rk_row[1 * rl] = e.util_scrape[k];
-    rk_row[2 * rl] = e.down_left[k] <= kEps ? 1.f : 0.f;
-    rk_row[3 * rl] = queue;
+    rk_row[2 * rl] = tier_up;
     rk_row[4 * rl] = lat;
     rk_row[5 * rl] = p95;
     rk_row[6 * rl] = comp;
@@ -408,16 +495,114 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
     e.tutil[k] = e.util_scrape[k];
   }
   if (lane == 0) {
+    e.mid[kSuccess] = win_success;
+    e.mid[kOver] = over_sum;
+    e.mid[kTimedOut] = to_sum;
+    e.mid[kKilled] = kill_sum;
+    e.mid[kArrived] = arr_sum;
+    e.mid[kRefused] = refused;
+    e.mid[kP95] = p95_win;
+    e.mid[kCellUp] = cell_up ? 1.f : 0.f;
+    e.mid[kRej] = refused + over_sum;
+    e.mid[kPress] = press;
+  }
+  __syncwarp();
+}
+
+// env_publish: the rest of the tick from e.mid.  On a graph window first
+// the spillover: the mass this cell's in-neighbours rejected (offered along
+// each edge split 1/out-degree, paying the edge's hop) is admitted into the
+// live headroom whose estimated response beats the timeout, and the mean
+// pressure of its out-neighbours becomes the fifth telemetry column; the
+// neighbours' rejected mass and pressure of tick w are read from xch,
+// gathered along the padded edge lists and added left to right as
+// core/graph.py::segment_sum adds them.  Then the queues, the observation
+// EMAs, the telemetry mask and stale hold, and the accounting.
+template <bool kWorld>
+__device__ void env_publish(const MegaArgs& a, const Stage& g, Env& e, int r,
+                            int w, int lane) {
+  const int R = a.R, K = a.K, M = a.M;
+  const int k = lane;
+  const bool tier = k < K;
+  const size_t rk = (size_t)r * K;
+  const float* ps = g.ps;
+  const bool graph = kWorld && a.g_src != nullptr;
+  float spill_in = 0.f, hop_mass = 0.f, nbr = 0.f, spill_adm = 0.f,
+        spill_drop = 0.f, keep = 1.f, has_out = 0.f;
+  if (graph) {
+    if (lane == 0) {
+      const float* x = a.xch + (size_t)(w & 1) * R * kMid;
+      const long long* in = a.g_in + (size_t)r * a.G_din;
+      for (int d = 0; d < a.G_din; ++d) {
+        const long long ei = in[d];
+        float v = 0.f, hv = 0.f;
+        if (ei < a.G_E) {
+          v = x[(size_t)a.g_src[ei] * kMid + kRej] * a.g_share[ei];
+          hv = v * a.g_hop[ei];
+        }
+        spill_in = d ? spill_in + v : v;
+        hop_mass = d ? hop_mass + hv : hv;
+      }
+      const long long* out = a.g_out + (size_t)r * a.G_dout;
+      for (int d = 0; d < a.G_dout; ++d) {
+        const long long ei = out[d];
+        const float v =
+            ei < a.G_E ? x[(size_t)a.g_dst[ei] * kMid + kPress] * a.g_share[ei]
+                       : 0.f;
+        nbr = d ? nbr + v : v;
+      }
+    }
+    spill_in = __shfl_sync(0xffffffffu, spill_in, 0);
+    hop_mass = __shfl_sync(0xffffffffu, hop_mass, 0);
+    nbr = __shfl_sync(0xffffffffu, nbr, 0);
+    const float hop_mean = hop_mass / fmaxf(spill_in, kEps);
+    float room = 0.f;
+    if (tier) {
+      float mu = ps[1 * K + k], svc = ps[2 * K + k], adminf = 0.f;
+      if (kWorld && a.forced_down) adminf = g.fd[w * K + k];
+      if (kWorld && a.speed) {
+        const float sp = fmaxf(g.sp[w * K + k], 1e-3f);
+        mu = mu * sp;
+        svc = svc / sp;
+      }
+      const float cap_rate = ps[0 * K + k] * mu;
+      const float syscap = ps[4 * K + k] + ps[0 * K + k];
+      const bool live = e.down_left[k] <= kEps && adminf <= 0.5f;
+      const float est = hop_mean + e.backlog[k] / fmaxf(cap_rate, kEps) + svc;
+      const float viable =
+          (est <= a.timeout_s ? 1.f : 0.f) * (live ? 1.f : 0.f);
+      room = fmaxf(syscap - e.backlog[k], 0.f) * viable;
+    }
+    const float room_tot = tier_sum(room, K);
+    spill_adm = fminf(spill_in, room_tot);
+    if (tier)
+      e.backlog[k] = e.backlog[k] + room * (spill_adm / fmaxf(room_tot, kEps));
+    spill_drop = spill_in - spill_adm;
+    has_out = a.g_has_out[r];
+    keep = 1.f - has_out;    // exporters keep none of their rejects
+  }
+  const float queue = tier ? fmaxf(e.backlog[k] - ps[0 * K + k], 0.f) : 0.f;
+  const float depth = tier_sum(queue, K);
+  if (tier) a.tr_rk[((size_t)w * 8 + 3) * R * K + rk + k] = queue;
+  if (lane == 0) {
+    const float* mid = e.mid;
+    const float win_success = mid[kSuccess];
+    const float win_fail =
+        graph ? mid[kRefused] * keep + mid[kOver] * keep + spill_drop +
+                    mid[kTimedOut] + mid[kKilled]
+              : mid[kRefused] + mid[kOver] + mid[kTimedOut] + mid[kKilled];
     if (win_success > kEps)
-      e.p95_ema = a.keep_lat * e.p95_ema + a.a_lat * p95_win;
+      e.p95_ema = a.keep_lat * e.p95_ema + a.a_lat * mid[kP95];
     const float total_win = win_success + win_fail;
     const float err_frac = win_fail / fmaxf(total_win, kEps);
     if (total_win > kEps)
       e.err_ema = a.keep_err * e.err_ema + a.a_err * err_frac;
-    e.rps_ema = a.keep_rps * e.rps_ema + a.a_rps * rate;
+    e.rps_ema = a.keep_rps * e.rps_ema + a.a_rps * g.arrival[w];
 
-    // telemetry: validity mask, blackout, stale hold
-    const float fresh[4] = {e.p95_ema, e.rps_ema, depth, e.err_ema};
+    // telemetry: validity mask, blackout, stale hold (a graph world's
+    // fifth column is the neighbour pressure)
+    const float fresh[5] = {e.p95_ema, e.rps_ema, depth, e.err_ema, nbr};
+    const bool cell_up = mid[kCellUp] > 0.f;
     float wmask[kMaxKM], pub[kMaxKM];
     for (int m = 0; m < M; ++m) {
       wmask[m] = 1.f;
@@ -428,12 +613,17 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
         pub[m] = wmask[m] > 0.f ? fresh[m] : e.held[m];
       }
     }
-    e.acct[0] += arr_sum;
+    e.acct[0] += mid[kArrived];
     e.acct[1] += win_success;
-    e.acct[2] += to_sum;
-    e.acct[3] += over_sum;
-    e.acct[4] += refused;
-    e.acct[5] += kill_sum;
+    e.acct[2] += mid[kTimedOut];
+    if (graph) {
+      e.acct[3] = e.acct[3] + mid[kOver] * keep + spill_drop;
+      e.acct[4] += mid[kRefused] * keep;
+    } else {
+      e.acct[3] += mid[kOver];
+      e.acct[4] += mid[kRefused];
+    }
+    e.acct[5] += mid[kKilled];
     a.tr_r[((size_t)w * 4 + 0) * R + r] = win_success;
     a.tr_r[((size_t)w * 4 + 1) * R + r] = win_fail;
     const size_t rm = (size_t)R * M;
@@ -444,6 +634,13 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
       e.held[m] = pub[m];
       if (a.emits_mask) e.omask[m] = wmask[m];
     }
+    if (graph) {
+      float* tg = a.tr_g + (size_t)w * 4 * R + r;
+      tg[0 * R] = mid[kRej] * has_out;
+      tg[1 * R] = spill_in;
+      tg[2 * R] = spill_adm;
+      tg[3 * R] = nbr;
+    }
   }
   __syncwarp();
 }
@@ -451,7 +648,9 @@ __device__ void env_window(const MegaArgs& a, const Stage& g, Env& e, int r,
 // Four blocks an SM (64 registers a thread, no spills at the paper's
 // widths): the per-tick scalar chains and barriers of one router hide
 // behind the others'.  kWarm: the fleet has a dense b_base baseline.
-template <typename TS, bool kWarm>
+// kWorld: the window has fault schedules or a fleet graph (their code is
+// compiled out of the other instantiations, whose registers stay unspilled).
+template <typename TS, bool kWarm, bool kWorld>
 __global__ void __launch_bounds__(kThreads, 4)
 mega_window_kernel(const MegaArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -478,7 +677,9 @@ mega_window_kernel(const MegaArgs a) {
   g.uni = g.hazard + W * K;
   g.gumbel = g.uni + 2 * W * K;
   g.ov = g.gumbel + W * A;
-  g.ps = g.ov + W * M;
+  g.fd = g.ov + W * M;
+  g.sp = g.fd + W * K;
+  g.ps = g.sp + W * K;
   g.obs_edges = g.ps + 12 * K;
   g.util_edges = g.obs_edges + M * a.E;
   g.logc = g.util_edges + a.n_util_edges;
@@ -519,6 +720,12 @@ mega_window_kernel(const MegaArgs a) {
   if (a.obs_valid)
     for (int i = tid; i < W * M; i += kThreads)
       g.ov[i] = a.obs_valid[((size_t)(i / M) * a.R + r) * M + i % M];
+  if (kWorld && a.forced_down)
+    for (int i = tid; i < W * K; i += kThreads)
+      g.fd[i] = a.forced_down[((size_t)(i / K) * a.R + r) * K + i % K];
+  if (kWorld && a.speed)
+    for (int i = tid; i < W * K; i += kThreads)
+      g.sp[i] = a.speed[((size_t)(i / K) * a.R + r) * K + i % K];
   for (int i = tid; i < 12 * K; i += kThreads)
     g.ps[i] = a.pstack[((size_t)(i / K) * a.R + r) * K + i % K];
   for (int i = tid; i < M * a.E; i += kThreads) g.obs_edges[i] = a.obs_edges[i];
@@ -594,9 +801,23 @@ mega_window_kernel(const MegaArgs a) {
     e.ema = a.scal[(size_t)r * 2 + 1];
   }
   const long long t_r = a.t[r];
+  const bool graph = kWorld && a.g_src != nullptr;
   __syncthreads();
 
-  for (int w = 0; w < a.W; ++w) {
+  // a graph window's launch first publishes the previous tick, whose
+  // spillover needed every cell's flow of that tick (the previous launch)
+  if (graph && a.w_lo > 0) {
+    if (warp == 0) {
+      const int wp = a.w_lo - 1;
+      if (lane < kMid)
+        e.mid[lane] = a.xch[((size_t)(wp & 1) * a.R + r) * kMid + lane];
+      __syncwarp();
+      env_publish<kWorld>(a, g, e, r, wp, lane);
+    }
+    __syncthreads();
+  }
+
+  for (int w = a.w_lo; w < a.w_hi; ++w) {
     const int t_idx = a.t0 + w;
     const bool selecting = (w % a.dwell) == 0;
 
@@ -867,7 +1088,12 @@ mega_window_kernel(const MegaArgs a) {
     }
     if (warp == 0) {
       __syncwarp();
-      env_window(a, g, e, r, w, e.a_prev, lane);
+      env_flow<kWorld>(a, g, e, r, w, e.a_prev, lane);
+      if (!graph)
+        env_publish<kWorld>(a, g, e, r, w, lane);
+      else if (lane < kMid)   // for the next launch: this router and its
+        a.xch[((size_t)(w & 1) * a.R + r) * kMid + lane] = e.mid[lane];
+
     }
     __syncthreads();
   }
@@ -911,10 +1137,10 @@ size_t smem_bytes(const MegaArgs& a) {
   return floats * sizeof(float) + sizeof(Env);
 }
 
-template <typename TS, bool kWarm>
+template <typename TS, bool kWarm, bool kWorld>
 int launch(const MegaArgs& a, void* stream) {
   const size_t smem = smem_bytes(a);
-  auto kern = mega_window_kernel<TS, kWarm>;
+  auto kern = mega_window_kernel<TS, kWarm, kWorld>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -922,6 +1148,12 @@ int launch(const MegaArgs& a, void* stream) {
   }
   kern<<<a.R, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool kWarm, bool kWorld>
+int launch_slots(const MegaArgs& a, void* stream) {
+  return a.bf16_slots ? launch<__nv_bfloat16, kWarm, kWorld>(a, stream)
+                      : launch<float, kWarm, kWorld>(a, stream);
 }
 
 }  // namespace
@@ -933,13 +1165,16 @@ extern "C" {
 // kernel's fixed per-thread accumulators.
 int mega_window_launch(const MegaArgs* a, void* stream) {
   if (a->S > kSPer * kThreads || a->A * (a->P + 1) > kAccPer * kThreads ||
-      a->K > kMaxKM || a->M > kMaxKM || a->M > 4 || a->W < 1)
+      a->K > kMaxKM || a->M != 4 + (a->g_src ? 1 : 0) || a->W < 1 ||
+      a->w_lo < 0 || a->w_hi < a->w_lo || a->w_hi > a->W ||
+      (!a->g_src && (a->w_lo != 0 || a->w_hi != a->W)) ||
+      (a->g_src && (!a->xch || !a->tr_g || !a->g_in || !a->g_out)))
     return (int)cudaErrorInvalidValue;
-  if (a->b_base)
-    return a->bf16_slots ? launch<__nv_bfloat16, true>(*a, stream)
-                         : launch<float, true>(*a, stream);
-  return a->bf16_slots ? launch<__nv_bfloat16, false>(*a, stream)
-                       : launch<float, false>(*a, stream);
+  const bool world = a->forced_down || a->speed || a->g_src;
+  if (world) return a->b_base ? launch_slots<true, true>(*a, stream)
+                              : launch_slots<false, true>(*a, stream);
+  return a->b_base ? launch_slots<true, false>(*a, stream)
+                   : launch_slots<false, false>(*a, stream);
 }
 
 }  // extern "C"

@@ -30,7 +30,11 @@ latency inflates, liveness stays).  Fleet graphs
 re-offered to its graph neighbors (cross-cell spillover) and each cell
 publishes the mean pressure of its neighbors as a fifth telemetry column.
 Every function is plain PyTorch over tensors with a leading cell axis R;
-:func:`run_fluid` is a Python loop over windows.  The reference's sharded
+:func:`run_fluid` is a Python loop over windows.  A window is
+:func:`fluid_flow` then :func:`fluid_publish`, joined by a
+:class:`FlowMid` per cell: the spillover sits between the two, and the
+whole-window kernel B3 runs a graph window's ticks as launches cut
+there.  The reference's sharded
 ``row_block`` (ROADMAP A10) is not ported: None is the only accepted value.
 """
 from __future__ import annotations
@@ -262,6 +266,41 @@ def _weighted_p95(lat: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.where(first, lat_s, 0.0), dim=-1)
 
 
+class FlowMid(NamedTuple):
+    """A window's per-cell results that :func:`fluid_publish` reads from
+    :func:`fluid_flow`: the rows kernel B3 leaves in its exchange buffer
+    between the launches of a graph window (``enum Mid`` in
+    ``csrc/mega_window.cu``).  ``rej``/``press`` are what the cell's graph
+    neighbours read; the rest only the cell itself."""
+
+    success: torch.Tensor          # (R,) completed mass
+    over: torch.Tensor             # (R,) queue-cap overflow
+    timed_out: torch.Tensor        # (R,)
+    killed: torch.Tensor           # (R,) restart and admin-down kills
+    arrived: torch.Tensor          # (R,) offered mass
+    refused: torch.Tensor          # (R,) refused at down tiers
+    p95: torch.Tensor              # (R,) completion-weighted P95 of the window
+    cell_up: torch.Tensor | None   # (R,) bool: no tier down (blackout only)
+    rej: torch.Tensor | None       # (R,) rejected mass (graph worlds)
+    press: torch.Tensor | None     # (R,) in-system over live capacity (graph)
+
+
+def _service(params: FluidParams, speed):
+    """(per-server service rate, mean service time) under ``speed``."""
+    if speed is None:
+        return params.mu, params.service_mean_s
+    sp = torch.clamp(speed.to(torch.float32), min=1e-3)
+    return params.mu * sp, params.service_mean_s / sp
+
+
+def _live(down_left: torch.Tensor, forced_down) -> torch.Tensor:
+    """(R, K) bool: the tier is up (not restarting, not admin-down)."""
+    up = down_left <= _EPS
+    if forced_down is not None:
+        up = up & (forced_down.to(torch.float32) <= 0.5)
+    return up
+
+
 def fluid_window_step(params: FluidParams,
                       state: FluidState,
                       weights: torch.Tensor,
@@ -306,24 +345,45 @@ def fluid_window_step(params: FluidParams,
         with a fixed-order reduction (no atomics).  Cells also publish a
         fifth telemetry column, the mean pressure of their out-neighbors.
         None runs the exact ungraphed program.
+
+    The window is :func:`fluid_flow` then :func:`fluid_publish`, the two
+    halves kernel B3 splits a graph window's ticks into.
     """
     if row_block is not None:
         raise _waiting("row_block (sharded engine)", "A10")
+    state, mid, tiers = fluid_flow(
+        params, state, weights, arrival_rate, hazard_scale, uniforms, t_idx,
+        dt=dt, scrape_every=scrape_every, restart_blackout=restart_blackout,
+        forced_down=forced_down, speed=speed, spill=graph is not None)
+    return fluid_publish(params, state, mid, tiers, arrival_rate, dt=dt,
+                         obs_valid=obs_valid,
+                         restart_blackout=restart_blackout,
+                         forced_down=forced_down, speed=speed, graph=graph)
+
+
+def fluid_flow(params: FluidParams, state: FluidState, weights: torch.Tensor,
+               arrival_rate: torch.Tensor, hazard_scale: torch.Tensor,
+               uniforms: tuple[torch.Tensor, torch.Tensor], t_idx: int, *,
+               dt: float = 1.0, scrape_every: int = 10,
+               restart_blackout: bool = False,
+               forced_down: torch.Tensor | None = None,
+               speed: torch.Tensor | None = None, spill: bool = False):
+    """The first half of :func:`fluid_window_step`: arrivals, service,
+    queue caps, restarts and fault schedules, up to what the cross-cell
+    spillover reads (with ``spill``, on a graph world: each cell's
+    rejected mass and pressure).
+
+    Returns (state, :class:`FlowMid`, the window's per-tier
+    :class:`WindowInfo` fields, the rest None): the state's per-tier leaves
+    advance (the backlog before any spillover admission), its observables
+    and cumulative per-cell counters are the publish step's.
+    """
     w = torch.clamp(weights, min=0.0)
     w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
 
-    up = state.down_left <= _EPS                      # (R, K) bool
-    if forced_down is not None:
-        adminf = forced_down.to(torch.float32)        # (R, K) 1 = injected
-        up = up & (adminf <= 0.5)
+    up = _live(state.down_left, forced_down)          # (R, K) bool
     upf = up.to(torch.float32)
-    if speed is None:
-        mu_eff = params.mu
-        service_mean = params.service_mean_s
-    else:
-        sp = torch.clamp(speed.to(torch.float32), min=1e-3)
-        mu_eff = params.mu * sp
-        service_mean = params.service_mean_s / sp
+    mu_eff, service_mean = _service(params, speed)
 
     lam = w * arrival_rate[:, None]                   # (R, K) offered RPS
     arr = lam * dt                                    # (R, K) request mass
@@ -378,6 +438,7 @@ def fluid_window_step(params: FluidParams,
     if forced_down is not None:
         # injected downtime strands the tier's in-system mass too (a restart
         # cannot fire on an admin-down tier, so nothing is counted twice)
+        adminf = forced_down.to(torch.float32)
         killed = killed + backlog2 * adminf
         backlog2 = backlog2 * (1.0 - adminf)
     dur = params.restart_min_s + dur_u * (
@@ -386,27 +447,81 @@ def fluid_window_step(params: FluidParams,
     down_left = torch.where(restarted > 0, dur, down_left)
 
     over_sum = torch.sum(over, dim=-1)
-    # ---- cross-cell spillover (graph worlds only) -------------------------
-    # Fleet-global request mass is conserved: Σ requests == Σ success +
-    # Σ every failure cause + Σ final backlog.
-    spill_out = spill_in = spill_admitted = nbr_press = None
-    if graph is not None:
+    live = _live(down_left, forced_down)              # post-restart liveness
+    cell_up = rej = press = None
+    if restart_blackout:
+        cell_up = torch.all(live, dim=-1)             # (R,) bool
+        # the utilization scrape endpoint is down too: re-publish the last
+        # scrape instead of leaking live state from a dark pod
+        util_scrape = torch.where(cell_up[:, None], util_scrape,
+                                  state.util_scrape)
+    if spill:
         rej = refused + over_sum                      # (R,) rejected mass
-        up2 = down_left <= _EPS                       # post-restart liveness
-        if forced_down is not None:
-            up2 = up2 & (adminf <= 0.5)
-        up2f = up2.to(torch.float32)
         # cell pressure: in-system mass over live system capacity (fully
         # down cells saturate the clip)
         press = torch.clamp(
             torch.sum(backlog2, dim=-1)
-            / torch.clamp(torch.sum(syscap * up2f, dim=-1), min=_EPS),
+            / torch.clamp(torch.sum(syscap * live.to(torch.float32), dim=-1),
+                          min=_EPS),
             max=1e3)
-        offer = rej[graph.src] * graph.share          # (E,) per-edge offer
-        spill_in = segment_sum(offer, graph.in_edges)
-        hop_mass = segment_sum(offer * graph.hop, graph.in_edges)
-        nbr_press = segment_sum(press[graph.dst] * graph.share,
-                                graph.out_edges)
+    mid = FlowMid(success=torch.sum(completed, dim=-1), over=over_sum,
+                  timed_out=torch.sum(timed_out, dim=-1),
+                  killed=torch.sum(killed, dim=-1),
+                  arrived=torch.sum(arr, dim=-1), refused=refused,
+                  p95=_weighted_p95(tier_p95, completed), cell_up=cell_up,
+                  rej=rej, press=press)
+    tier_up = (down_left <= _EPS).to(torch.float32)
+    if forced_down is not None:
+        tier_up = tier_up * (1.0 - adminf)
+    tiers = WindowInfo(
+        raw_obs=None, obs_mask=None, tier_utilization=util_scrape,
+        tier_up=tier_up, tier_queue=None, tier_latency_s=tier_latency,
+        tier_p95_s=tier_p95, tier_completed=completed, success=None,
+        failures=None, restarted=restarted)
+    state = state._replace(
+        backlog=backlog2, down_left=down_left, util_accum=util_accum,
+        util_scrape=util_scrape, prev_tier_rps=lam,
+        tier_requests=state.tier_requests + arr,
+        tier_success=state.tier_success + completed,
+        n_restarts=state.n_restarts + restarted)
+    return state, mid, tiers
+
+
+def spill_exchange(mid: FlowMid, graph) -> tuple:
+    """(spill_in, hop_mass, nbr_press), each (R,): the mass each cell's
+    in-neighbours offer it (their rejected mass split 1/out-degree), that
+    mass times each edge's hop latency, and the mean pressure of its
+    out-neighbours, summed along the padded edge lists in edge order."""
+    offer = mid.rej[graph.src] * graph.share          # (E,) per-edge offer
+    return (segment_sum(offer, graph.in_edges),
+            segment_sum(offer * graph.hop, graph.in_edges),
+            segment_sum(mid.press[graph.dst] * graph.share,
+                        graph.out_edges))
+
+
+def fluid_publish(params: FluidParams, state: FluidState, mid: FlowMid,
+                  tiers: WindowInfo, arrival_rate: torch.Tensor, *,
+                  dt: float = 1.0, obs_valid: torch.Tensor | None = None,
+                  restart_blackout: bool = False,
+                  forced_down: torch.Tensor | None = None,
+                  speed: torch.Tensor | None = None,
+                  graph=None) -> tuple[FluidState, WindowInfo]:
+    """The second half of :func:`fluid_window_step`, from
+    :func:`fluid_flow`'s state, :class:`FlowMid` and per-tier fields: the
+    spillover on a graph world (its exchange over every cell's ``mid``),
+    the queues, the observation EMAs, the telemetry mask and stale hold,
+    and the accounting."""
+    # ---- cross-cell spillover (graph worlds only) -------------------------
+    # Fleet-global request mass is conserved: Σ requests == Σ success +
+    # Σ every failure cause + Σ final backlog.
+    backlog2 = state.backlog
+    spill_out = spill_in = spill_admitted = nbr_press = None
+    if graph is not None:
+        mu_eff, service_mean = _service(params, speed)
+        cap_rate = params.servers * mu_eff
+        syscap = params.queue_cap + params.servers
+        up2f = _live(state.down_left, forced_down).to(torch.float32)
+        spill_in, hop_mass, nbr_press = spill_exchange(mid, graph)
         hop_mean = hop_mass / torch.clamp(spill_in, min=_EPS)     # (R,)
         est_resp = (hop_mean[:, None]
                     + backlog2 / torch.clamp(cap_rate, min=_EPS)
@@ -420,21 +535,19 @@ def fluid_window_step(params: FluidParams,
         spill_dropped = spill_in - spill_admitted
         backlog2 = backlog2 + admit
         keep = 1.0 - graph.has_out    # exporters keep none of their rejects
-        spill_out = rej * graph.has_out
+        spill_out = mid.rej * graph.has_out
 
     # ---- accounting -------------------------------------------------------
-    win_success = torch.sum(completed, dim=-1)
+    win_success = mid.success
     if graph is None:
-        win_fail = (refused + over_sum + torch.sum(timed_out, dim=-1)
-                    + torch.sum(killed, dim=-1))
-        err_refused_new = state.err_refused + refused
-        err_overflow_new = state.err_overflow + over_sum
+        win_fail = mid.refused + mid.over + mid.timed_out + mid.killed
+        err_refused_new = state.err_refused + mid.refused
+        err_overflow_new = state.err_overflow + mid.over
     else:
-        win_fail = (refused * keep + over_sum * keep + spill_dropped
-                    + torch.sum(timed_out, dim=-1)
-                    + torch.sum(killed, dim=-1))
-        err_refused_new = state.err_refused + refused * keep
-        err_overflow_new = (state.err_overflow + over_sum * keep
+        win_fail = (mid.refused * keep + mid.over * keep + spill_dropped
+                    + mid.timed_out + mid.killed)
+        err_refused_new = state.err_refused + mid.refused * keep
+        err_overflow_new = (state.err_overflow + mid.over * keep
                             + spill_dropped)
 
     # ---- router observables (EMA ≈ the event sim's sliding windows) -------
@@ -442,10 +555,9 @@ def fluid_window_step(params: FluidParams,
     a_err = min(1.0, 2.0 * dt / params.error_window_s)
     a_rps = min(1.0, 2.0 * dt / params.rps_window_s)
 
-    p95_win = _weighted_p95(tier_p95, completed)      # (R,)
     any_done = win_success > _EPS
     p95_ema = torch.where(any_done,
-                          (1 - a_lat) * state.p95_ema + a_lat * p95_win,
+                          (1 - a_lat) * state.p95_ema + a_lat * mid.p95,
                           state.p95_ema)
     total_win = win_success + win_fail
     err_frac = win_fail / torch.clamp(total_win, min=_EPS)
@@ -470,53 +582,31 @@ def fluid_window_step(params: FluidParams,
         obs_mask = (torch.ones_like(fresh_obs) if obs_valid is None
                     else obs_valid.to(torch.float32))
         if restart_blackout:
-            cell_up = torch.all(down_left <= _EPS, dim=-1)   # (R,) bool
-            if forced_down is not None:
-                # an administratively-down pod emits nothing either
-                cell_up = cell_up & torch.all(adminf <= 0.5, dim=-1)
-            obs_mask = obs_mask * cell_up[:, None].to(torch.float32)
-            # the utilization scrape endpoint is down too: re-publish the
-            # last scrape instead of leaking live state from a dark pod
-            util_scrape = torch.where(cell_up[:, None], util_scrape,
-                                      state.util_scrape)
+            # a cell with a tier down (restarting or admin-down) emits
+            # nothing
+            obs_mask = obs_mask * mid.cell_up[:, None].to(torch.float32)
         # a masked gauge holds its last published value (stale replay)
         published = torch.where(obs_mask > 0, fresh_obs, state.held_obs)
 
-    new_state = FluidState(
+    new_state = state._replace(
         backlog=backlog2,
-        down_left=down_left,
-        util_accum=util_accum,
-        util_scrape=util_scrape,
-        prev_tier_rps=lam,
         p95_ema=p95_ema,
         rps_ema=rps_ema,
         err_ema=err_ema,
         held_obs=published,
-        n_requests=state.n_requests + torch.sum(arr, dim=-1),
+        n_requests=state.n_requests + mid.arrived,
         n_success=state.n_success + win_success,
-        err_timeout=state.err_timeout + torch.sum(timed_out, dim=-1),
+        err_timeout=state.err_timeout + mid.timed_out,
         err_overflow=err_overflow_new,
         err_refused=err_refused_new,
-        err_restart=state.err_restart + torch.sum(killed, dim=-1),
-        tier_requests=state.tier_requests + arr,
-        tier_success=state.tier_success + completed,
-        n_restarts=state.n_restarts + restarted,
+        err_restart=state.err_restart + mid.killed,
     )
-    tier_up = (down_left <= _EPS).to(torch.float32)
-    if forced_down is not None:
-        tier_up = tier_up * (1.0 - adminf)
-    info = WindowInfo(
+    info = tiers._replace(
         raw_obs=published,
         obs_mask=obs_mask,
-        tier_utilization=util_scrape,
-        tier_up=tier_up,
         tier_queue=tier_queue,
-        tier_latency_s=tier_latency,
-        tier_p95_s=tier_p95,
-        tier_completed=completed,
         success=win_success,
         failures=win_fail,
-        restarted=restarted,
         spill_out=spill_out,
         spill_in=spill_in,
         spill_admitted=spill_admitted,

@@ -20,11 +20,17 @@ pointers, mirrored by ``struct MegaArgs`` in the CUDA source.
 
 A warm-promoted fleet (``state.cache.b_base`` set) passes its dense
 (R, A, S, S) baseline and runs the kernel's warm instantiation; a fresh
-fleet passes a null pointer and runs the fresh one.  The slot pushes go in
+fleet passes a null pointer and runs the fresh one.  Fault schedules
+(``forced_down``/``speed``, (W, R, K)) go in as two more operands (null
+without them).  A fleet graph passes its edge tensors and a (2, R, 10)
+exchange buffer, and its window runs as W + 1 launches over one tick each
+(the cross-cell spillover needs every cell's flow of a tick before any
+cell can publish it); the telemetry is then M=5 wide and the trace's
+``spill_*``/``nbr_pressure`` fields are set.  The slot pushes go in
 place into the caller's tape at columns ``[t0, t0 + W)``; every other
 output is a new tensor.  The kernel draws
-nothing: the Gumbel noise and the restart uniforms are operands.  Launches
-are counted in ``mega_window_cuda.launches``.
+nothing: the Gumbel noise and the restart uniforms are operands.  Every
+launch is counted in ``mega_window_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -48,6 +54,9 @@ EXTRA_FLAGS = ("-fmad=false",)
 #: Kernel limits: S <= 4·256 states and A·(P+1) <= 4·256 EFE accumulators
 #: (four per thread of the 256-thread block), K and M at most 8.
 MAX_S, MAX_ACC, MAX_KM = 1024, 1024, 8
+#: Floats a router leaves in the exchange buffer per graph tick (``enum
+#: Mid`` in the CUDA source).
+N_MID = 10
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -66,12 +75,15 @@ class MegaArgs(ctypes.Structure):
             "arrival", "hazard", "obs_valid", "uniforms", "gumbel",
             "sf_tbl", "logc", "cost", "ptable", "obs_edges", "n_edges",
             "util_edges",
-            "tr_act", "tr_rk", "tr_r", "tr_rm")]
+            "tr_act", "tr_rk", "tr_r", "tr_rm",
+            "forced_down", "speed", "g_src", "g_dst", "g_share", "g_hop",
+            "g_has_out", "g_in", "g_out", "xch", "tr_g")]
         + [(n, _I) for n in (
             "R", "J", "S", "A", "M", "NB", "K", "W", "P", "E",
             "n_util_edges", "n_used", "t0", "dwell", "util_period",
             "scrape_every", "err_ix", "emits_mask", "masked_obs",
-            "restart_blackout", "bf16_slots")]
+            "restart_blackout", "bf16_slots", "G_E", "G_din", "G_dout",
+            "w_lo", "w_hi")]
         + [(n, _F) for n in (
             "dt", "fast_period_s", "err_decay", "err_keep", "error_trigger",
             "beta", "u_c", "d_c", "usd", "log_match", "log_miss",
@@ -124,10 +136,10 @@ def mega_window_cuda(state, est, obs_carry, params,
 
     Arguments and results as :func:`repro_torch.core.mega.mega_window`.
     ``t0`` must sit on a dwell boundary and the window must fit the tape
-    (``t0 + W <= J``).  Raises for non-CUDA tensors and for the options
-    that are not ported (fault schedules, row blocks, graphs).
+    (``t0 + W <= J``).  Raises for non-CUDA tensors and for row blocks
+    (not ported, ROADMAP A10).  A graph window is W + 1 launches.
     """
-    mega_core._not_ported(forced_down, speed, row_block, graph)
+    mega_core._not_ported(row_block)
     dev = state.belief.device
     if dev.type != "cuda":
         raise ValueError(f"mega_window_cuda runs on CUDA tensors, got {dev}")
@@ -146,10 +158,11 @@ def mega_window_cuda(state, est, obs_carry, params,
     if t0 + w > j:
         raise ValueError(f"window [{t0}, {t0 + w}) does not fit the {j} "
                          f"slots")
-    if m != batched.N_OBS_MODALITIES:
-        raise ValueError(f"the kernel's env publishes "
-                         f"{batched.N_OBS_MODALITIES} telemetry modalities, "
-                         f"the topology has {m}")
+    m_env = batched.N_OBS_MODALITIES + (graph is not None)
+    if m != m_env:
+        raise ValueError(f"the kernel's env publishes {m_env} telemetry "
+                         f"modalities ({'with' if graph is not None else 'no'}"
+                         f" graph), the topology has {m}")
     if s > MAX_S or a_n * (p + 1) > MAX_ACC or max(k, m) > MAX_KM:
         raise ValueError(f"widths beyond the kernel's limits: S={s}, "
                          f"A·(P+1)={a_n * (p + 1)}, K={k}, M={m}")
@@ -182,6 +195,20 @@ def mega_window_cuda(state, est, obs_carry, params,
         checks.append(("obs_valid", obs_valid, (w, r, m), f32))
     if cache.b_base is not None:
         checks.append(("cache.b_base", cache.b_base, (r, a_n, s, s), f32))
+    for name, x in (("forced_down", forced_down), ("speed", speed)):
+        if x is not None:
+            checks.append((name, x, (w, r, k), f32))
+    if graph is not None:
+        n_e = graph.src.shape[0]
+        checks += [("graph.src", graph.src, (n_e,), i64),
+                   ("graph.dst", graph.dst, (n_e,), i64),
+                   ("graph.share", graph.share, (n_e,), f32),
+                   ("graph.hop", graph.hop, (n_e,), f32),
+                   ("graph.has_out", graph.has_out, (r,), f32),
+                   ("graph.in_edges", graph.in_edges,
+                    (r, graph.in_edges.shape[1]), i64),
+                   ("graph.out_edges", graph.out_edges,
+                    (r, graph.out_edges.shape[1]), i64)]
     for name, t, shape, dtype in checks:
         _check(name, t, shape, dev, dtype)
 
@@ -216,6 +243,18 @@ def mega_window_cuda(state, est, obs_carry, params,
     tr_rk = torch.empty((w, 8, r, k), device=dev)
     tr_r = torch.empty((w, 4, r), device=dev)
     tr_rm = torch.empty((w, 3, r, m), device=dev)
+    tr_g = xch = None
+    graph_args = {}
+    if graph is not None:
+        tr_g = torch.empty((w, 4, r), device=dev)
+        xch = torch.empty((2, r, N_MID), device=dev)
+        graph_args = dict(
+            g_src=graph.src.data_ptr(), g_dst=graph.dst.data_ptr(),
+            g_share=graph.share.data_ptr(), g_hop=graph.hop.data_ptr(),
+            g_has_out=graph.has_out.data_ptr(),
+            g_in=graph.in_edges.data_ptr(), g_out=graph.out_edges.data_ptr(),
+            G_E=graph.src.shape[0], G_din=graph.in_edges.shape[1],
+            G_dout=graph.out_edges.shape[1])
     tb = _tables(cfg, disc, tuple(util_edges), dev)
 
     u_c = cfg.b_prior_uniform / s
@@ -248,6 +287,8 @@ def mega_window_cuda(state, est, obs_carry, params,
         util_edges=tb["util_edges"].data_ptr(),
         tr_act=tr_act.data_ptr(), tr_rk=tr_rk.data_ptr(),
         tr_r=tr_r.data_ptr(), tr_rm=tr_rm.data_ptr(),
+        forced_down=_ptr(forced_down), speed=_ptr(speed), xch=_ptr(xch),
+        tr_g=_ptr(tr_g),
         R=r, J=j, S=s, A=a_n, M=m, NB=nb, K=k, W=w, P=p,
         E=tb["n_edge_cols"], n_util_edges=len(util_edges),
         n_used=min(t0, j), t0=t0, dwell=dwell, util_period=util_period,
@@ -262,11 +303,16 @@ def mega_window_cuda(state, est, obs_carry, params,
         usd=u_c * s + cfg.b_prior_sticky, log_match=tb["log_match"],
         log_miss=tb["log_miss"], timeout_s=params.timeout_s, a_lat=a_lat,
         a_err=a_err, a_rps=a_rps, keep_lat=1.0 - a_lat, keep_err=1.0 - a_err,
-        keep_rps=1.0 - a_rps, scrape_den=scrape_every * dt)
-    rc = library().mega_window_launch(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "mega_window")
-    mega_window_cuda.launches += 1
+        keep_rps=1.0 - a_rps, scrape_den=scrape_every * dt, **graph_args)
+    lib, stream = library(), torch.cuda.current_stream(dev).cuda_stream
+    # a graph window: launch i publishes tick i - 1 and runs tick i
+    ranges = ([(0, w)] if graph is None
+              else [(i, min(i + 1, w)) for i in range(w + 1)])
+    for lo, hi in ranges:
+        args.w_lo, args.w_hi = lo, hi
+        _raise_on(lib.mega_window_launch(ctypes.byref(args), stream),
+                  "mega_window")
+        mega_window_cuda.launches += 1
 
     new_state = state._replace(
         belief=belief, prev_action=prev_action, dt_since_change=scal[:, 0],
@@ -284,7 +330,10 @@ def mega_window_cuda(state, est, obs_carry, params,
         tier_utilization=tr_rk[:, 1], tier_up=tr_rk[:, 2],
         tier_queue=tr_rk[:, 3], tier_latency_s=tr_rk[:, 4],
         tier_p95_s=tr_rk[:, 5], tier_completed=tr_rk[:, 6],
-        success=tr_r[:, 0], failures=tr_r[:, 1], restarted=tr_rk[:, 7])
+        success=tr_r[:, 0], failures=tr_r[:, 1], restarted=tr_rk[:, 7],
+        **({} if tr_g is None else dict(
+            spill_out=tr_g[:, 0], spill_in=tr_g[:, 1],
+            spill_admitted=tr_g[:, 2], nbr_pressure=tr_g[:, 3])))
     trace = (tr_act, tr_rk[:, 0], tr_rm[:, 2], tr_r[:, 2] > 0.5, tr_r[:, 3],
              win)
     new_carry = (tr_rm[-1, 0], tr_rk[-1, 1], tr_rk[-1, 2], tr_rk[-1, 3],

@@ -194,11 +194,23 @@ def test_chaos_run_restarts_generator_noise_for_its_control():
 
 
 def test_mega_with_chaos_raises_a8b():
-    with pytest.raises(NotImplementedError, match="A8b"):
-        api.run(api.Experiment(mega=True, scenario="zone-outage",
-                               n_cells=2, n_windows=20, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        mega_mod._not_ported(None, torch.ones(1), None, None)
+    """Chaos on the whole-window path, once refused (ROADMAP A8b), runs
+    and matches the reference's mega run, its mega control included; only
+    row blocks (the sharded engine, A10) are still refused."""
+    e = api.Experiment(mega=True, scenario="zone-outage", n_cells=2,
+                       n_windows=20, device="cpu")
+    ref = ref_api.run(ref_api.Experiment(mega=True, scenario="zone-outage",
+                                         n_cells=2, n_windows=20))
+    port = api.run(e, noise=JaxChainNoise(0, 2, 20))
+    np.testing.assert_array_equal(t2n(port.trace.actions),
+                                  np.asarray(ref.trace.actions))
+    assert isinstance(port.final_carry, mega_mod.MegaFleetState)
+    assert_tree_close(port.final_carry, ref.final_carry, path="carry")
+    assert_tree_close(port.trace.env, ref.trace.env, path="env")
+    for k in ("regret_vs_control", "control_success_pct"):
+        assert_close(port.recovery[k], ref.recovery[k], err_msg=k)
+    with pytest.raises(NotImplementedError, match="A10"):
+        mega_mod._not_ported(torch.ones(1))
 
 
 # --------------------------------------------------------- degenerate beliefs

@@ -101,14 +101,24 @@ def test_waiting_paths_raise_not_implemented():
     state = mega.init_mega_state(router.cfg, 2, 20, device="cpu",
                                  from_agent_state=warm)
     assert state.cache.b_base is not None
-    # a fleet graph in a mega window (spillover in B3)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        api.run(api.Experiment(mega=True, scenario="ring-spillover",
-                               n_cells=2, n_windows=20, device="cpu"))
-    # fault schedules in a mega window (chaos in B3)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        api.run(api.Experiment(mega=True, scenario="zone-outage", n_cells=2,
-                               n_windows=20, device="cpu"))
+    # a fleet graph and fault schedules in a mega window (once refused,
+    # ROADMAP A8b) run and match the reference's mega runs
+    for scenario, r in (("ring-spillover", 3), ("zone-outage", 2)):
+        ref = ref_api.run(ref_api.Experiment(mega=True, scenario=scenario,
+                                             n_cells=r, n_windows=20))
+        port = api.run(api.Experiment(mega=True, scenario=scenario,
+                                      n_cells=r, n_windows=20, device="cpu"),
+                       noise=JaxChainNoise(0, r, 20))
+        np.testing.assert_array_equal(t2n(port.trace.actions),
+                                      np.asarray(ref.trace.actions))
+        for field in ("success_pct", "p95_ms", "offload_frac"):
+            assert_close(getattr(port, field), getattr(ref, field),
+                         err_msg=f"{scenario}.{field}")
+        assert_tree_close(port.final_carry, ref.final_carry,
+                          path=f"{scenario}.carry")
+    # the sharded engine's row blocks wait (A10)
+    with pytest.raises(NotImplementedError, match="A10"):
+        mega._not_ported((0, 2, 2))
 
 
 def test_uniform_router_weights_are_the_balanced_row():

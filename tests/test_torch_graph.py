@@ -1,6 +1,6 @@
 """The networked continuum on the port (mirrors ``tests/test_graph.py``
-without its sharded rows and its graph-on-mega row, which waits for
-ROADMAP A8b).
+without its sharded rows; its graph-on-mega row is in
+``tests/test_torch_mega_worlds.py``).
 
 Fleet-graph presets and their edge tensors must equal the reference's; one
 spillover window from a carried mid-run state must match the reference's
@@ -334,10 +334,20 @@ def test_graph_router_instance_mismatch_raises():
 
 @pytest.mark.parametrize("g", ["ring", None])
 def test_graph_on_the_mega_path_raises_a8b(g):
+    """A graph on the mega path, once refused (ROADMAP A8b), runs and
+    matches the reference's mega run (an explicit preset and the
+    scenario's default graph); the ungraphed control of the same world
+    runs there too, without spillover."""
     e = api.Experiment(router="aif", mega=True, scenario="ring-spillover",
                        n_cells=4, n_windows=20, graph=g, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        api.run(e)
-    # the ungraphed control of the same world runs on the mega path
+    ref = ref_api.run(ref_api.Experiment(
+        router="aif", mega=True, scenario="ring-spillover", n_cells=4,
+        n_windows=20, graph=g))
+    port = api.run(e, noise=JaxChainNoise(0, 4, 20))
+    assert port.trace.raw_obs.shape[-1] == 5
+    assert_run_matches(port, ref)
+    assert_tree_close(port.final_carry, ref.final_carry, path="carry")
+    assert port.offload_frac > 0.0
     res = api.run(dataclasses.replace(e, graph="none"))
     assert res.trace.actions.shape == (20, 4)
+    assert res.offload_frac == 0.0 and res.trace.env.spill_in is None

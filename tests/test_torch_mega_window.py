@@ -8,7 +8,10 @@ its factored state is carried to both sides.  Then:
 * one window of the port (``ops.mega_window`` on CPU tensors: the plain
   version of kernel B3) against the reference's XLA oracle window and its
   Pallas megakernel ``mega_window_pallas`` in interpret mode, on the same
-  Gumbel noise and restart uniforms;
+  Gumbel noise and restart uniforms; under each chaos preset's fault
+  schedules and on each graph preset's world (M=5, every ``spill_*``
+  field and the neighbor pressure) against the oracle alone, which is
+  what the reference's own dispatch runs for such windows;
 * the slow step (streaming and full refresh) on the same replay draws;
 * the densified per-tick carry (``to_agent_state``);
 * the window-granularity watchdog and quarantine.
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 from repro.api import experiment as ref_experiment
+from repro.core import graph as ref_graph
 from repro.core import mega as ref_mega
 from repro.core import topology as ref_topology
 from repro.envsim import batched as ref_batched
@@ -37,7 +41,8 @@ from repro_torch.envsim import batched
 from repro_torch.kernels.efe import mega as mega_kernel
 from repro_torch.kernels.efe import ops
 from repro_torch.noise import GeneratorNoise
-from torch_port_ref import (assert_close, assert_tree_close, env_uniforms,
+from torch_port_ref import (assert_bits_equal, assert_close,
+                            assert_tree_close, env_uniforms,
                             mega_state_to_port, mega_state_to_ref,
                             port_to_numpy, port_topo, t2n)
 
@@ -49,30 +54,36 @@ SLOT_TYPES = {"float32": (torch.float32, jnp.float32),
               "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
 
-def _port_world(scenario, r, horizon, topo_key, slot="float32"):
+def _port_world(scenario, r, horizon, topo_key, slot="float32", g=None):
+    """(router, env_step) of the port; ``g`` a graph preset name (the
+    graph scenarios' default when None, as in ``Experiment``)."""
     topo = port_topo(TOPOS[topo_key])
     e = api.Experiment(scenario=scenario, topology=topo, n_cells=r,
                        n_windows=horizon, mega=True, mega_slot_dtype=slot,
-                       device="cpu")
+                       device="cpu", graph=g)
+    fg = e.resolve_graph()
     scfg, _, env_step = port_experiment._build_world(
-        topo, scenario, r, horizon, 1.0, 0, torch.device("cpu"))
-    return e.resolve_router(scfg), env_step
+        topo, scenario, r, horizon, 1.0, 0, torch.device("cpu"), fg)
+    return e.resolve_router(scfg, fg), env_step
 
 
-def _ref_world(scenario, r, horizon, topo_key, slot="float32"):
+def _ref_world(scenario, r, horizon, topo_key, slot="float32", g=None):
     topo = TOPOS[topo_key]
+    fg = ref_graph.resolve_graph(g, r, scenario=scenario)
     scfg, params, env_step = ref_experiment._build_world(
-        topo, scenario, r, horizon, 1.0, 0)
-    router = ref_experiment._make_aif(topo, scfg, True, False, True, slot)
+        topo, scenario, r, horizon, 1.0, 0, graph=fg)
+    router = ref_experiment._make_aif(topo, scfg, True, False, True, slot,
+                                      graph=fg)
     return router, params, env_step
 
 
 @functools.lru_cache(maxsize=None)
-def _midrun(scenario, r, t_pre, horizon, topo_key, slot="float32"):
+def _midrun(scenario, r, t_pre, horizon, topo_key, slot="float32", g=None):
     """The port's mega rollout stopped at tick ``t_pre`` (slots sized for
     ``horizon``), as numpy snapshots: (state, env state, obs carry)."""
-    router, env_step = _port_world(scenario, r, horizon, topo_key, slot)
-    est0 = batched.init_fluid_state(env_step.fluid.params)
+    router, env_step = _port_world(scenario, r, horizon, topo_key, slot, g)
+    est0 = batched.init_fluid_state(env_step.fluid.params,
+                                    env_step.n_obs_modalities)
     state, est, _, obs = engine.mega_rollout(
         router, est0, env_step, t_pre, GeneratorNoise(3, "cpu"),
         n_total=horizon)
@@ -160,6 +171,132 @@ def test_window_matches_oracle_and_pallas_kernel(scenario, r, t0, topo_key,
             assert_close(a.to(torch.float32), np.asarray(b, np.float32),
                          err_msg=f"{name}.trace[{i + 1}]")
         assert_tree_close(port[3][5], ref_ys[5], path=f"{name}.win")
+
+
+# (scenario, R, t0, horizon, graph preset): every chaos preset with its
+# faults live in the window [t0, t0 + 10) (zone-outage's at ticks 15-24 of
+# 50), the three graph presets, graph + chaos with bf16 slots
+FAULT_GRAPH_CASES = [
+    ("zone-outage", 3, 20, 50, None, "float32"),
+    ("long-outage", 3, 20, 50, None, "float32"),
+    ("mttf-mttr", 3, 20, 50, None, "float32"),
+    ("straggler-storm", 3, 20, 50, None, "float32"),
+    ("capacity-flap", 3, 20, 50, None, "float32"),
+    ("ring-spillover", 6, 20, 40, None, "float32"),
+    ("grid-hotspot", 6, 20, 40, None, "float32"),
+    ("hier-continuum", 9, 20, 40, None, "float32"),
+    ("zone-outage", 6, 20, 50, "ring", "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("scenario,r,t0,horizon,g,slot", FAULT_GRAPH_CASES,
+                         ids=["zone", "long", "mttf", "straggler", "flap",
+                              "ring", "grid", "hier", "ring-zone-bf16"])
+def test_fault_and_graph_window_matches_oracle(scenario, r, t0, horizon, g,
+                                               slot):
+    """One window under fault schedules or on a fleet graph, from a carried
+    mid-run state, against the reference's oracle window (the window its
+    dispatch runs for such worlds): every action, carry, env field and
+    trace leaf, the ``spill_*`` fields and the fifth telemetry column
+    included."""
+    w = 10
+    p_router, p_env = _port_world(scenario, r, horizon, "k3", slot, g)
+    router, params, env_step = _ref_world(scenario, r, horizon, "k3", slot, g)
+    (p_state, p_est, p_obs), (st_r, est_r, obs_r) = _both_sides(
+        _midrun(scenario, r, t0, horizon, "k3", slot, g), p_router.cfg, slot)
+    cfg, fl, p_fl = router.cfg, env_step.fluid, p_env.fluid
+    sl = slice(t0, t0 + w)
+    # the faults are live in the window
+    if p_fl.forced_down is not None:
+        assert float(p_fl.forced_down[sl].sum()) > 0.0
+    if p_fl.speed is not None:
+        assert bool((p_fl.speed[sl] < 1.0).any())
+    k_env = jax.random.split(jax.random.key(11), w)
+    gum = jax.random.gumbel(jax.random.key(12), (w, r, cfg.n_actions))
+
+    def part(x):
+        return None if x is None else x[sl]
+
+    ref = ref_mega.mega_window(
+        st_r, est_r, obs_r, params, fl.arrival_rate[sl], fl.hazard_scale[sl],
+        part(fl.obs_valid), k_env, gum, t0, cfg=cfg,
+        disc=router.resolved_disc, util_edges=router.resolved_util_edges,
+        util_period=router.util_period, dt=fl.dt,
+        scrape_every=fl.scrape_every, restart_blackout=fl.restart_blackout,
+        emits_mask=bool(env_step.emits_mask), forced_down=part(fl.forced_down),
+        speed=part(fl.speed), graph=fl.graph)
+    uniforms = torch.stack([torch.stack(env_uniforms(k, (r, p_fl.params
+                                                         .n_tiers)))
+                            for k in k_env])
+    port = ops.mega_window(
+        p_state, p_est, p_obs, p_fl.params, p_fl.arrival_rate[sl],
+        p_fl.hazard_scale[sl], part(p_fl.obs_valid), uniforms,
+        torch.tensor(np.asarray(gum)), t0, cfg=p_router.cfg,
+        disc=p_router.resolved_disc,
+        util_edges=p_router.resolved_util_edges,
+        util_period=p_router.util_period, dt=p_fl.dt,
+        scrape_every=p_fl.scrape_every,
+        restart_blackout=p_fl.restart_blackout,
+        emits_mask=bool(p_env.emits_mask), forced_down=part(p_fl.forced_down),
+        speed=part(p_fl.speed), graph=p_fl.graph)
+    ref_state, ref_est, ref_obs, ref_ys = ref
+    np.testing.assert_array_equal(t2n(port[3][0]), np.asarray(ref_ys[0]))
+    assert_tree_close(port[0], ref_state, path="state")
+    assert_tree_close(port[1], ref_est, path="est")
+    for i, (a, b) in enumerate(zip(port[2], ref_obs)):
+        assert_close(a, b, err_msg=f"obs[{i}]")
+    for i, (a, b) in enumerate(zip(port[3][1:5], ref_ys[1:5])):
+        assert_close(a.to(torch.float32), np.asarray(b, np.float32),
+                     err_msg=f"trace[{i + 1}]")
+    assert_tree_close(port[3][5], ref_ys[5], path="win")
+    m = 5 if p_fl.graph is not None else 4
+    assert port[0].slots.obs_bins.shape[-1] == m
+    assert port[0].cache.logna.shape[1] == m
+    if p_fl.graph is not None:
+        assert float(port[3][5].spill_in.sum()) > 0.0   # spillover is live
+        for field in ("spill_out", "spill_in", "spill_admitted",
+                      "nbr_pressure"):
+            assert getattr(ref_ys[5], field) is not None, field
+
+
+@pytest.mark.parametrize("scenario,r,t0,horizon,g", [
+    ("ring-spillover", 6, 20, 40, None), ("hier-continuum", 9, 20, 40, None),
+    ("zone-outage", 6, 20, 50, "ring"), ("straggler-storm", 3, 20, 50, None)],
+    ids=["ring", "hier", "ring-zone", "straggler"])
+def test_launch_split_model_matches_window(scenario, r, t0, horizon, g):
+    """The plain model of B3's launch split (``mega_window_launches``: W + 1
+    launches, each publishing the previous tick from the carries and every
+    cell's exchange rows, then running its own tick up to the env's flow)
+    returns what ``mega_window`` returns, to the bit."""
+    router, env_step = _port_world(scenario, r, horizon, "k3", g=g)
+    snap = _midrun(scenario, r, t0, horizon, "k3", g=g)
+    (s1, e1, o1), _ = _both_sides(snap, router.cfg)
+    (s2, e2, o2), _ = _both_sides(snap, router.cfg)
+    fl, w = env_step.fluid, 10
+    sl = slice(t0, t0 + w)
+    gen = torch.Generator().manual_seed(7)
+    uniforms = torch.rand((w, 2, r, fl.params.n_tiers), generator=gen)
+    gum = -torch.log(-torch.log(torch.rand(
+        (w, r, router.cfg.n_actions), generator=gen).clamp(min=1e-30)))
+
+    def part(x):
+        return None if x is None else x[sl]
+
+    kw = dict(cfg=router.cfg, disc=router.resolved_disc,
+              util_edges=router.resolved_util_edges,
+              util_period=router.util_period, dt=fl.dt,
+              scrape_every=fl.scrape_every,
+              restart_blackout=fl.restart_blackout,
+              emits_mask=bool(env_step.emits_mask),
+              forced_down=part(fl.forced_down), speed=part(fl.speed),
+              graph=fl.graph)
+    args = (fl.params, fl.arrival_rate[sl], fl.hazard_scale[sl],
+            part(fl.obs_valid), uniforms, gum, t0)
+    whole = mega.mega_window(s1, e1, o1, *args, **kw)
+    split = mega.mega_window_launches(s2, e2, o2, *args, **kw)
+    assert_bits_equal(whole, split)
+    if fl.graph is not None:
+        assert float(split[3][5].spill_in.sum()) > 0.0
 
 
 SLOW_CASES = [("paper-burst", 4, 20, "k3"), ("flaky-telemetry", 4, 20, "k3"),
@@ -260,26 +397,50 @@ def test_state_converter_round_trip_and_warm_paths_raise():
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_unported_options():
-    """On the CPU the dispatch takes the plain version; the kernel's own
-    wrapper never runs the plain version in its place."""
+    """On the CPU the dispatch takes the plain version, fault schedules
+    included (against the reference's oracle on the same schedules); the
+    kernel's own wrapper never runs the plain version in its place, and row
+    blocks (the sharded engine, ROADMAP A10) stay refused on both."""
     router, env_step = _port_world("paper-burst", 3, 30, "k3")
-    (state, est, obs), _ = _both_sides(
+    ref_router, params, ref_env = _ref_world("paper-burst", 3, 30, "k3")
+    (state, est, obs), (st_r, est_r, obs_r) = _both_sides(
         _midrun("paper-burst", 3, 20, 30, "k3"), router.cfg)
-    fl = env_step.fluid
+    fl, rfl = env_step.fluid, ref_env.fluid
     kw = dict(cfg=router.cfg, disc=router.resolved_disc,
               util_edges=router.resolved_util_edges,
               util_period=router.util_period, dt=fl.dt,
               scrape_every=fl.scrape_every, restart_blackout=False,
               emits_mask=False)
     w, r, k = 10, 3, fl.params.n_tiers
+    k_env = jax.random.split(jax.random.key(5), w)
+    gum = jax.random.gumbel(jax.random.key(6), (w, r, router.cfg.n_actions))
+    uniforms = torch.stack([torch.stack(env_uniforms(x, (r, k)))
+                            for x in k_env])
     args = (state, est, obs, fl.params, fl.arrival_rate[20:30],
-            fl.hazard_scale[20:30], None, torch.rand(w, 2, r, k),
-            torch.zeros(w, r, router.cfg.n_actions), 20)
+            fl.hazard_scale[20:30], None, uniforms,
+            torch.tensor(np.asarray(gum)), 20)
+    rng = np.random.default_rng(0)
+    fd = (rng.random((w, r, k)) < 0.2).astype(np.float32)
+    sp = rng.uniform(0.2, 1.0, (w, r, k)).astype(np.float32)
     launches = mega_kernel.mega_window_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         mega_kernel.mega_window_cuda(*args, **kw)
-    with pytest.raises(NotImplementedError, match="A8"):
-        mega_kernel.mega_window_cuda(*args, **kw, forced_down=fl.arrival_rate)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        ops.mega_window(*args, **kw, graph=object())
+    with pytest.raises(ValueError, match="CUDA"):
+        mega_kernel.mega_window_cuda(*args, **kw,
+                                     forced_down=torch.tensor(fd))
+    for fn in (ops.mega_window, mega_kernel.mega_window_cuda):
+        with pytest.raises(NotImplementedError, match="A10"):
+            fn(*args, **kw, row_block=(0, r, r))
     assert mega_kernel.mega_window_cuda.launches == launches
+    port = ops.mega_window(*args, **kw, forced_down=torch.tensor(fd),
+                           speed=torch.tensor(sp))
+    ref = ref_mega.mega_window(
+        st_r, est_r, obs_r, params, rfl.arrival_rate[20:30],
+        rfl.hazard_scale[20:30], None, k_env, gum, 20,
+        **dict(kw, cfg=ref_router.cfg, disc=ref_router.resolved_disc),
+        forced_down=jnp.asarray(fd), speed=jnp.asarray(sp))
+    np.testing.assert_array_equal(t2n(port[3][0]), np.asarray(ref[3][0]))
+    assert_tree_close(port[0], ref[0], path="state")
+    assert_tree_close(port[1], ref[1], path="est")
+    assert_tree_close(port[3][5], ref[3][5], path="win")
+    assert float(port[1].err_restart.sum()) > float(est.err_restart.sum())
