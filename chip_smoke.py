@@ -104,7 +104,35 @@ failure raising (exit code != 0):
    the graphed run again through the engine, equal to the bit, with the
    fleet's mass balance closed; at R=1024 against the per-tick run on the
    same draws: the actions that differ, offload_frac within 1e-5;
-24. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
+24. shard kernel vs plain — B3 on row blocks: the R=4096 mega path's
+   state at t0=150 cut into 4 blocks of 1024 on the card, on a fresh
+   (paper-burst), a zone-outage and a ring-spillover window (M=5, the
+   blocks' 44 launches interleaved over a shared exchange buffer indexed
+   by global row), each block within MEGA_TOL of its plain version with
+   the same row block (``core.mega.mega_window_blocks``), launched twice
+   with the outputs equal to the bit, the blocks put together equal to the
+   bit to the unsharded B3 window; then R=4093 padded to 4096 on
+   ring-spillover from the sharded run's own state, its phantom rows
+   inert; one block of the fresh window timed;
+25. shard small — the sharded engine at R=7 over 4 shards (padded to 8),
+   T=30, fused AIF, mega AIF and least_loaded, on the card against the CPU
+   with the same draws: the final carry's integers equal, its floats and
+   the metrics within 1e-4;
+26. shard — ``Experiment(shard=ShardSpec(devices=1))`` mega at R=4096 x
+   T=300 and fused at R=1024 x T=300 on paper-burst against the unsharded
+   runs: final carry and env state equal to the bit, metrics within 1e-5,
+   walls side by side; then the mega experiment and ring-spillover on 4
+   shards laid on the card (B3: 4 x 30 and 4 x 330 launches) and the fused
+   one (B1: 4 x 60), metrics within 1e-4 of the unsharded runs;
+27. shard resume — zone-outage on the mega path at R=256 over 4 shards,
+   checkpointed every 100 windows and resumed: carry, env state and
+   metrics equal to the bit; the engine in two chunks against one piece:
+   carry and the reducer's stats equal to the bit;
+28. mega fleet — the reference's acceptance workload,
+   ``Experiment(router="least_loaded", n_cells=1_000_000, n_windows=25,
+   shard="auto")``, beside the unsharded engine's rollout of the same world:
+   wall_s, cell-windows/s and peak device memory of each;
+29. attention kernel vs plain — B4 (flash prefill) and B5 (flash decode)
    against their plain versions ``mha_ref``/``decode_ref`` on the card:
    internlm2-1.8b's heads (Hq=16, Hkv=8, D=128) at b=1, Sq=Skv=1024 causal
    in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
@@ -116,20 +144,20 @@ failure raising (exit code != 0):
    within 1e-6; bf16 B4 and B5 within one bf16 ulp of their model, B4
    closer to ``ref.prefill_two_half_model`` than to the model that drops
    p_lo);
-25. serve small — internlm2-1.8b's widths at 2 layers in f32, one
+30. serve small — internlm2-1.8b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
    the first prompt's prefill and of one decode step after it within 1e-4
    relative, the kernels launched as expected;
-26. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
+31. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
    max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
    1000-1024 prompt tokens with 64 new tokens each, every kernel's count
    read around it (B4: 24 per request, B5: 24 per decode wave);
-27. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
+32. multitier — ``MultiTierServer`` with the port's ``AifRouter`` over three
    engines sharing the serve phase's weights (max_batch 2/3/8,
    steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
    128-token prompts with 16 new tokens, counts read around it;
-28. times — each kernel's ms per launch (CUDA events around one
+33. times — each kernel's ms per launch (CUDA events around one
    synchronized call, warmed up, median) and its device ms (30 calls
    queued back to back behind a busy-wait, so the host's cost per call
    stays off the clock) beside its bound and its plain version's ms; B3 at the mega slice's
@@ -141,8 +169,9 @@ failure raising (exit code != 0):
    3, 8 over S=512), each with the blocks its launch puts to work; B1
    also at the hetero phase's 5-tier widths and at the graph phase's M=5
    (its own row of the kernels line, as B3's warm branch from phase 17
-   and B3 on chaos and graph windows from phases 19-20);
-29. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
+   and B3 on chaos and graph windows from phases 19-20 and on row blocks
+   from phase 24);
+34. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
@@ -153,17 +182,17 @@ failure raising (exit code != 0):
    one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
    the plain model of that route's algebra, and closer to it than to the
    model that drops the lo halves;
-30. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
+35. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
-   tokens each, checked as in phase 25 (B6: 2 per admission);
-31. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
+   tokens each, checked as in phase 30 (B6: 2 per admission);
+36. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
    max_batch=8, max_len=2048)`` in bf16, all 64 layers, answering 8
    requests of 1000-1024 prompt tokens with 32 new tokens each, every
    kernel's count read around it (B6: 64 per request), then one prefill's
    and one decode wave's host and device time; the weights are freed
    after it;
-32. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
+37. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
    bf16) beside its bound and its plain version's ms.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
@@ -1900,6 +1929,467 @@ def phase_mega_graph() -> int:
     return launches["mega_window"]
 
 
+# ------------------------------------------------------ the sharded engine
+R_ODD = R_MEGA - 3      # an R that 4 shards pad: 4093 -> 4096
+N_SHARDS = 4
+R_SHARD_CKPT = 256      # the sharded resume's fleet (4 shards of 64)
+R_FLEET, T_FLEET = 1_000_000, 25   # the reference's mega_fleet workload
+
+
+def shard_mesh() -> list:
+    """``N_SHARDS`` shards laid on the one card."""
+    return [torch.device(DEVICE)] * N_SHARDS
+
+
+def block_outputs(outs: list):
+    """B3's outputs of the row blocks put together: the carries along
+    rows, the (W, r, ...) traces along their cell axis."""
+    from repro_torch.api import shard
+    dev = torch.device(DEVICE)
+    state, est, obs = (shard.gather_rows([o[i] for o in outs], dev)
+                       for i in range(3))
+    ys = [o[3] for o in outs]
+    trace = tuple(torch.cat([y[i] for y in ys], dim=1) for i in range(5))
+    win = type(ys[0][5])(*(None if f[0] is None else torch.cat(f, dim=1)
+                           for f in zip(*(y[5] for y in ys))))
+    return state, est, obs, trace + (win,)
+
+
+def same_bits(a, b) -> bool:
+    from repro_torch.checkpoint.checkpointer import flatten
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def split_window(state, est, obs, args, r_pad: int, n_true: int):
+    """The row blocks of one window's carries and noise (clones of the
+    state, which the window's pushes write in place), and the blocks."""
+    from repro_torch.api import shard
+    mesh = shard_mesh()
+    r_local = r_pad // len(mesh)
+    uniforms, gumbel = args[4], args[5]
+    states = shard.split_rows(clone_state(state), mesh, r_local)
+    ests = shard.split_rows(est, mesh, r_local)
+    obss = shard.split_rows(obs, mesh, r_local)
+    return [(states[d], ests[d], obss[d],
+             uniforms[:, :, d * r_local:(d + 1) * r_local].contiguous(),
+             gumbel[:, d * r_local:(d + 1) * r_local].contiguous(),
+             (d * r_local, n_true, r_pad)) for d in range(len(mesh))]
+
+
+def shard_window_check(scenario: str, state, est, obs, router, env_step,
+                       noise, t0: int, r_pad: int, n_true: int) -> dict:
+    """B3 on the 4 row blocks of one window against its plain version
+    (``core.mega.mega_window_blocks``: per block ``mega_window`` with the
+    same row block, or on a graph the blocks launch by launch), launched
+    twice with the outputs equal to the bit and, at an R that needs no
+    padding, put together against the unsharded B3 window to the bit."""
+    from repro_torch.core import mega
+    from repro_torch.kernels.efe import mega as mega_kernel
+    args, kw = mega_window_inputs(router, env_step, noise, r_pad, t0)
+    params, arrival, hazard, ov = args[:4]
+    n0 = mega_kernel.mega_window_cuda.launches
+    out_k = mega_kernel.mega_window_blocks_cuda(
+        split_window(state, est, obs, args, r_pad, n_true), params, arrival,
+        hazard, ov, t0, **kw)
+    launches = mega_kernel.mega_window_cuda.launches - n0
+    out_k2 = mega_kernel.mega_window_blocks_cuda(
+        split_window(state, est, obs, args, r_pad, n_true), params, arrival,
+        hazard, ov, t0, **kw)
+    out_p = mega.mega_window_blocks(
+        split_window(state, est, obs, args, r_pad, n_true), params, arrival,
+        hazard, ov, t0, **kw)
+    torch.cuda.synchronize()
+    errs = [mega_errors(k, p, t0) for k, p in zip(out_k, out_p)]
+    row = dict(scenario=scenario, r=r_pad, n_true=n_true, t0=t0,
+               blocks=len(out_k), launches=launches,
+               ints_equal=all(e["ints_equal"] for e in errs),
+               finite=all(e["finite"] for e in errs),
+               max_abs_err=max(e["max_abs_err"] for e in errs),
+               max_scaled_err=max(e["max_scaled_err"] for e in errs),
+               launches_bit_equal=all(same_bits(a, b)
+                                      for a, b in zip(out_k, out_k2)))
+    whole = block_outputs(out_k)
+    if n_true == r_pad:
+        full = mega_kernel.mega_window_cuda(clone_state(state), est, obs,
+                                            *args, **kw)
+        row["blocks_equal_unsharded"] = same_bits(whole, full)
+        del full
+    else:
+        fin = whole[1]
+        row["phantom_inert"] = bool(
+            float(fin.n_requests[n_true:].abs().sum()) == 0.0
+            and float(fin.tier_requests[n_true:].abs().sum()) == 0.0
+            and float(fin.n_restarts[n_true:].abs().sum()) == 0.0
+            and float(fin.n_requests[:n_true].sum()) > 0.0)
+    del out_k, out_k2, out_p, whole
+    return row
+
+
+def sharded_midrun(scenario: str, n_true: int, t0: int):
+    """A sharded mega run on ``scenario`` at ``n_true`` cells padded for 4
+    shards on the card, stopped at ``t0``: (router, env_step, gathered
+    state, env state, obs carry, noise at t0)."""
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.envsim import batched
+    from repro_torch.noise import GeneratorNoise
+    dev = torch.device(DEVICE)
+    e = api.Experiment(router="aif", scenario=scenario, n_cells=n_true,
+                       n_windows=T_FULL, seed=0, mega=True, device=DEVICE)
+    spec = api.ShardSpec()
+    r_pad, _ = spec.padded(n_true, N_SHARDS)
+    g = e.resolve_graph()
+    scfg, params, env_step = experiment._build_world_padded(
+        e.resolve_topology(), scenario, n_true, T_FULL, 1.0, 0, r_pad,
+        N_SHARDS, dev, g)
+    router = e.resolve_router(scfg, g)
+    noise = GeneratorNoise(0, dev)
+    est = batched.init_fluid_state(params, env_step.n_obs_modalities)
+    state, est, _, snap = engine.sharded_resumable_rollout(
+        router, None, est, env_step, t0, noise, shard=spec, n_cells=n_true,
+        reducer=api.FleetMetricsReducer(n_cells=n_true), n_total=T_FULL,
+        mesh=shard_mesh())
+    return router, env_step, state, est, snap[0], noise, r_pad
+
+
+def phase_shard_kernel_vs_plain() -> dict:
+    """B3 on row blocks: R=4096 at t0=150 as 4 blocks of 1024 on the card,
+    on a fresh (paper-burst), a zone-outage and a ring-spillover window
+    (M=5), each block within MEGA_TOL of its plain version with the same
+    row block, two launches equal to the bit, the blocks put together
+    equal to the bit to the unsharded B3 window; then R=4093 padded to
+    4096 (ring-spillover, the sharded run's own state at t0=150) with the
+    phantom rows inert; then one block of the fresh window timed.
+    Returns the kernels line's row."""
+    from repro_torch.core import mega
+    from repro_torch.kernels.efe import mega as mega_kernel
+    phase = "shard_kernel_vs_plain"
+    rows = []
+    for scenario in ("paper-burst", "zone-outage", "ring-spillover"):
+        router, env_step, state, est, obs, noise = mega_midrun(
+            R_MEGA, T0_MEGA, "float32", scenario)
+        noise_t0 = noise.get_state()
+        row = shard_window_check(scenario, state, est, obs, router,
+                                 env_step, noise, T0_MEGA, R_MEGA, R_MEGA)
+        emit(phase, **row)
+        rows.append(row)
+        if scenario == "paper-burst":
+            noise.set_state(noise_t0)
+            args, kw = mega_window_inputs(router, env_step, noise, R_MEGA,
+                                          T0_MEGA)
+            timed = (state, est, obs, args, kw, router.dwell)
+        else:
+            del state
+        del est, obs
+        torch.cuda.empty_cache()
+    router, env_step, state, est, obs, noise, r_pad = sharded_midrun(
+        "ring-spillover", R_ODD, T0_MEGA)
+    row = shard_window_check("ring-spillover", state, est, obs, router,
+                             env_step, noise, T0_MEGA, r_pad, R_ODD)
+    emit(phase, **row)
+    rows.append(row)
+    del state, est, obs
+    torch.cuda.empty_cache()
+    for row in rows:
+        ok = (row["ints_equal"] and row["finite"]
+              and row["max_scaled_err"] <= MEGA_TOL
+              and row["launches_bit_equal"]
+              and row.get("blocks_equal_unsharded", True)
+              and row.get("phantom_inert", True))
+        if not ok:
+            raise AssertionError(f"B3 on row blocks disagrees: {row}")
+    graph_launches = [r["launches"] for r in rows
+                      if r["scenario"] == "ring-spillover"]
+    if rows[0]["launches"] != N_SHARDS or graph_launches != [
+            N_SHARDS * (api_period() + 1)] * 2:
+        raise AssertionError(f"row-block launches {rows}")
+
+    # one block of the fresh window, timed beside its plain version
+    state, est, obs, args, kw, dwell = timed
+    block = split_window(state, est, obs, args, R_MEGA, R_MEGA)[0]
+    st, es, ob, u, g, rb = block
+    params, arrival, hazard, ov = args[:4]
+
+    def kern():
+        return mega_kernel.mega_window_cuda(st, es, ob, params, arrival,
+                                            hazard, ov, u, g, T0_MEGA,
+                                            row_block=rb, **kw)
+
+    def plain():
+        return mega.mega_window(st, es, ob, params, arrival, hazard, ov, u,
+                                g, T0_MEGA, row_block=rb, **kw)
+
+    t = dict(ms=time_ms(kern), plain_ms=time_ms(plain, warmup=1, iters=3))
+    t["device_ms"], ahead = queued_ms(kern)
+    r_loc = R_MEGA // N_SHARDS
+    cut = (params, arrival[:, :r_loc], hazard[:, :r_loc], ov, u, g, T0_MEGA)
+    bytes_ms, ops_ms = mega_bound(st, cut, T0_MEGA, dwell)
+    t.update(bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             queued_ahead=ahead)
+    emit(phase + "_times", scenario="paper-burst", r=R_MEGA,
+         block_rows=r_loc, t0=T0_MEGA, **t)
+    del timed, state, est, obs, args, block, st, es, ob, u, g
+    torch.cuda.empty_cache()
+    err = max(r["max_abs_err"] for r in rows)
+    return {"name": "mega_window", "variant": "row_blocks", "route": "cuda",
+            "source": "src/repro_torch/csrc/mega_window.cu",
+            "replaces": "src/repro/kernels/efe/mega.py:85",
+            "scenario": "paper-burst", "r": R_MEGA, "block_rows": r_loc,
+            "blocks": N_SHARDS, "t0": T0_MEGA, "max_abs_err": err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "device_ms": t["device_ms"],
+            "library_device_ms": None}
+
+
+def phase_shard_small() -> None:
+    """The sharded engine on the card against the CPU: R=7 over 4 shards
+    (padded to 8), T=30, fused AIF, mega AIF and least_loaded, the same
+    draws: every integer of the final carry equal, its floats and the
+    metrics within 1e-4."""
+    from repro_torch import api
+    from repro_torch.api import experiment
+    from repro_torch.checkpoint.checkpointer import flatten
+    for kw in (dict(router="aif"), dict(router="aif", mega=True),
+               dict(router="least_loaded")):
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            e = api.Experiment(scenario="paper-burst", n_cells=7,
+                               n_windows=30, seed=1, device=dev, **kw)
+            runs[dev] = experiment._run_sharded(
+                e, torch.device(dev), api.ShardSpec(),
+                MirroredNoise(1, dev), mesh=[torch.device(dev)] * N_SHARDS)
+        gpu, cpu = runs[DEVICE], runs["cpu"]
+        fg, fc = flatten(gpu.final_carry), flatten(cpu.final_carry)
+        ints = all(torch.equal(fg[k].cpu(), fc[k]) for k in fc
+                   if not fc[k].is_floating_point())
+        carry_err = max([(fg[k].cpu() - fc[k]).abs().max().item()
+                         for k in fc if fc[k].is_floating_point()
+                         and fc[k].numel()], default=0.0)
+        rel = {k: abs(getattr(gpu, k) - getattr(cpu, k))
+               / max(abs(getattr(cpu, k)), 1e-9)
+               for k in ("success_pct", "p50_ms", "p95_ms", "obs_frac")}
+        emit("shard_small", n_cells=7, shards=N_SHARDS, n_windows=30,
+             cells_per_device=gpu.cells_per_device, ints_equal=ints,
+             carry_max_abs_err=carry_err, rel_err=rel, **kw)
+        if not ints or carry_err > 1e-4 or max(rel.values()) > 1e-4:
+            raise AssertionError(f"the sharded engine on the card disagrees "
+                                 f"with the CPU ({kw})")
+
+
+def shard_metrics_gap(a, b) -> float:
+    """Largest gap between two runs' success %, obs fraction, offload and
+    tier / routed shares."""
+    gaps = [abs(a.success_pct - b.success_pct), abs(a.obs_frac - b.obs_frac),
+            abs(a.offload_frac - b.offload_frac),
+            float(np.abs(a.tier_share - b.tier_share).max()),
+            float(np.abs(a.routed_share - b.routed_share).max())]
+    return max(gaps)
+
+
+def phase_shard() -> dict:
+    """``Experiment(shard=ShardSpec(devices=1))`` against the unsharded run:
+    mega at R=4096 x T=300 and fused at R=1024 x T=300 on paper-burst, the
+    final carry and env state equal to the bit, the metrics within 1e-5;
+    then the mega experiment and ring-spillover on 4 shards laid on the
+    card (B3: 4 x 30 and 4 x 330 launches), the metrics within 1e-4 of the
+    unsharded run; and the fused run on 4 shards (B1: 4 x 60 launches),
+    whose host loop steps every shard.  Returns B3's launches of the 4-shard
+    mega runs by scenario."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.api import experiment
+    dev = torch.device(DEVICE)
+    windows = math.ceil(T_FULL / api_period())
+    out = {}
+    for name, r, mega in (("mega", R_MEGA, True), ("fused", R_FULL, False)):
+        e = api.Experiment(router="aif", scenario="paper-burst", n_cells=r,
+                           n_windows=T_FULL, seed=0, mega=mega, device=DEVICE)
+        r0, l0 = run_counted(e)
+        r1, l1 = run_counted(dataclasses.replace(
+            e, shard=api.ShardSpec(devices=1)))
+        bits = same_bits(r0.final_carry, r1.final_carry) and all(
+            np.array_equal(getattr(r0.fluid, f), getattr(r1.fluid, f))
+            for f in ("n_requests", "n_success", "tier_requests",
+                      "tier_success", "n_restarts"))
+        gap = shard_metrics_gap(r0, r1)
+        emit("shard", path=name, shards=1, n_cells=r, n_windows=T_FULL,
+             wall_s=r1.wall_s, unsharded_wall_s=r0.wall_s, launches=l1,
+             unsharded_launches=l0, bits_equal_unsharded=bits,
+             metrics_gap=gap, success_pct=r1.success_pct,
+             p95_ms=r1.p95_ms, unsharded_p95_ms=r0.p95_ms)
+        if not bits or gap > 1e-5 or l0 != l1:
+            raise AssertionError(f"the 1-shard {name} run differs from the "
+                                 f"unsharded run (bits {bits}, gap {gap})")
+        out[name] = r0
+        del r1
+        torch.cuda.empty_cache()
+    launches = {}
+    selecting = math.ceil(T_FULL / api.AifRouter().dwell)
+    for scenario, mega in (("paper-burst", True), ("ring-spillover", True),
+                           ("paper-burst", False)):
+        r = R_MEGA if mega else R_FULL
+        e = api.Experiment(router="aif", scenario=scenario, n_cells=r,
+                           n_windows=T_FULL, seed=0, mega=mega, device=DEVICE)
+        r0 = (out["mega" if mega else "fused"] if scenario == "paper-burst"
+              else run_counted(e)[0])
+        r4, l4 = counted(lambda: experiment._run_sharded(
+            e, dev, api.ShardSpec(), None, mesh=shard_mesh()))
+        per_window = api_period() + 1 if scenario == "ring-spillover" else 1
+        expect = (dict(NO_LAUNCHES,
+                       mega_window=N_SHARDS * windows * per_window) if mega
+                  else dict(NO_LAUNCHES,
+                            belief_efe_fleet=N_SHARDS * selecting))
+        gap = shard_metrics_gap(r0, r4)
+        emit("shard", path="mega" if mega else "fused", shards=N_SHARDS,
+             scenario=scenario, n_cells=r, n_windows=T_FULL,
+             wall_s=r4.wall_s, unsharded_wall_s=r0.wall_s, launches=l4,
+             metrics_gap=gap, success_pct=r4.success_pct,
+             unsharded_success_pct=r0.success_pct,
+             offload_frac=r4.offload_frac,
+             cells_per_device=r4.cells_per_device)
+        if l4 != expect:
+            raise AssertionError(f"the 4-shard {scenario} run launched {l4}")
+        if gap > 1e-4 or not math.isfinite(r4.success_pct):
+            raise AssertionError(f"the 4-shard {scenario} run is {gap} off "
+                                 f"the unsharded run")
+        if mega:
+            launches[scenario] = l4["mega_window"]
+        del r0, r4
+        torch.cuda.empty_cache()
+    del out
+    return launches
+
+
+def phase_shard_resume() -> None:
+    """zone-outage on the mega path at R=256 over 4 shards on the card,
+    checkpointed every 100 windows and resumed from the newest checkpoint:
+    the final carry, the env state and the fleet metrics equal to the bit
+    to the uninterrupted sharded run; and at the engine, a run in two
+    chunks against one piece: carry and the reducer's stats equal to the
+    bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.envsim import batched
+    dev = torch.device(DEVICE)
+    e = api.Experiment(router="aif", scenario="zone-outage",
+                       n_cells=R_SHARD_CKPT, n_windows=T_FULL, seed=0,
+                       mega=True, device=DEVICE)
+    spec = api.ShardSpec()
+
+    def sharded(x):
+        return counted(lambda: experiment._run_sharded(
+            x, dev, spec, None, mesh=shard_mesh()))
+
+    r0, l0 = sharded(e)
+    d = tempfile.mkdtemp(prefix="chip_smoke_shard_ckpt_")
+    try:
+        r1, l1 = sharded(dataclasses.replace(e, checkpoint_every=CKPT_EVERY,
+                                             checkpoint_dir=d))
+        r2, l2 = sharded(dataclasses.replace(e, resume_from=d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    fields = ("success_pct", "p50_ms", "p95_ms", "obs_frac", "offload_frac")
+
+    def equal(a, b):
+        return (same_bits(a.final_carry, b.final_carry)
+                and all(getattr(a, f) == getattr(b, f) for f in fields)
+                and np.array_equal(a.fluid.n_success, b.fluid.n_success))
+
+    # the engine in two chunks against one piece, stats compared raw
+    r_pad, _ = spec.padded(R_SHARD_CKPT, N_SHARDS)
+    scfg, params, env_step = experiment._build_world_padded(
+        e.resolve_topology(), e.scenario, R_SHARD_CKPT, T_FULL, 1.0, 0,
+        r_pad, N_SHARDS, dev, None)
+    router = e.resolve_router(scfg)
+    red = api.FleetMetricsReducer(n_cells=R_SHARD_CKPT)
+    kw = dict(shard=spec, n_cells=R_SHARD_CKPT, reducer=red,
+              mesh=shard_mesh())
+
+    def fresh():
+        return batched.init_fluid_state(params, env_step.n_obs_modalities)
+
+    c_u, e_u, s_u = engine.sharded_rollout(router, fresh(), env_step, T_FULL,
+                                           seed=0, **kw)
+    half = T_FULL // 2
+    c1, e1, _, snap = engine.sharded_resumable_rollout(
+        router, None, fresh(), env_step, half, seed=0, n_total=T_FULL, **kw)
+    c2, e2, s2, _ = engine.sharded_resumable_rollout(
+        router, c1, e1, env_step, T_FULL - half, seed=0, t_begin=half,
+        snapshot=snap, **kw)
+    s_c = engine.sharded_finalize(s2, shard=spec, reducer=red)
+    checks = dict(checkpointed_equal=equal(r0, r1), resumed_equal=equal(r0, r2),
+                  engine_carry_equal=same_bits(c_u, c2),
+                  engine_env_equal=same_bits(e_u, e2),
+                  engine_stats_equal=same_bits(s_u, s_c))
+    emit("shard_resume", scenario=e.scenario, n_cells=R_SHARD_CKPT,
+         shards=N_SHARDS, n_windows=T_FULL, checkpoint_every=CKPT_EVERY,
+         resume_points=[r1.resume_points, r2.resume_points],
+         wall_s=[r0.wall_s, r1.wall_s, r2.wall_s],
+         launches=[l0["mega_window"], l1["mega_window"], l2["mega_window"]],
+         **checks)
+    if not all(checks.values()) or min(l0["mega_window"],
+                                       l2["mega_window"]) < 1:
+        raise AssertionError(f"the sharded resume is not equal to the bit: "
+                             f"{checks}")
+    del r0, r1, r2, c_u, e_u, c1, e1, c2, e2
+    torch.cuda.empty_cache()
+
+
+def phase_mega_fleet() -> None:
+    """The reference's acceptance workload, ``Experiment(router=
+    "least_loaded", n_cells=1_000_000, n_windows=25, shard="auto")`` (one
+    card: one shard), beside the unsharded engine's rollout of the same
+    world (its trace kept): wall_s, cell-windows/s and the peak device
+    memory of each."""
+    from repro_torch import api
+    from repro_torch.api import engine, experiment
+    from repro_torch.envsim import batched
+    dev = torch.device(DEVICE)
+    e = api.Experiment(router="least_loaded", scenario="paper-burst",
+                       n_cells=R_FLEET, n_windows=T_FLEET, seed=0,
+                       shard="auto", device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = run_counted(e)
+    with_build = time.perf_counter() - t0
+    sharded = dict(wall_s=res.wall_s, with_build_s=with_build,
+                   cell_windows_per_s=R_FLEET * T_FLEET / res.wall_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   success_pct=res.success_pct, p50_ms=res.p50_ms,
+                   p95_ms=res.p95_ms, cells_per_device=res.cells_per_device,
+                   launches=launches)
+    finite = all(math.isfinite(v) for v in (res.success_pct, res.p95_ms))
+    del res
+    torch.cuda.empty_cache()
+    scfg, params, env_step = experiment._build_world(
+        e.resolve_topology(), e.scenario, R_FLEET, T_FLEET, 1.0, 0, dev)
+    router = e.resolve_router(scfg)
+    est = batched.init_fluid_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, est, trace = engine.rollout(router, router.init_carry(R_FLEET, dev),
+                                   est, env_step, T_FLEET, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dense = dict(wall_s=wall, cell_windows_per_s=R_FLEET * T_FLEET / wall,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del est, trace, params, env_step
+    torch.cuda.empty_cache()
+    emit("mega_fleet", router="least_loaded", n_cells=R_FLEET,
+         n_windows=T_FLEET, sharded=sharded, unsharded=dense)
+    if not finite or launches != NO_LAUNCHES:
+        raise AssertionError(f"the million-cell run failed: {sharded}")
+
+
 # ---------------------------------------------------- attention and serving
 def attn_operands(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
                   dtype: torch.dtype, seed: int = 0):
@@ -2676,6 +3166,13 @@ def main() -> int:
     chaos_row["launches"] = phase_mega_chaos()
     phase_resume((("zone-outage", True),), "mega_chaos_resume")
     graph_row["launches"] = phase_mega_graph()
+    shard_row = phase_shard_kernel_vs_plain()
+    phase_shard_small()
+    shard_launches = phase_shard()
+    shard_row["launches"] = shard_launches["paper-burst"]
+    shard_row["graph_launches"] = shard_launches["ring-spillover"]
+    phase_shard_resume()
+    phase_mega_fleet()
     errs.update(phase_attn_kernel_vs_plain())
     phase_serve_small()
     weights, serve_counts, lengths = phase_serve()
@@ -2683,7 +3180,7 @@ def main() -> int:
     del weights
     rows = phase_times(errs, launches, launches_5tier)
     rows += [graph_times(graph_err, graph_launches), warm_row, chaos_row,
-             graph_row]
+             graph_row, shard_row]
     rows += attn_times(errs, serve_counts, lengths)
     ssd_errs = phase_ssd_kernel_vs_plain()
     phase_serve_small(MAMBA_ARCH, (64, 50, 37, 64), "mamba_serve_small")

@@ -31,8 +31,18 @@ Checkpointable runs (:func:`resumable_rollout`) split the horizon into
 chunks that start on slow-period boundaries; each chunk returns a snapshot
 (the telemetry carry and the noise source's position) that, with the
 router carry and env state, makes stop-and-resume replay the uninterrupted
-run's operations exactly.  The reference's sharded engine is ROADMAP item
-A10.
+run's operations exactly.
+
+Device sharding (:func:`sharded_rollout`): the fleet's padded cell axis is
+cut into row blocks, one a shard, each on its device
+(:mod:`repro_torch.api.shard`).  One host loop drives them all, ticks (or
+windows) outside and shards inside, so a graph tick's exchange is one
+gather between the shards.  Every draw is made at the true R and each
+shard takes its rows (:class:`repro_torch.noise.RowBlockNoise`), and the
+per-tick trace is replaced by a reducer's O(R) stats
+(:class:`repro_torch.api.experiment.FleetMetricsReducer`), summed over the
+shards in shard order at the end.  One shard reproduces the unsharded
+engine to the bit.
 """
 from __future__ import annotations
 
@@ -40,12 +50,14 @@ from typing import Callable
 
 import torch
 
+from repro_torch.api import shard as shard_mod
 from repro_torch.api.router import Router, RouterObs
 from repro_torch.core import mega as mega_mod
 from repro_torch.core.fleet import FleetTrace
 from repro_torch.envsim.batched import WindowInfo, stack_infos
 from repro_torch.kernels.efe import ops as efe_ops
-from repro_torch.noise import GeneratorNoise, Noise, get_state, set_state
+from repro_torch.noise import (GeneratorNoise, Noise, RowBlockNoise,
+                               get_state, set_state)
 
 
 def _fresh_obs_carry(r: int, m: int, k: int, device: torch.device):
@@ -333,28 +345,53 @@ def _warm_clock(router, carry) -> int:
     return warm
 
 
-def _mega_window(state, est, obs, fl, noise, t_start: int, w_ticks: int, *,
-                 do_slow: bool, statics: dict):
-    """One window: the noise block, the fused launch, then (at a period
-    boundary) the slow step, then the watchdog on the window's result."""
-    cfg = statics["cfg"]
-    r, k = state.belief.shape[0], fl.params.n_tiers
-    dev = state.belief.device
+def _window_noise(noise, t_start: int, w_ticks: int, r: int, a_n: int,
+                  k: int, dev: torch.device):
+    """A window's noise block: (W, R, A) Gumbel noise, then (W, 2, R, K)
+    restart uniforms, drawn tick by tick."""
     ticks = range(t_start, t_start + w_ticks)
-    gumbel = torch.stack([noise.gumbel(t, (r, cfg.n_actions))
-                          for t in ticks]).to(dev)
+    gumbel = torch.stack([noise.gumbel(t, (r, a_n)) for t in ticks]).to(dev)
     uniforms = torch.stack([torch.stack(noise.env_uniforms(t, (r, k)))
                             for t in ticks]).to(dev)
+    return gumbel, uniforms
+
+
+def _window_slices(fl, t_start: int, w_ticks: int) -> tuple:
+    """A window's (params, arrival, hazard, obs_valid) and its keyword
+    operands (the fault schedules' slices, the graph), as ``mega_window``
+    takes them."""
     sl = slice(t_start, t_start + w_ticks)
 
     def window(x):
         return None if x is None else x[sl]
 
+    return ((fl.params, fl.arrival_rate[sl], fl.hazard_scale[sl],
+             window(fl.obs_valid)),
+            dict(forced_down=window(fl.forced_down), speed=window(fl.speed),
+                 graph=fl.graph))
+
+
+def _mega_window(state, est, obs, fl, noise, t_start: int, w_ticks: int, *,
+                 do_slow: bool, statics: dict):
+    """One window: the noise block, the fused launch, then (at a period
+    boundary) the slow step, then the watchdog on the window's result."""
+    cfg = statics["cfg"]
+    gumbel, uniforms = _window_noise(
+        noise, t_start, w_ticks, state.belief.shape[0], cfg.n_actions,
+        fl.params.n_tiers, state.belief.device)
+    args, kw = _window_slices(fl, t_start, w_ticks)
     state, est, obs, ys = efe_ops.mega_window(
-        state, est, obs, fl.params, fl.arrival_rate[sl], fl.hazard_scale[sl],
-        window(fl.obs_valid), uniforms, gumbel, t_start,
-        forced_down=window(fl.forced_down), speed=window(fl.speed),
-        graph=fl.graph, **statics)
+        state, est, obs, *args, uniforms, gumbel, t_start, **kw, **statics)
+    state, events = _window_after(state, noise, t_start, w_ticks,
+                                  do_slow=do_slow, cfg=cfg)
+    return state, est, obs, ys + (events,)
+
+
+def _window_after(state, noise, t_start: int, w_ticks: int, *,
+                  do_slow: bool, cfg):
+    """The slow step at a period boundary (replay drawn at the window's
+    last tick), then the watchdog.  Returns (state, (W, R) events)."""
+    r, dev = state.belief.shape[0], state.belief.device
     if do_slow:
         size = torch.clamp(state.t, max=state.slots.action.shape[1])
         idx = noise.replay_indices(t_start + w_ticks - 1, size,
@@ -366,7 +403,7 @@ def _mega_window(state, est, obs, fl, noise, t_start: int, w_ticks: int, *,
         if bool(bad.any()):
             state = mega_mod.mega_quarantine(state, bad, cfg)
         events[-1] = bad.to(torch.float32)
-    return state, est, obs, ys + (events,)
+    return state, events
 
 
 # ------------------------------------------------------- checkpointed chunks
@@ -440,3 +477,281 @@ def resumable_rollout(router: Router,
         router, carry, env_state, env_step, n_steps, noise, clock_phase=0,
         obs_masked=obs_masked, t_begin=t_begin, obs_init=obs_init)
     return carry, est, trace, (obs_out, get_state(noise))
+
+
+# ------------------------------------------------------------ device sharding
+def sharded_rollout(router: Router,
+                    env_state,
+                    env_step: Callable,
+                    n_steps: int,
+                    noise: Noise | None = None,
+                    *,
+                    shard,
+                    n_cells: int,
+                    reducer,
+                    seed: int = 0,
+                    obs_masked: bool | None = None,
+                    mesh: list | None = None):
+    """:func:`rollout` over the row blocks of a sharded fleet.
+
+    The padded cell axis is cut into one block of ``R_pad / D`` rows per
+    shard, each on its device.  The router carry is initialized per shard;
+    each tick (per-tick path) or window (mega path) runs every shard in
+    shard order: the router steps with the shard's view of the noise
+    (:class:`~repro_torch.noise.RowBlockNoise`: every draw made once at
+    the true R), the env steps every block at once
+    (``env_step.step_blocks``: on a graph, one exchange between them), and
+    each shard's reducer stats take the tick.  A mega router runs kernel
+    B3 on each block (:func:`repro_torch.kernels.efe.ops.mega_window_blocks`;
+    on a graph, launch by launch across the blocks).  The per-tick trace
+    is replaced by ``reducer``'s stats, so memory stays O(R).
+
+    Args:
+      router: router spec; its ``init_carry`` is deterministic in its cell
+        count.
+      env_state: env state **padded** to the shard count's multiple
+        (leading dim ``shard.padded(n_cells, ...)[0]`` on every leaf; see
+        :func:`repro_torch.envsim.scenarios.pad_scenario`).
+      env_step: a shard-aware adapter (``env_step.supports_shard``), e.g.
+        :func:`repro_torch.envsim.batched.make_env_step`.
+      n_steps: horizon T.
+      noise: the run's noise; None draws from a generator seeded with
+        ``seed`` on the env state's device.
+      shard: a :class:`repro_torch.api.shard.ShardSpec`.
+      n_cells: the *true* fleet size R.
+      reducer: stats accumulator with ``init(r_local, row0, device)``,
+        ``update(stats, t, trace_tick)``, ``update_window(stats, t0,
+        trace_window)`` and ``finalize(stacked_stats)``, e.g.
+        :class:`repro_torch.api.experiment.FleetMetricsReducer`.
+      obs_masked: as for :func:`rollout`.
+      mesh: the shards' devices, overriding ``shard.build_mesh``:
+        ``[device] * D`` lays D shards on one device.
+
+    Returns:
+      (router carry, env state, reduced stats): the carry and the env
+      state gathered along the padded cell axis on the env state's device,
+      the stats summed over the shards in shard order.  With one shard the
+      carry and env state equal the unsharded engine's to the bit.
+    """
+    carry, est, stats, _ = _sharded_chunk(
+        router, None, env_state, env_step, n_steps, noise, shard=shard,
+        n_cells=n_cells, reducer=reducer, seed=seed, obs_masked=obs_masked,
+        mesh=mesh, t_begin=0, snapshot=None, n_total=None)
+    return carry, est, reducer.finalize(stats)
+
+
+def sharded_resumable_rollout(router: Router,
+                              carry,
+                              env_state,
+                              env_step: Callable,
+                              n_steps: int,
+                              noise: Noise | None = None,
+                              *,
+                              shard,
+                              n_cells: int,
+                              reducer,
+                              seed: int = 0,
+                              t_begin: int = 0,
+                              snapshot=None,
+                              obs_masked: bool | None = None,
+                              n_total: int | None = None,
+                              mesh: list | None = None):
+    """One chunk of a checkpointable :func:`sharded_rollout`.
+
+    The contract of :func:`resumable_rollout` on the sharded engine, the
+    per-tick and the mega path.  The snapshot is ``(telemetry carry, raw
+    stats, noise position)``: the telemetry gathered along the padded
+    cell axis, the reducer's unreduced stats stacked with a leading shard
+    axis, and the noise source's position.  ``carry`` is the gathered
+    router carry (chunk 0 ignores it: each shard starts its own rows
+    fresh); for a mega router chunk 0 takes ``n_total``, the whole
+    horizon.  The returned stats are raw; :func:`sharded_finalize` of the
+    last chunk's equals :func:`sharded_rollout`'s reduction of the
+    uninterrupted run.
+
+    Returns (router carry, env state, raw stats, snapshot).
+    """
+    _check_boundary(router, t_begin)
+    if (t_begin == 0) != (snapshot is None):
+        raise ValueError(
+            "chunk 0 (t_begin=0) takes snapshot=None; resumed chunks "
+            "(t_begin>0) need the previous chunk's snapshot")
+    return _sharded_chunk(
+        router, carry, env_state, env_step, n_steps, noise, shard=shard,
+        n_cells=n_cells, reducer=reducer, seed=seed, obs_masked=obs_masked,
+        mesh=mesh, t_begin=t_begin, snapshot=snapshot, n_total=n_total)
+
+
+def sharded_finalize(stats, *, shard, reducer):
+    """The reduction of a chunked run's raw stats (see
+    :func:`sharded_resumable_rollout`): the shards' stats summed in shard
+    order, equal to what :func:`sharded_rollout` returns for the
+    uninterrupted run."""
+    return reducer.finalize(stats)
+
+
+def _sharded_chunk(router, carry, env_state, env_step, n_steps, noise, *,
+                   shard, n_cells, reducer, seed, obs_masked, mesh, t_begin,
+                   snapshot, n_total):
+    if not getattr(env_step, "supports_shard", False):
+        raise ValueError(
+            "env_step does not advertise supports_shard=True: sharded "
+            "rollouts need a row_block-aware adapter (see "
+            "repro_torch.envsim.batched.make_env_step); rebuild the closure "
+            "instead of sharding a schedule-blind one")
+    if n_steps < 1:
+        raise ValueError("sharded rollouts need n_steps >= 1")
+    dev = env_state[0].device
+    mesh = (shard.build_mesh(dev) if mesh is None
+            else [torch.device(d) for d in mesh])
+    r_pad, r_local = shard.padded(n_cells, len(mesh))
+    lead = env_state[0].shape[0]
+    if lead != r_pad:
+        raise ValueError(
+            f"env_state leading dim {lead} != padded fleet size {r_pad} "
+            f"(R={n_cells} on {len(mesh)} shards): build the world at the "
+            f"true R, then pad it (scenarios.pad_scenario, params at the "
+            f"padded size)")
+    blocks = [(d * r_local, n_cells, r_pad) for d in range(len(mesh))]
+    if noise is None:
+        noise = GeneratorNoise(seed, dev)
+    if obs_masked is None:
+        obs_masked = bool(getattr(env_step, "emits_mask", False))
+    group = RowBlockNoise(noise, n_cells, r_local, mesh)
+    ests = shard_mod.split_rows(env_state, mesh, r_local)
+    if snapshot is None:
+        carries = None
+        obs = [_fresh_obs_carry(r_local, router.n_modalities, router.n_tiers,
+                                d) for d in mesh]
+        stats = [reducer.init(r_local, row0, d)
+                 for (row0, _, _), d in zip(blocks, mesh)]
+    else:
+        obs_g, stats_g, noise_state = snapshot
+        set_state(group, noise_state)
+        carries = shard_mod.split_rows(carry, mesh, r_local)
+        obs = shard_mod.split_rows(tuple(obs_g), mesh, r_local)
+        stats = [tuple(x[d].to(dev_d) for x in stats_g)
+                 for d, dev_d in enumerate(mesh)]
+    run = dict(group=group, blocks=blocks, reducer=reducer,
+               obs_masked=obs_masked, t_begin=t_begin)
+    if getattr(router, "mega", False):
+        carries = _sharded_mega(router, carries, ests, obs, stats, env_step,
+                                n_steps, n_total=n_total, **run)
+    else:
+        if carries is None:
+            carries = [router.init_carry(r_local, d) for d in mesh]
+            clock_phase = router.clock_phase(router.init_carry(1, dev))
+        else:
+            clock_phase = 0
+        _sharded_ticks(router, carries, ests, obs, stats, env_step, n_steps,
+                       clock_phase=clock_phase, **run)
+    stats_g = tuple(torch.stack([s[i].to(dev) for s in stats])
+                    for i in range(len(stats[0])))
+    snap = (shard_mod.gather_rows(obs, dev), stats_g, get_state(group))
+    return (shard_mod.gather_rows(carries, dev),
+            shard_mod.gather_rows(ests, dev), stats_g, snap)
+
+
+def _sharded_ticks(router, carries, ests, obs, stats, env_step, n_steps, *,
+                   group, blocks, reducer, obs_masked, t_begin,
+                   clock_phase):
+    """The per-tick loop over every shard, updating the per-shard lists in
+    place: ticks outside, shards inside, in :func:`_rollout_core`'s order
+    (every shard's router step, the env over all blocks, the reducer, every
+    shard's slow step)."""
+    views = [group.block(d) for d in range(len(blocks))]
+    r_local = ests[0][0].shape[0]
+    k_tiers = router.n_tiers
+    period = max(int(router.period), 1)
+    dwell = max(int(router.dwell), 1)
+    dwell_blocked = (dwell > 1 and clock_phase is not None
+                     and (not router.has_slow or period % dwell == 0))
+    phase0 = clock_phase or 0
+    for i in range(n_steps):
+        t = t_begin + i
+        group.clear()
+        weights = []
+        for d, view in enumerate(views):
+            raw_obs, tier_util, tier_up, tier_queue, obs_mask = obs[d]
+            ro = RouterObs(raw_obs=raw_obs, tier_utilization=tier_util,
+                           tier_up=tier_up, tier_queue=tier_queue, t_idx=t)
+            mask = obs_mask if obs_masked else None
+            if dwell_blocked and (phase0 + i) % dwell != 0:
+                carries[d], w, _ = router.light_step(carries[d], ro, mask)
+            else:
+                carries[d], w, _ = router.step(carries[d], ro, mask, view)
+            weights.append(w)
+        uniforms = [view.env_uniforms(t, (r_local, k_tiers))
+                    for view in views]
+        ests[:], wins = env_step.step_blocks(ests, weights, t, uniforms,
+                                             blocks)
+        for d, win in enumerate(wins):
+            stats[d] = reducer.update(stats[d], t, _stats_trace(
+                torch.mean(obs[d][4], dim=-1), win))
+        if router.has_slow and (clock_phase is None
+                                or (clock_phase + i + 1) % period == 0):
+            for d, view in enumerate(views):
+                carries[d] = router.slow_step(carries[d], view, t)
+        for d, win in enumerate(wins):
+            obs[d] = (win.raw_obs, win.tier_utilization, win.tier_up,
+                      win.tier_queue, win.obs_mask if obs_masked
+                      else obs[d][4])
+
+
+def _sharded_mega(router, states, ests, obs, stats, env_step, n_steps, *,
+                  group, blocks, reducer, obs_masked, t_begin, n_total):
+    """The mega path over every shard, updating the per-shard lists in
+    place: windows outside, shards inside (each shard's noise block, B3 on
+    every block, each shard's slow step and watchdog, the reducer).
+    Returns the shards' states."""
+    fl = getattr(env_step, "fluid", None)
+    if fl is None:
+        raise ValueError(
+            "sharded mega rollouts need the env adapter's whole-window "
+            "ingredients (env_step.fluid, set by repro_torch.envsim.batched."
+            "make_env_step)")
+    cfg = router.cfg
+    period = max(int(router.period), 1)
+    mesh = group.mesh
+    r_local = group.r_local
+    views = [group.block(d) for d in range(len(mesh))]
+    if states is None:
+        horizon = n_steps if n_total is None else int(n_total)
+        states = [mega_mod.init_mega_state(cfg, r_local, horizon,
+                                           router.slot_dtype, d)
+                  for d in mesh]
+    if t_begin + n_steps > states[0].slots.action.shape[1]:
+        raise ValueError(
+            f"ticks up to {t_begin + n_steps} do not fit the state's "
+            f"{states[0].slots.action.shape[1]} slots: size the first chunk "
+            f"with the whole horizon (n_total)")
+    statics = dict(cfg=cfg, disc=router.resolved_disc,
+                   util_edges=router.resolved_util_edges,
+                   util_period=router.util_period, dt=fl.dt,
+                   scrape_every=fl.scrape_every,
+                   restart_blackout=fl.restart_blackout,
+                   emits_mask=obs_masked)
+    for t_start in range(t_begin, t_begin + n_steps, period):
+        w = min(period, t_begin + n_steps - t_start)
+        group.clear()
+        noises = [_window_noise(view, t_start, w, r_local, cfg.n_actions,
+                                fl.params.n_tiers, d)
+                  for view, d in zip(views, mesh)]
+        args, kw = _window_slices(fl, t_start, w)
+        outs = efe_ops.mega_window_blocks(
+            [(states[d], ests[d], obs[d], u, g, blocks[d])
+             for d, (g, u) in enumerate(noises)],
+            *args, t_start, **kw, **statics)
+        for d, (state, est, o, ys) in enumerate(outs):
+            states[d], _ = _window_after(state, views[d], t_start, w,
+                                         do_slow=(w == period), cfg=cfg)
+            ests[d], obs[d] = est, o
+            stats[d] = reducer.update_window(stats[d], t_start,
+                                             _stats_trace(ys[4], ys[5]))
+    return states
+
+
+def _stats_trace(obs_frac, env) -> FleetTrace:
+    """The trace fields a reducer reads, as a :class:`FleetTrace`."""
+    return FleetTrace(actions=None, routing_weights=None, raw_obs=None,
+                      unstable=None, obs_frac=obs_frac, env=env)

@@ -29,12 +29,23 @@ plain version), and ``device`` defaults to ``"cuda"``.  ``mega=True`` runs
 the whole-window engine path.  ``graph`` attaches a fleet graph
 (:mod:`repro_torch.core.graph`): rejected load spills to graph neighbors
 and the routers see a fifth, neighbor-pressure, telemetry column; the
-graph scenario presets attach theirs by default.  Sharding is ROADMAP
-item A10.
+graph scenario presets attach theirs by default.
+
+Mega-fleets: ``shard="auto"`` (or a :class:`~repro_torch.api.shard.ShardSpec`)
+runs the same experiment over row blocks of the cell axis, one a device
+(:func:`repro_torch.api.engine.sharded_rollout`), with the per-tick trace
+replaced by :class:`FleetMetricsReducer`'s O(R) stats::
+
+    api.run(api.Experiment(router="least_loaded", n_cells=1_000_000,
+                           n_windows=25, shard="auto"))
+
+P50/P95 then come from fleet-global latency histograms, ``trace`` is None,
+and the final env state still comes back per cell.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 from typing import Any, Callable, Sequence
@@ -45,7 +56,11 @@ import torch
 from repro_torch.api import engine as engine_mod
 from repro_torch.api import router as router_mod
 from repro_torch.api.aif import AifRouter
-from repro_torch.api.engine import resumable_rollout, rollout
+from repro_torch.api.engine import (resumable_rollout, rollout,
+                                    sharded_finalize,
+                                    sharded_resumable_rollout,
+                                    sharded_rollout)
+from repro_torch.api.shard import ShardSpec, resolve as resolve_shard
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import generative
 from repro_torch.core import graph as graph_mod
@@ -137,6 +152,117 @@ def _graphify_router(r: router_mod.Router,
     return r
 
 
+# ---------------------------------------------------------- sharded reduction
+#: Fleet-global latency histogram: 512 log-spaced bins over 0.1 ms .. 1000 s
+#: (~3.2 % wide, ±1.6 % on a reported quantile).
+_HIST_BINS = 512
+_HIST_LO_S = 1e-4
+_HIST_HI_S = 1e3
+_HIST_SCALE = _HIST_BINS / (np.log(_HIST_HI_S) - np.log(_HIST_LO_S))
+#: The histograms hold completion mass as integers of 2**-20 request: an
+#: integer sum is exact, so the bins are the same bits whatever order the
+#: device adds them in (float atomics are not), on a rerun and on resume.
+_HIST_ONE = 2.0 ** 20
+
+
+def _hist_quantile(hist: np.ndarray, q: float) -> float:
+    """Mass-weighted quantile (seconds) of a log-spaced latency histogram:
+    the geometric midpoint of the first bin whose cumulative mass reaches
+    ``q``, the completion-weighted convention of
+    :func:`repro_torch.envsim.batched.summarize` quantized to a bin."""
+    hist = np.asarray(hist, np.float64)
+    total = hist.sum()
+    if total <= 0:
+        return 0.0
+    idx = int(np.searchsorted(np.cumsum(hist) / total, q).clip(
+        0, _HIST_BINS - 1))
+    return float(np.exp(np.log(_HIST_LO_S) + (idx + 0.5) / _HIST_SCALE))
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetMetricsReducer:
+    """O(R)-memory metrics accumulator of the sharded engine.
+
+    Replaces the stacked (T, R, ...) trace with a few small tensors per
+    shard (the contract :func:`repro_torch.api.engine.sharded_rollout`
+    expects).  A shard's stats are ``(valid, hist50, hist95, obs_sum,
+    spill_sum)``: ``valid`` masks the shard's phantom pad rows (cells at or
+    past the true R add nothing), the histograms hold completion mass over
+    the mean and P95 tier-latency atoms (int64, in units of ``2**-20``
+    request: :data:`_HIST_ONE`), ``obs_sum`` totals the per-cell
+    effective-observation fraction over the steady ticks (t >= 1) and
+    ``spill_sum`` the spillover mass admitted at graph neighbors (zero on
+    ungraphed worlds).
+    """
+
+    n_cells: int
+
+    def init(self, r_local: int, row0: int,
+             device: str | torch.device = "cpu") -> tuple:
+        rows = row0 + torch.arange(r_local, device=device)
+        hist = torch.zeros((_HIST_BINS,), dtype=torch.int64, device=device)
+        zero = torch.zeros((), device=device)
+        return ((rows < self.n_cells).to(torch.float32), hist, hist.clone(),
+                zero, zero.clone())
+
+    @staticmethod
+    def _deposit(hist, lat, mass):
+        # log-spaced bin; lat == 0 maps to -inf, clipped into bin 0 where
+        # its zero mass is harmless
+        idx = torch.clamp(torch.floor(
+            (torch.log(torch.clamp(lat, min=0.0)) - np.log(_HIST_LO_S))
+            * _HIST_SCALE), 0, _HIST_BINS - 1).long()
+        units = torch.round(mass.double() * _HIST_ONE).long()
+        return hist.index_add(0, idx.reshape(-1), units.reshape(-1))
+
+    def update(self, stats, t_idx: int, ys):
+        """Fold one tick's trace (``ys.env`` a WindowInfo, ``ys.obs_frac``
+        (R,)) into a shard's stats."""
+        valid, hist50, hist95, obs_sum, spill_sum = stats
+        mass = ys.env.tier_completed * valid[:, None]
+        hist50 = self._deposit(hist50, ys.env.tier_latency_s, mass)
+        hist95 = self._deposit(hist95, ys.env.tier_p95_s, mass)
+        # obs_frac at tick 0 is the all-valid warm-up mask: steady ticks only
+        if t_idx >= 1:
+            obs_sum = obs_sum + torch.sum(ys.obs_frac * valid)
+        spill = getattr(ys.env, "spill_admitted", None)
+        if spill is not None:
+            spill_sum = spill_sum + torch.sum(spill * valid)
+        return (valid, hist50, hist95, obs_sum, spill_sum)
+
+    def update_window(self, stats, t0: int, ys):
+        """Fold one mega window's stacked (W, ...) trace in at once; the
+        histograms equal W :meth:`update` calls to the bit, the sums to
+        rounding."""
+        valid, hist50, hist95, obs_sum, spill_sum = stats
+        mass = ys.env.tier_completed * valid[None, :, None]
+        hist50 = self._deposit(hist50, ys.env.tier_latency_s, mass)
+        hist95 = self._deposit(hist95, ys.env.tier_p95_s, mass)
+        w = ys.obs_frac.shape[0]
+        steady = (t0 + torch.arange(w, device=valid.device) >= 1).to(
+            torch.float32)
+        obs_sum = obs_sum + torch.sum(steady[:, None] * ys.obs_frac
+                                      * valid[None, :])
+        spill = getattr(ys.env, "spill_admitted", None)
+        if spill is not None:
+            spill_sum = spill_sum + torch.sum(spill * valid[None, :])
+        return (valid, hist50, hist95, obs_sum, spill_sum)
+
+    def finalize(self, stats) -> tuple:
+        """The fleet's (hist50, hist95, obs_sum, spill_sum) from the shards'
+        stats stacked on a leading shard axis, summed in shard order; the
+        histograms as float64 request mass."""
+        _, hist50, hist95, obs_sum, spill_sum = stats
+        out = []
+        for x in (hist50, hist95, obs_sum, spill_sum):
+            total = x[0]
+            for d in range(1, x.shape[0]):
+                total = total + x[d]
+            out.append(total)
+        return (out[0].double() / _HIST_ONE, out[1].double() / _HIST_ONE,
+                out[2], out[3])
+
+
 @dataclasses.dataclass(frozen=True)
 class Experiment:
     """One declarative fleet experiment.
@@ -162,6 +288,16 @@ class Experiment:
         launch of its own already.
       device: where the run's tensors live (``"cuda"`` by default; raises
         without a card unless ``"cpu"`` is asked for).
+      shard: sharding of the cell axis over local devices of ``device``'s
+        type: None (unsharded, with the full per-tick trace), ``"auto"``
+        (every local device) or a :class:`~repro_torch.api.shard.ShardSpec`.
+        A sharded run keeps O(R) memory by reducing the metrics as it goes
+        (``RunResult.trace`` is None, P50/P95 are fleet-global histogram
+        quantiles), pads R to a device multiple with inert phantom cells
+        (unless the spec says ``pad="strict"``), and its results do not
+        depend on the device count.  Composes with ``mega``, graphs, chaos
+        and checkpoints (a resume needs the shard count it was written
+        under).
       checkpoint_every: windows between checkpoints (0 = off), a multiple
         of the router's slow period and dwell: the run goes in chunks of
         this many windows and saves (router carry, env state, telemetry
@@ -196,6 +332,7 @@ class Experiment:
     mega_slot_dtype: str = "float32"
     launch_periods: int | None = None
     device: str = "cuda"
+    shard: ShardSpec | str | None = None
     checkpoint_every: int = 0
     checkpoint_dir: str | None = None
     resume_from: str | None = None
@@ -271,6 +408,8 @@ class RunResult:
     # share of the offered load absorbed at a graph neighbor after
     # spillover (0.0 on ungraphed worlds)
     offload_frac: float = 0.0
+    # cells a shard holds, padding included (R when unsharded)
+    cells_per_device: int = 0
 
     def summary(self) -> dict:
         """JSON-safe metric dict (one Table-1 row)."""
@@ -292,6 +431,7 @@ class RunResult:
             "obs_frac": round(self.obs_frac, 4),
             "offload_frac": round(self.offload_frac, 4),
             "wall_s": round(self.wall_s, 2),
+            "cells_per_device": self.cells_per_device,
             "watchdog_events": round(self.watchdog_events, 1),
             **({"recovery": {k: (round(v, 4) if isinstance(v, float) else v)
                              for k, v in self.recovery.items()}}
@@ -322,20 +462,51 @@ def _build_world(topo: Topology, scenario: str, n_cells: int, n_windows: int,
     return scfg, params, env_step
 
 
+@functools.lru_cache(maxsize=2)
+def _build_world_padded(topo: Topology, scenario: str, n_cells: int,
+                        n_windows: int, window_s: float, seed: int,
+                        r_pad: int, n_devices: int, device: torch.device,
+                        graph: graph_mod.FleetGraph | None = None):
+    """:func:`_build_world` for a sharded run: the world built at the true
+    R, then padded to ``r_pad`` with inert phantom cells
+    (:func:`repro_torch.envsim.scenarios.pad_scenario`; the per-cell draws
+    of a scenario depend on R, so building at ``r_pad`` would change the
+    real cells' schedules with the device count).  The params, the env
+    adapter and the graph's edge lists live at ``r_pad``.  Memoized on
+    every argument, the padded size and the shard count included: two
+    shardings of one R never share an ``env_step``.
+    """
+    if graph is not None:
+        graph.validate_true_rows(n_cells)
+    scfg = (SimConfig() if topo == default_topology()
+            else sim_config_for(topo))
+    sc = scenarios.build_scenario(scenario, scfg, n_cells, n_windows,
+                                  window_s=window_s, seed=seed)
+    sc = scenarios.pad_scenario(sc, r_pad)
+    params = batched.params_from_config(scfg, r_pad, sc.capacity_scale,
+                                        device=device)
+    env_step = batched.make_scenario_env_step(params, sc, dt=window_s,
+                                              graph=graph)
+    return scfg, params, env_step
+
+
 def run(experiment: Experiment, noise: Noise | None = None) -> RunResult:
     """Assemble and execute one experiment on the batched engine.
 
     ``noise`` supplies every random draw of the rollout (see
     :mod:`repro_torch.noise`); None draws from a generator seeded with
     ``experiment.seed``.  A chaos scenario is run again on its control
-    scenario, with the draws it started from, for ``RunResult.recovery``.
+    scenario, with the draws it started from, for ``RunResult.recovery``
+    (not on a sharded run, whose trace is reduced away).
     """
     e = experiment
     dev = resolve_device(e.device)
     start = get_state(noise)
-    res = _run_dense(e, dev, noise)
+    spec = resolve_shard(e.shard)
+    res = (_run_dense(e, dev, noise) if spec is None
+           else _run_sharded(e, dev, spec, noise))
     info = chaos_mod.CHAOS_INFO.get(e.scenario)
-    if info is not None:
+    if info is not None and res.trace is not None:
         set_state(noise, start)
         control = run(dataclasses.replace(
             e, scenario=info.base, checkpoint_every=0, checkpoint_dir=None,
@@ -422,16 +593,119 @@ def _run_dense(e: Experiment, dev: torch.device,
         watchdog_events=0.0 if wd is None else float(wd.sum()),
         resume_points=tuple(boundaries),
         offload_frac=offload,
+        cells_per_device=e.n_cells,
     )
+
+
+def _run_sharded(e: Experiment, dev: torch.device, spec: ShardSpec,
+                 noise: Noise | None, mesh: list | None = None) -> RunResult:
+    """One run on the sharded engine, in one piece or in checkpointed
+    chunks.
+
+    The same world, router and draws as the unsharded run, over row blocks
+    (``mesh``: the shards' devices, default ``spec.build_mesh(dev)``) with
+    the metrics reduced on the way (:class:`FleetMetricsReducer`):
+    ``trace`` is None and P50/P95 are fleet-global completion-weighted
+    histogram quantiles, not the unsharded run's mean of per-cell ones.
+    Success, tier shares, restarts and offload come from the final env
+    state's true rows, as in the unsharded run.
+    """
+    if e.launch_periods is not None:
+        raise ValueError(
+            "launch_periods is not available on sharded runs; drop shard or "
+            "launch_periods")
+    topo = e.resolve_topology()
+    graph = e.resolve_graph()
+    mesh = spec.build_mesh(dev) if mesh is None else list(mesh)
+    r_pad, r_local = spec.padded(e.n_cells, len(mesh))
+    scfg, params, env_step = _build_world_padded(
+        topo, e.scenario, e.n_cells, e.n_windows, e.window_s, e.seed, r_pad,
+        len(mesh), dev, graph)
+    router = e.resolve_router(scfg, graph)
+    if router.n_tiers != topo.n_tiers:
+        raise ValueError(
+            f"router {router.name!r} routes over {router.n_tiers} tiers but "
+            f"topology {topo.tier_names} has {topo.n_tiers}")
+    reducer = FleetMetricsReducer(n_cells=e.n_cells)
+
+    _sync(mesh)
+    t0 = time.perf_counter()
+    boundaries: tuple = ()
+    if e.checkpoint_every or e.resume_from:
+        carry, est, stats, boundaries = _sharded_chunked(
+            e, router, params, env_step, spec, reducer, noise, dev, mesh)
+    else:
+        carry, est, stats = sharded_rollout(
+            router, batched.init_fluid_state(params,
+                                             env_step.n_obs_modalities),
+            env_step, e.n_windows, noise, shard=spec, n_cells=e.n_cells,
+            reducer=reducer, seed=e.seed, mesh=mesh)
+    _sync(mesh)
+    wall = time.perf_counter() - t0
+
+    hist50, hist95, obs_sum, spill_sum = (x.cpu().numpy() for x in stats)
+    p50_s = _hist_quantile(hist50, 0.50)
+    p95_s = _hist_quantile(hist95, 0.95)
+    # the true rows of the final state, with the fleet-global quantiles in
+    # the per-cell columns (per-cell ones would need the trace)
+    final = type(est)(*(x[:e.n_cells].cpu().numpy() for x in est))
+    res = batched.FluidResult(
+        n_requests=final.n_requests,
+        n_success=final.n_success,
+        success_rate=final.n_success / np.maximum(final.n_requests, _EPS),
+        error_breakdown={"timeout": final.err_timeout,
+                         "overflow": final.err_overflow,
+                         "refused": final.err_refused,
+                         "restart": final.err_restart},
+        p95_ms=np.full(e.n_cells, 1000.0 * p95_s),
+        p50_ms=np.full(e.n_cells, 1000.0 * p50_s),
+        tier_requests=final.tier_requests,
+        tier_success=final.tier_success,
+        n_restarts=final.n_restarts)
+    succ = 100.0 * res.success_rate
+    total_req = max(float(final.n_requests.sum()), 1.0)
+    succ_mean = (100.0 * float(final.n_success.sum()) / total_req
+                 if env_step.has_graph else float(succ.mean()))
+    n_success = np.maximum(res.n_success, _EPS)
+    n_req = np.maximum(res.n_requests, _EPS)
+    steady = max(e.n_windows - 1, 1) * e.n_cells
+    return RunResult(
+        experiment=e,
+        name=e.name,
+        success_pct=succ_mean,
+        success_std=float(succ.std()),
+        p50_ms=1000.0 * p50_s,
+        p95_ms=1000.0 * p95_s,
+        tier_share=(res.tier_success / n_success[:, None]).mean(0),
+        routed_share=(res.tier_requests / n_req[:, None]).mean(0),
+        restarts=float(res.n_restarts.sum()),
+        obs_frac=float(obs_sum) / steady if e.n_windows > 1 else 1.0,
+        wall_s=wall,
+        fluid=res,
+        trace=None,
+        final_carry=carry,
+        resume_points=tuple(boundaries),
+        offload_frac=float(spill_sum) / total_req,
+        cells_per_device=r_local,
+    )
+
+
+def _sync(mesh: list) -> None:
+    """Wait for every CUDA device of ``mesh``."""
+    for d in dict.fromkeys(mesh):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 # ------------------------------------------- checkpointing + recovery metrics
 def _ckpt_template(e: Experiment, router, params, noise,
-                   n_modalities: int) -> dict:
-    """Shapes and dtypes of a checkpoint's tree, for restore.  The carries
-    are built on the ``meta`` device, so a resume allocates them once
-    (restore loads each leaf onto the experiment's device)."""
-    r, meta = e.n_cells, torch.device("meta")
+                   n_modalities: int, r: int | None = None) -> dict:
+    """Shapes and dtypes of a checkpoint's tree, for restore, at ``r``
+    cells (default the experiment's; a sharded run's padded fleet).  The
+    carries are built on the ``meta`` device, so a resume allocates them
+    once (restore loads each leaf onto the experiment's device)."""
+    r = e.n_cells if r is None else r
+    meta = torch.device("meta")
     if getattr(router, "mega", False):
         carry = mega_mod.init_mega_state(router.cfg, r, e.n_windows,
                                          router.slot_dtype, meta)
@@ -447,6 +721,38 @@ def _ckpt_template(e: Experiment, router, params, noise,
     if state is not None:
         tmpl["noise"] = state
     return tmpl
+
+
+def _restore(e: Experiment, tmpl: dict, dev: torch.device):
+    """The newest readable checkpoint of ``e.resume_from`` shaped like
+    ``tmpl`` on ``dev``: (tree, extra), checked against the experiment."""
+    tree, extra = Checkpointer(e.resume_from).restore(tmpl, device=dev)
+    t_begin = int(extra["t"])
+    if extra.get("scenario") not in (None, e.scenario):
+        raise ValueError(
+            f"resume_from checkpoint was written for scenario "
+            f"{extra['scenario']!r}, not {e.scenario!r}: resuming would "
+            f"splice two different worlds")
+    if t_begin >= e.n_windows:
+        raise ValueError(f"checkpoint is at window {t_begin} but the "
+                         f"experiment ends at {e.n_windows}")
+    return tree, extra
+
+
+def _ckpt_payload(carry, env, snapshot, sharded: bool) -> dict:
+    """A checkpoint's tree at a chunk boundary: the router carry, the env
+    state, the snapshot's telemetry carry and noise position and, for a
+    sharded run, the reducer's raw stats (a leading shard axis)."""
+    if sharded:
+        obs, stats, noise_state = snapshot
+    else:
+        (obs, noise_state), stats = snapshot, None
+    tree = {"carry": carry, "env": env, "obs": tuple(obs)}
+    if stats is not None:
+        tree["stats"] = stats
+    if noise_state is not None:
+        tree["noise"] = noise_state
+    return tree
 
 
 def _chunk_sizes(e: Experiment, t_begin: int):
@@ -487,17 +793,9 @@ def _chunked_rollout(e: Experiment, router, params, env_step,
     if noise is None:
         noise = GeneratorNoise(e.seed, dev)
     if e.resume_from:
-        tree, extra = Checkpointer(e.resume_from).restore(
-            _ckpt_template(e, router, params, noise, n_mod), device=dev)
+        tree, extra = _restore(
+            e, _ckpt_template(e, router, params, noise, n_mod), dev)
         t_begin = int(extra["t"])
-        if extra.get("scenario") not in (None, e.scenario):
-            raise ValueError(
-                f"resume_from checkpoint was written for scenario "
-                f"{extra['scenario']!r}, not {e.scenario!r}: resuming would "
-                f"splice two different worlds")
-        if t_begin >= e.n_windows:
-            raise ValueError(f"checkpoint is at window {t_begin} but the "
-                             f"experiment ends at {e.n_windows}")
         carry, env = tree["carry"], tree["env"]
         snapshot = (tuple(tree["obs"]), tree.get("noise"))
     else:
@@ -514,16 +812,73 @@ def _chunked_rollout(e: Experiment, router, params, env_step,
         if t + n < e.n_windows:
             boundaries.append(t + n)
             if ckpt is not None:
-                obs, noise_state = snapshot
-                tree = {"carry": carry, "env": env, "obs": obs}
-                if noise_state is not None:
-                    tree["noise"] = noise_state
-                ckpt.save(t + n, tree, extra={"t": t + n,
-                                              "scenario": e.scenario,
-                                              "seed": e.seed})
+                ckpt.save(t + n, _ckpt_payload(carry, env, snapshot,
+                                               sharded=False),
+                          extra={"t": t + n, "scenario": e.scenario,
+                                 "seed": e.seed})
     if ckpt is not None:
         ckpt.wait()
     return carry, env, _cat(traces), tuple(boundaries)
+
+
+def _sharded_chunked(e: Experiment, router, params, env_step,
+                     spec: ShardSpec, reducer: FleetMetricsReducer,
+                     noise: Noise | None, dev: torch.device, mesh: list):
+    """The checkpointed twin of a sharded run: chunks of
+    :func:`~repro_torch.api.engine.sharded_resumable_rollout` between
+    boundary-aligned windows, saving at every interior boundary the
+    gathered router carry, env state and telemetry carry, the noise
+    position and the reducer's raw stats (stacked on a leading shard
+    axis).  The last chunk's stats are reduced as the uninterrupted run's
+    are (:func:`~repro_torch.api.engine.sharded_finalize`).
+
+    Returns (carry, env state, reduced stats, boundaries).
+    """
+    if e.checkpoint_every:
+        engine_mod._check_boundary(router, int(e.checkpoint_every))
+    ck_dir = e.checkpoint_dir or e.resume_from
+    if e.checkpoint_every and not ck_dir:
+        raise ValueError("checkpoint_every > 0 needs checkpoint_dir "
+                         "(or resume_from) to say where snapshots go")
+    mega = bool(getattr(router, "mega", False))
+    n_mod = env_step.n_obs_modalities
+    if noise is None:
+        noise = GeneratorNoise(e.seed, dev)
+    r_pad, r_local = spec.padded(e.n_cells, len(mesh))
+    carry, snapshot, t_begin = None, None, 0
+    env = batched.init_fluid_state(params, n_mod)
+    if e.resume_from:
+        stats = [reducer.init(r_local, d * r_local, "meta")
+                 for d in range(len(mesh))]
+        tmpl = _ckpt_template(e, router, params, noise, n_mod, r=r_pad)
+        tmpl["stats"] = tuple(torch.stack(x) for x in zip(*stats))
+        tree, extra = _restore(e, tmpl, dev)
+        if extra.get("shards", len(mesh)) != len(mesh):
+            raise ValueError(
+                f"resume_from checkpoint was written by a run on "
+                f"{extra['shards']} shards, this one has {len(mesh)}")
+        t_begin = int(extra["t"])
+        carry, env = tree["carry"], tree["env"]
+        snapshot = (tuple(tree["obs"]), tree["stats"], tree.get("noise"))
+    ckpt = Checkpointer(ck_dir) if ck_dir else None
+    boundaries, stats = ([t_begin] if t_begin else []), None
+    for t, n in _chunk_sizes(e, t_begin):
+        carry, env, stats, snapshot = sharded_resumable_rollout(
+            router, carry, env, env_step, n, noise, shard=spec,
+            n_cells=e.n_cells, reducer=reducer, t_begin=t,
+            snapshot=snapshot, n_total=e.n_windows if mega else None,
+            mesh=mesh)
+        if t + n < e.n_windows:
+            boundaries.append(t + n)
+            if ckpt is not None:
+                ckpt.save(t + n, _ckpt_payload(carry, env, snapshot,
+                                               sharded=True),
+                          extra={"t": t + n, "scenario": e.scenario,
+                                 "seed": e.seed, "shards": len(mesh)})
+    if ckpt is not None:
+        ckpt.wait()
+    return (carry, env, sharded_finalize(stats, shard=spec, reducer=reducer),
+            tuple(boundaries))
 
 
 def _recovery_metrics(e: Experiment, info, res: RunResult,

@@ -25,7 +25,9 @@ that factored bookkeeping:
   :func:`mega_window` is the plain PyTorch version of the CUDA kernel in
   :mod:`repro_torch.kernels.efe.mega` and what its wrapper runs for CPU
   tensors; :func:`mega_window_launches` is the plain model of the
-  kernel's split of a graph window into W + 1 launches.
+  kernel's split of a graph window into W + 1 launches, and
+  :func:`mega_window_blocks` runs one window for every row block of a
+  sharded fleet (on a graph, launch by launch across the blocks).
 
 Slow boundaries stream: :func:`mega_slow_step` folds the replayed batch
 into the cached column sums (:func:`_advance_cache`) and bumps the slot-hit
@@ -481,10 +483,21 @@ def _push_slot(slots: MegaSlots, idx: int | slice, q_prev, q_next,
     return slots
 
 
-def _not_ported(row_block) -> None:
-    if row_block is not None:
-        raise NotImplementedError("row_block (sharded engine) is not ported "
-                                  "yet (ROADMAP item A10); pass None")
+def block_window(state, params, window: tuple, row_block, graph) -> tuple:
+    """A window's ``params`` and (W, R_pad, ...) ``window`` schedules cut to
+    ``row_block``'s rows, the rows ``state`` holds (None: unchanged).  A
+    graph window's block must be the whole fleet (one shard): several
+    blocks of a graph exchange spillover every tick
+    (:func:`mega_window_blocks`).  Returns (params, *window)."""
+    if row_block is None:
+        return (params,) + tuple(window)
+    if graph is not None and \
+            state.belief.shape[0] != graph.has_out.shape[0]:
+        raise ValueError(
+            "a graph window's spillover crosses row blocks: run every block "
+            "of the window at once with mega_window_blocks")
+    return batched.block_inputs(params, row_block, state.belief, window,
+                                axis=1)
 
 
 # -------------------------------------------------------------- hot window
@@ -516,7 +529,11 @@ def mega_window(state: MegaFleetState, est, obs_carry, params,
         env's cross-cell spillover runs in every tick, and the fifth
         (neighbor-pressure) telemetry column rides the obs carry, so the
         slots' ``obs_bins``/``obs_mask`` and ``cache.logna`` are M=5 wide.
-      row_block: not ported (ROADMAP A10); None only.
+      row_block: a shard's block ``(row_start, n_true, n_pad)`` of the
+        padded fleet: the carries, ``uniforms`` and ``gumbel`` hold its
+        rows alone (the shard's view of the noise, drawn at the true R),
+        ``params`` and the schedules the whole padded fleet, cut to the
+        block here (:func:`block_window`).
 
     The window's W slot pushes land in place in ``state.slots`` at columns
     ``[t0, t0 + W)`` after the loop: in-window slots carry ``coefact == 0``
@@ -526,7 +543,9 @@ def mega_window(state: MegaFleetState, est, obs_carry, params,
     (action, weights, raw_obs, unstable, obs_frac, WindowInfo), each leaf
     stacked (W, ...) in tick order.
     """
-    _not_ported(row_block)
+    params, arrival, hazard, obs_valid, forced_down, speed = block_window(
+        state, params, (arrival, hazard, obs_valid, forced_down, speed),
+        row_block, graph)
     ctx = _WindowContext(cfg, disc, util_edges, util_period, emits_mask,
                          state.belief.device)
     ys, pushes = [], []
@@ -554,7 +573,7 @@ def mega_window_launches(state: MegaFleetState, est, obs_carry, params,
                          util_edges, util_period: int, dt: float,
                          scrape_every: int, restart_blackout: bool,
                          emits_mask: bool, forced_down=None, speed=None,
-                         graph=None):
+                         row_block=None, graph=None):
     """Plain model of kernel B3's launch split of a graph window.
 
     Arguments and results as :func:`mega_window`.  The window runs as the
@@ -568,32 +587,99 @@ def mega_window_launches(state: MegaFleetState, est, obs_carry, params,
     the traces and slot pushes written so far.  Returns what
     :func:`mega_window` returns, to the bit.
     """
+    inputs = block_window(state, params,
+                          (arrival, hazard, obs_valid, forced_down, speed),
+                          row_block, graph)
     ctx = _WindowContext(cfg, disc, util_edges, util_period, emits_mask,
                          state.belief.device)
-    w_ticks = gumbel.shape[0]
-    ys, pushes = [], []
-    mid = tiers = y = None
+    return _launch_split([[state, est, obs_carry, inputs, uniforms, gumbel,
+                           row_block]], [ctx], t0, dt=dt,
+                         scrape_every=scrape_every,
+                         restart_blackout=restart_blackout, graph=graph)[0]
+
+
+def mega_window_blocks(blocks: list, params, arrival: torch.Tensor,
+                       hazard: torch.Tensor, obs_valid: torch.Tensor | None,
+                       t0: int, *, cfg: generative.AifConfig, disc,
+                       util_edges, util_period: int, dt: float,
+                       scrape_every: int, restart_blackout: bool,
+                       emits_mask: bool, forced_down=None, speed=None,
+                       graph=None) -> list:
+    """One window for every row block of a sharded fleet.
+
+    ``blocks`` holds, in shard order, one ``(state, est, obs_carry,
+    uniforms, gumbel, row_block)`` per shard (its rows, on its device);
+    the other arguments are :func:`mega_window`'s, for the whole padded
+    fleet.  Without a graph, or with one block, each block is one
+    :func:`mega_window` on its row block.  On a graph the blocks run as
+    kernel B3 runs them, launch by launch (:func:`mega_window_launches`):
+    every block's launch i before any block's launch i + 1, the exchange
+    read from every block's rows of the tick
+    (:func:`~repro_torch.envsim.batched.block_exchange`).  Returns one
+    :func:`mega_window` result per block.
+    """
+    kw = dict(cfg=cfg, disc=disc, util_edges=util_edges,
+              util_period=util_period, dt=dt, scrape_every=scrape_every,
+              restart_blackout=restart_blackout, emits_mask=emits_mask,
+              forced_down=forced_down, speed=speed, graph=graph)
+    if graph is None or len(blocks) == 1:
+        return [mega_window(st, est, obs, params, arrival, hazard, obs_valid,
+                            u, g, t0, row_block=rb, **kw)
+                for st, est, obs, u, g, rb in blocks]
+    runs, ctxs = [], []
+    for st, est, obs, u, g, rb in blocks:
+        inputs = batched.block_inputs(
+            params, rb, st.belief,
+            (arrival, hazard, obs_valid, forced_down, speed), axis=1)
+        runs.append([st, est, obs, inputs, u, g, rb])
+        ctxs.append(_WindowContext(cfg, disc, util_edges, util_period,
+                                   emits_mask, st.belief.device))
+    return _launch_split(runs, ctxs, t0, dt=dt, scrape_every=scrape_every,
+                         restart_blackout=restart_blackout, graph=graph)
+
+
+def _launch_split(runs: list, ctxs: list, t0: int, *, dt: float,
+                  scrape_every: int, restart_blackout: bool, graph) -> list:
+    """W + 1 launches over the row blocks ``runs`` (each ``[state, est,
+    obs_carry, (params, arrival, hazard, obs_valid, forced_down, speed),
+    uniforms, gumbel, row_block]``, its inputs cut to its rows): launch i
+    publishes every block's tick i - 1 from the exchange over all of them,
+    then runs every block's tick i up to the flow."""
+    w_ticks = runs[0][5].shape[0]
+    n = len(runs)
+    ys = [[] for _ in runs]
+    pushes = [[] for _ in runs]
+    mids, tiers, y = [None] * n, [None] * n, [None] * n
     for i in range(w_ticks + 1):
         if i > 0:
-            est, win = batched.fluid_publish(
-                params, est, mid, tiers, arrival[i - 1], dt=dt,
-                obs_valid=_at(obs_valid, i - 1),
-                restart_blackout=restart_blackout,
-                forced_down=_at(forced_down, i - 1),
-                speed=_at(speed, i - 1), graph=graph)
-            ys.append(y + (win,))
-            obs_carry = ctx.next_carry(obs_carry, win)
+            xs = ([None] * n if graph is None else batched.block_exchange(
+                mids, graph, [run[6] for run in runs]))
+            for b, run in enumerate(runs):
+                params, arrival, _, obs_valid, forced_down, speed = run[3]
+                run[1], win = batched.fluid_publish(
+                    params, run[1], mids[b], tiers[b], arrival[i - 1], dt=dt,
+                    obs_valid=_at(obs_valid, i - 1),
+                    restart_blackout=restart_blackout,
+                    forced_down=_at(forced_down, i - 1),
+                    speed=_at(speed, i - 1), graph=graph, exchange=xs[b])
+                ys[b].append(y[b] + (win,))
+                run[2] = ctxs[b].next_carry(run[2], win)
         if i < w_ticks:
-            state, push, y = ctx.agent_tick(state, obs_carry, i, t0 + i,
-                                            gumbel[i])
-            pushes.append(push)
-            est, mid, tiers = batched.fluid_flow(
-                params, est, y[1], arrival[i], hazard[i],
-                (uniforms[i, 0], uniforms[i, 1]), t0 + i, dt=dt,
-                scrape_every=scrape_every, restart_blackout=restart_blackout,
-                forced_down=_at(forced_down, i), speed=_at(speed, i),
-                spill=graph is not None)
-    return _land_window(state, est, obs_carry, ys, pushes, t0)
+            for b, run in enumerate(runs):
+                params, arrival, hazard, _, forced_down, speed = run[3]
+                uniforms, gumbel = run[4], run[5]
+                run[0], push, y[b] = ctxs[b].agent_tick(run[0], run[2], i,
+                                                        t0 + i, gumbel[i])
+                pushes[b].append(push)
+                run[1], mids[b], tiers[b] = batched.fluid_flow(
+                    params, run[1], y[b][1], arrival[i], hazard[i],
+                    (uniforms[i, 0], uniforms[i, 1]), t0 + i, dt=dt,
+                    scrape_every=scrape_every,
+                    restart_blackout=restart_blackout,
+                    forced_down=_at(forced_down, i), speed=_at(speed, i),
+                    spill=graph is not None)
+    return [_land_window(run[0], run[1], run[2], ys[b], pushes[b], t0)
+            for b, run in enumerate(runs)]
 
 
 def _at(x, w: int):

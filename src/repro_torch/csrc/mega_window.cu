@@ -121,6 +121,14 @@
 // over routers would need the same per-router save and restore of the
 // block's state at every tick; the launch split keeps the kernel's shape.
 //
+// Row blocks (a sharded fleet).  A launch covers one shard's R rows of the
+// padded fleet; every operand but the graph's is cut to them, so a block
+// index r stays local.  The exchange buffer (2, G_R, kMid) and the padded
+// edge lists name global rows: router r is row row0 + r of them.  The
+// wrapper runs launch i of every block before launch i + 1 of any, so a
+// block reads every other block's rows of the tick; a fleet of one block
+// has row0 = 0 and G_R = R and runs as before.
+//
 // The tape rows are still reread on every tick that needs them; keeping
 // them in L2 or shared memory across ticks, TMA copies and wgmma are later
 // work.
@@ -187,15 +195,16 @@ struct MegaArgs {
   const long long* g_dst;   // (G_E) edge destinations
   const float* g_share;     // (G_E) 1 / out-degree of the source
   const float* g_hop;       // (G_E) hop latency, seconds
-  const float* g_has_out;   // (R) 1 where the cell has an out-edge
-  const long long* g_in;    // (R, G_din) in-edges in edge order, padded with G_E
-  const long long* g_out;   // (R, G_dout) out-edges, padded with G_E
-  float* xch;               // (2, R, kMid) per-tick exchange, by tick parity
+  const float* g_has_out;   // (G_R) 1 where the cell has an out-edge
+  const long long* g_in;    // (G_R, G_din) in-edges in edge order, padded with G_E
+  const long long* g_out;   // (G_R, G_dout) out-edges, padded with G_E
+  float* xch;               // (2, G_R, kMid) per-tick exchange, by tick parity
   float* tr_g;              // (W, 4, R): spill_out, spill_in, spill_admitted,
                             //   nbr_pressure
   int R, J, S, A, M, NB, K, W, P, E, n_util_edges, n_used, t0, dwell,
       util_period, scrape_every, err_ix, emits_mask, masked_obs,
-      restart_blackout, bf16_slots, G_E, G_din, G_dout, w_lo, w_hi;
+      restart_blackout, bf16_slots, G_E, G_din, G_dout, G_R, row0, w_lo,
+      w_hi;
   float dt, fast_period_s, err_decay, err_keep, error_trigger, beta, u_c, d_c,
       usd, log_match, log_miss, timeout_s, a_lat, a_err, a_rps, keep_lat,
       keep_err, keep_rps, scrape_den;
@@ -529,10 +538,11 @@ __device__ void env_publish(const MegaArgs& a, const Stage& g, Env& e, int r,
   const bool graph = kWorld && a.g_src != nullptr;
   float spill_in = 0.f, hop_mass = 0.f, nbr = 0.f, spill_adm = 0.f,
         spill_drop = 0.f, keep = 1.f, has_out = 0.f;
+  const size_t rg = (size_t)a.row0 + r;   // the router's global row
   if (graph) {
     if (lane == 0) {
-      const float* x = a.xch + (size_t)(w & 1) * R * kMid;
-      const long long* in = a.g_in + (size_t)r * a.G_din;
+      const float* x = a.xch + (size_t)(w & 1) * a.G_R * kMid;
+      const long long* in = a.g_in + rg * a.G_din;
       for (int d = 0; d < a.G_din; ++d) {
         const long long ei = in[d];
         float v = 0.f, hv = 0.f;
@@ -543,7 +553,7 @@ __device__ void env_publish(const MegaArgs& a, const Stage& g, Env& e, int r,
         spill_in = d ? spill_in + v : v;
         hop_mass = d ? hop_mass + hv : hv;
       }
-      const long long* out = a.g_out + (size_t)r * a.G_dout;
+      const long long* out = a.g_out + rg * a.G_dout;
       for (int d = 0; d < a.G_dout; ++d) {
         const long long ei = out[d];
         const float v =
@@ -578,7 +588,7 @@ __device__ void env_publish(const MegaArgs& a, const Stage& g, Env& e, int r,
     if (tier)
       e.backlog[k] = e.backlog[k] + room * (spill_adm / fmaxf(room_tot, kEps));
     spill_drop = spill_in - spill_adm;
-    has_out = a.g_has_out[r];
+    has_out = a.g_has_out[rg];
     keep = 1.f - has_out;    // exporters keep none of their rejects
   }
   const float queue = tier ? fmaxf(e.backlog[k] - ps[0 * K + k], 0.f) : 0.f;
@@ -810,7 +820,8 @@ mega_window_kernel(const MegaArgs a) {
     if (warp == 0) {
       const int wp = a.w_lo - 1;
       if (lane < kMid)
-        e.mid[lane] = a.xch[((size_t)(wp & 1) * a.R + r) * kMid + lane];
+        e.mid[lane] =
+            a.xch[((size_t)(wp & 1) * a.G_R + a.row0 + r) * kMid + lane];
       __syncwarp();
       env_publish<kWorld>(a, g, e, r, wp, lane);
     }
@@ -1092,7 +1103,8 @@ mega_window_kernel(const MegaArgs a) {
       if (!graph)
         env_publish<kWorld>(a, g, e, r, w, lane);
       else if (lane < kMid)   // for the next launch: this router and its
-        a.xch[((size_t)(w & 1) * a.R + r) * kMid + lane] = e.mid[lane];
+        a.xch[((size_t)(w & 1) * a.G_R + a.row0 + r) * kMid + lane] =
+            e.mid[lane];
 
     }
     __syncthreads();
@@ -1168,7 +1180,8 @@ int mega_window_launch(const MegaArgs* a, void* stream) {
       a->K > kMaxKM || a->M != 4 + (a->g_src ? 1 : 0) || a->W < 1 ||
       a->w_lo < 0 || a->w_hi < a->w_lo || a->w_hi > a->W ||
       (!a->g_src && (a->w_lo != 0 || a->w_hi != a->W)) ||
-      (a->g_src && (!a->xch || !a->tr_g || !a->g_in || !a->g_out)))
+      (a->g_src && (!a->xch || !a->tr_g || !a->g_in || !a->g_out ||
+                    a->row0 < 0 || a->row0 + a->R > a->G_R)))
     return (int)cudaErrorInvalidValue;
   const bool world = a->forced_down || a->speed || a->g_src;
   if (world) return a->b_base ? launch_slots<true, true>(*a, stream)

@@ -17,7 +17,8 @@ from repro_torch.envsim.config import (TIER_CLASSES, SimConfig, TierConfig,
                                        sim_config_for, tiers_for_topology)
 from repro_torch.envsim.scenarios import (SCENARIOS, Profile, ScenarioBatch,
                                           build_scenario, compile_scenario,
-                                          compose, scrape_blackout,
+                                          compose, pad_scenario,
+                                          scrape_blackout,
                                           stale_replay, telemetry_dropout)
 
 __all__ = ["N_OBS_MODALITIES", "FluidIngredients", "FluidParams", "FluidResult", "FluidState",
@@ -27,7 +28,7 @@ __all__ = ["N_OBS_MODALITIES", "FluidIngredients", "FluidParams", "FluidResult",
            "summarize", "TIER_CLASSES", "SimConfig", "TierConfig",
            "default_tiers", "discretization_for", "sim_config_for",
            "tiers_for_topology", "SCENARIOS", "Profile", "ScenarioBatch",
-           "build_scenario", "compile_scenario", "compose",
+           "build_scenario", "compile_scenario", "compose", "pad_scenario",
            "scrape_blackout", "stale_replay", "telemetry_dropout",
            "CHAOS_INFO", "CHAOS_PRESETS", "ChaosInfo", "capacity_flap",
            "crash_restart_storm", "long_outage", "straggler_episodes",

@@ -34,8 +34,14 @@ Every function is plain PyTorch over tensors with a leading cell axis R;
 :func:`fluid_flow` then :func:`fluid_publish`, joined by a
 :class:`FlowMid` per cell: the spillover sits between the two, and the
 whole-window kernel B3 runs a graph window's ticks as launches cut
-there.  The reference's sharded
-``row_block`` (ROADMAP A10) is not ported: None is the only accepted value.
+there.
+
+Sharded runs (:mod:`repro_torch.api.shard`) hold each shard's block of
+rows of the padded fleet: ``row_block=(row_start, n_true, n_pad)`` cuts a
+window's params and schedules to the block, and :func:`fluid_blocks_step`
+advances every block of a tick at once, so on a graph world the
+spillover's exchange reads every block's rejected mass and pressure
+(:func:`block_exchange`).
 """
 from __future__ import annotations
 
@@ -148,11 +154,6 @@ class FluidResult(NamedTuple):
     tier_requests: np.ndarray     # (R, K)
     tier_success: np.ndarray      # (R, K)
     n_restarts: np.ndarray        # (R, K)
-
-
-def _waiting(name: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet (ROADMAP item {item}); pass None")
 
 
 # --------------------------------------------------------------------- build
@@ -334,7 +335,13 @@ def fluid_window_step(params: FluidParams,
         probes as down, so an outage can outlive ``restart_max_s``.
       speed: optional (R, K) service-speed multiplier this window (<1
         shrinks capacity and inflates latency, the tier stays up).
-      row_block: not ported; must be None.
+      row_block: a shard's block ``(row_start, n_true, n_pad)`` of the
+        padded fleet: ``state``, ``weights`` and ``uniforms`` hold its rows
+        alone, while ``params`` and the schedules hold the whole padded
+        fleet and are cut to the block here.  The restart uniforms come
+        from the shard's view of the noise (drawn at the true R, phantom
+        rows 1.0).  On a graph world the block must be the whole fleet (one
+        shard); :func:`fluid_blocks_step` steps several.
       graph: optional :class:`repro_torch.core.graph.GraphData` — turns on
         cross-cell spillover: the mass a cell rejects this window (down-pod
         refusals and queue overflow) is re-offered to its out-neighbors
@@ -350,7 +357,15 @@ def fluid_window_step(params: FluidParams,
     halves kernel B3 splits a graph window's ticks into.
     """
     if row_block is not None:
-        raise _waiting("row_block (sharded engine)", "A10")
+        params, arrival_rate, hazard_scale, obs_valid, forced_down, speed = \
+            block_inputs(params, row_block, state.backlog,
+                         (arrival_rate, hazard_scale, obs_valid, forced_down,
+                          speed))
+        if graph is not None and \
+                state.backlog.shape[0] != graph.has_out.shape[0]:
+            raise ValueError(
+                "a graph world's spillover crosses row blocks: step every "
+                "block of the tick at once with fluid_blocks_step")
     state, mid, tiers = fluid_flow(
         params, state, weights, arrival_rate, hazard_scale, uniforms, t_idx,
         dt=dt, scrape_every=scrape_every, restart_blackout=restart_blackout,
@@ -487,6 +502,47 @@ def fluid_flow(params: FluidParams, state: FluidState, weights: torch.Tensor,
     return state, mid, tiers
 
 
+def block_inputs(params: FluidParams, row_block: tuple, like: torch.Tensor,
+                 per_cell: tuple, axis: int = 0) -> tuple:
+    """``params`` and the per-cell tensors of ``per_cell`` (each with the
+    padded fleet on ``axis``; None passes through) cut to ``row_block``'s
+    rows, as many as ``like`` has, on ``like``'s device.  Returns (params,
+    *per_cell)."""
+    row0, n = row_block[0], like.shape[0]
+    dev = like.device
+
+    def rows(x, ax):
+        return None if x is None else x.narrow(ax, row0, n).to(dev)
+
+    params = FluidParams(*(rows(x, 0) if isinstance(x, torch.Tensor) else x
+                           for x in params))
+    return (params,) + tuple(rows(x, axis) for x in per_cell)
+
+
+def block_exchange(mids: list[FlowMid], graph, row_blocks: list) -> list:
+    """The spillover's exchange over row blocks: for each block,
+    (spill_in, hop_mass, nbr_press, has_out) on its rows.
+
+    The blocks' rejected mass and pressure are gathered in shard order
+    (the blocks are contiguous, so that is the padded fleet's cell axis)
+    onto the graph's device, the three segment sums of
+    :func:`spill_exchange` run at the global R in their fixed order, and
+    their outputs and ``has_out`` are cut back to each block.  One block
+    holds the whole fleet and needs no gather.
+    """
+    if len(mids) == 1:
+        return [spill_exchange(mids[0], graph) + (graph.has_out,)]
+    dev = graph.has_out.device
+    whole = mids[0]._replace(rej=torch.cat([m.rej.to(dev) for m in mids]),
+                             press=torch.cat([m.press.to(dev) for m in mids]))
+    sums = spill_exchange(whole, graph) + (graph.has_out,)
+    out = []
+    for m, rb in zip(mids, row_blocks):
+        n, d = m.rej.shape[0], m.rej.device
+        out.append(tuple(x[rb[0]:rb[0] + n].to(d) for x in sums))
+    return out
+
+
 def spill_exchange(mid: FlowMid, graph) -> tuple:
     """(spill_in, hop_mass, nbr_press), each (R,): the mass each cell's
     in-neighbours offer it (their rejected mass split 1/out-degree), that
@@ -505,12 +561,13 @@ def fluid_publish(params: FluidParams, state: FluidState, mid: FlowMid,
                   restart_blackout: bool = False,
                   forced_down: torch.Tensor | None = None,
                   speed: torch.Tensor | None = None,
-                  graph=None) -> tuple[FluidState, WindowInfo]:
+                  graph=None, exchange=None) -> tuple[FluidState, WindowInfo]:
     """The second half of :func:`fluid_window_step`, from
     :func:`fluid_flow`'s state, :class:`FlowMid` and per-tier fields: the
-    spillover on a graph world (its exchange over every cell's ``mid``),
-    the queues, the observation EMAs, the telemetry mask and stale hold,
-    and the accounting."""
+    spillover on a graph world (its exchange over every cell's ``mid``, or
+    a row block's part of one from :func:`block_exchange` as
+    ``exchange``), the queues, the observation EMAs, the telemetry mask
+    and stale hold, and the accounting."""
     # ---- cross-cell spillover (graph worlds only) -------------------------
     # Fleet-global request mass is conserved: Σ requests == Σ success +
     # Σ every failure cause + Σ final backlog.
@@ -521,7 +578,9 @@ def fluid_publish(params: FluidParams, state: FluidState, mid: FlowMid,
         cap_rate = params.servers * mu_eff
         syscap = params.queue_cap + params.servers
         up2f = _live(state.down_left, forced_down).to(torch.float32)
-        spill_in, hop_mass, nbr_press = spill_exchange(mid, graph)
+        if exchange is None:
+            exchange = spill_exchange(mid, graph) + (graph.has_out,)
+        spill_in, hop_mass, nbr_press, has_out = exchange
         hop_mean = hop_mass / torch.clamp(spill_in, min=_EPS)     # (R,)
         est_resp = (hop_mean[:, None]
                     + backlog2 / torch.clamp(cap_rate, min=_EPS)
@@ -534,8 +593,8 @@ def fluid_publish(params: FluidParams, state: FluidState, mid: FlowMid,
                         / torch.clamp(room_tot, min=_EPS))[:, None]
         spill_dropped = spill_in - spill_admitted
         backlog2 = backlog2 + admit
-        keep = 1.0 - graph.has_out    # exporters keep none of their rejects
-        spill_out = mid.rej * graph.has_out
+        keep = 1.0 - has_out          # exporters keep none of their rejects
+        spill_out = mid.rej * has_out
 
     # ---- accounting -------------------------------------------------------
     win_success = mid.success
@@ -613,6 +672,52 @@ def fluid_publish(params: FluidParams, state: FluidState, mid: FlowMid,
         nbr_pressure=nbr_press,
     )
     return new_state, info
+
+
+def fluid_blocks_step(params: FluidParams, states: list, weights: list,
+                      arrival_rate: torch.Tensor, hazard_scale: torch.Tensor,
+                      uniforms: list, t_idx: int, row_blocks: list, *,
+                      dt: float = 1.0, scrape_every: int = 10,
+                      obs_valid: torch.Tensor | None = None,
+                      restart_blackout: bool = False,
+                      forced_down: torch.Tensor | None = None,
+                      speed: torch.Tensor | None = None,
+                      graph=None) -> tuple[list, list]:
+    """One window of every row block of a sharded fleet.
+
+    ``states``, ``weights`` and ``uniforms`` hold one entry per block (its
+    rows, on its device), ``row_blocks`` the blocks ``(row_start, n_true,
+    n_pad)`` in shard order; params and schedules hold the whole padded
+    fleet, as for :func:`fluid_window_step`.  On a graph world every block
+    runs :func:`fluid_flow`, the exchange runs over all of them
+    (:func:`block_exchange`), then every block runs
+    :func:`fluid_publish`.  Returns (states, WindowInfos), one per block.
+    """
+    if graph is None or len(states) == 1:
+        outs = [fluid_window_step(
+            params, st, w, arrival_rate, hazard_scale, u, t_idx, dt=dt,
+            scrape_every=scrape_every, obs_valid=obs_valid,
+            restart_blackout=restart_blackout, row_block=rb,
+            forced_down=forced_down, speed=speed, graph=graph)
+            for st, w, u, rb in zip(states, weights, uniforms, row_blocks)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+    flows = []
+    for st, w, u, rb in zip(states, weights, uniforms, row_blocks):
+        p, arr, haz, ov, fd, sp = block_inputs(
+            params, rb, st.backlog,
+            (arrival_rate, hazard_scale, obs_valid, forced_down, speed))
+        st, mid, tiers = fluid_flow(
+            p, st, w, arr, haz, u, t_idx, dt=dt, scrape_every=scrape_every,
+            restart_blackout=restart_blackout, forced_down=fd, speed=sp,
+            spill=True)
+        flows.append((p, st, mid, tiers, arr, ov, fd, sp))
+    exchanges = block_exchange([f[2] for f in flows], graph, row_blocks)
+    outs = [fluid_publish(p, st, mid, tiers, arr, dt=dt, obs_valid=ov,
+                          restart_blackout=restart_blackout, forced_down=fd,
+                          speed=sp, graph=graph, exchange=x)
+            for (p, st, mid, tiers, arr, ov, fd, sp), x in zip(flows,
+                                                               exchanges)]
+    return [o[0] for o in outs], [o[1] for o in outs]
 
 
 def stack_infos(infos: list) -> WindowInfo:
@@ -703,11 +808,14 @@ def make_env_step(params: FluidParams,
                   graph=None) -> Callable:
     """Adapt the fluid engine to the closed-loop engine.
 
-    Returns ``env_step(env_state, weights, t_idx, uniforms) -> (env_state,
-    WindowInfo)`` over the scenario schedules.  The closure's ``emits_mask``
-    tells mask-aware consumers whether degradation is configured,
-    ``n_obs_modalities`` the telemetry width and ``fluid`` the
-    :class:`FluidIngredients` for whole-window consumers.
+    Returns ``env_step(env_state, weights, t_idx, uniforms, row_block=None)
+    -> (env_state, WindowInfo)`` over the scenario schedules.  The
+    closure's ``emits_mask`` tells mask-aware consumers whether degradation
+    is configured, ``n_obs_modalities`` the telemetry width and ``fluid``
+    the :class:`FluidIngredients` for whole-window consumers.  It is
+    shard-aware (``supports_shard``): ``row_block`` steps one shard's
+    rows, and ``env_step.step_blocks(states, weights, t_idx, uniforms,
+    row_blocks)`` steps every shard of a tick (:func:`fluid_blocks_step`).
 
     ``graph``: a :class:`repro_torch.core.graph.FleetGraph` built at the
     fleet size turns on cross-cell spillover and the neighbor-pressure
@@ -736,19 +844,32 @@ def make_env_step(params: FluidParams,
             [obs_valid, torch.ones(obs_valid.shape[:-1] + (1,), device=dev)],
             dim=-1)
 
-    def env_step(env_state, weights, t_idx, uniforms):
-        def at(x):
-            return None if x is None else x[t_idx]
+    def at(x, t_idx):
+        return None if x is None else x[t_idx]
 
+    def env_step(env_state, weights, t_idx, uniforms, row_block=None):
         return fluid_window_step(params, env_state, weights,
                                  arrival_rate[t_idx], hazard_scale[t_idx],
                                  uniforms, t_idx, dt=dt,
                                  scrape_every=scrape_every,
-                                 obs_valid=at(obs_valid),
+                                 obs_valid=at(obs_valid, t_idx),
                                  restart_blackout=restart_blackout,
-                                 forced_down=at(forced_down),
-                                 speed=at(speed), graph=gd)
+                                 row_block=row_block,
+                                 forced_down=at(forced_down, t_idx),
+                                 speed=at(speed, t_idx), graph=gd)
 
+    def step_blocks(states, weights, t_idx, uniforms, row_blocks):
+        return fluid_blocks_step(params, states, weights,
+                                 arrival_rate[t_idx], hazard_scale[t_idx],
+                                 uniforms, t_idx, row_blocks, dt=dt,
+                                 scrape_every=scrape_every,
+                                 obs_valid=at(obs_valid, t_idx),
+                                 restart_blackout=restart_blackout,
+                                 forced_down=at(forced_down, t_idx),
+                                 speed=at(speed, t_idx), graph=gd)
+
+    env_step.supports_shard = True
+    env_step.step_blocks = step_blocks
     env_step.emits_mask = obs_valid is not None or restart_blackout
     env_step.has_graph = gd is not None
     env_step.n_obs_modalities = N_OBS_MODALITIES + (gd is not None)

@@ -450,6 +450,49 @@ SCENARIOS: dict[str, Callable[..., ScenarioBatch]] = {
     "hier-continuum": _hier_continuum,
 }
 
+def pad_cells(arr: np.ndarray | None, n_pad: int, fill: float,
+              cell_axis: int = 0) -> np.ndarray | None:
+    """``arr`` with its cell axis padded to ``n_pad`` rows of ``fill``
+    (None passes through)."""
+    if arr is None:
+        return None
+    arr = np.asarray(arr)
+    pad = n_pad - arr.shape[cell_axis]
+    if pad < 0:
+        raise ValueError(f"cell axis already has {arr.shape[cell_axis]} "
+                         f"rows > n_pad={n_pad}")
+    if pad == 0:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[cell_axis] = (0, pad)
+    return np.pad(arr, widths, constant_values=fill)
+
+
+def pad_scenario(sc: ScenarioBatch, n_pad: int) -> ScenarioBatch:
+    """A scenario's cell axis extended to ``n_pad`` cells with phantom rows.
+
+    A sharded run rounds R up to a multiple of its shard count
+    (:meth:`repro_torch.api.shard.ShardSpec.padded`); the phantom cells get
+    zero arrivals, zero hazard, unit capacity, all-valid telemetry, no
+    injected downtime and unit speed, so they stay quiescent and add
+    nothing to any fleet reduction.  The real cells' schedules are those
+    of the unpadded build: a scenario is built at the true R (its per-cell
+    randomness depends on R) and padded afterwards.  A fleet graph is built
+    at the true R too, so phantom rows stay edge-less
+    (:meth:`repro_torch.core.graph.FleetGraph.validate_true_rows`).
+    """
+    return ScenarioBatch(
+        arrival_rate=pad_cells(sc.arrival_rate, n_pad, 0.0, cell_axis=1),
+        hazard_scale=pad_cells(sc.hazard_scale, n_pad, 0.0, cell_axis=1),
+        capacity_scale=pad_cells(sc.capacity_scale, n_pad, 1.0,
+                                 cell_axis=0),
+        obs_valid=pad_cells(sc.obs_valid, n_pad, 1.0, cell_axis=1),
+        restart_blackout=sc.restart_blackout,
+        forced_down=pad_cells(sc.forced_down, n_pad, 0.0, cell_axis=1),
+        speed=pad_cells(sc.speed, n_pad, 1.0, cell_axis=1),
+    )
+
+
 #: Presets of the reference that wait for a later slice of the port (name
 #: -> ROADMAP item); :func:`build_scenario` raises for them.
 WAITING: dict[str, str] = {}

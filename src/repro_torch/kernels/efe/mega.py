@@ -26,7 +26,11 @@ without them).  A fleet graph passes its edge tensors and a (2, R, 10)
 exchange buffer, and its window runs as W + 1 launches over one tick each
 (the cross-cell spillover needs every cell's flow of a tick before any
 cell can publish it); the telemetry is then M=5 wide and the trace's
-``spill_*``/``nbr_pressure`` fields are set.  The slot pushes go in
+``spill_*``/``nbr_pressure`` fields are set.  A sharded fleet's row
+blocks (:func:`mega_window_blocks_cuda`) launch over their own rows; on a
+graph the exchange buffer and the edge lists are indexed by global row,
+with the block's first row and the padded fleet size as launch arguments,
+and the blocks' launches interleave.  The slot pushes go in
 place into the caller's tape at columns ``[t0, t0 + W)``; every other
 output is a new tensor.  The kernel draws
 nothing: the Gumbel noise and the restart uniforms are operands.  Every
@@ -83,7 +87,7 @@ class MegaArgs(ctypes.Structure):
             "n_util_edges", "n_used", "t0", "dwell", "util_period",
             "scrape_every", "err_ix", "emits_mask", "masked_obs",
             "restart_blackout", "bf16_slots", "G_E", "G_din", "G_dout",
-            "w_lo", "w_hi")]
+            "G_R", "row0", "w_lo", "w_hi")]
         + [(n, _F) for n in (
             "dt", "fast_period_s", "err_decay", "err_keep", "error_trigger",
             "beta", "u_c", "d_c", "usd", "log_match", "log_miss",
@@ -136,10 +140,110 @@ def mega_window_cuda(state, est, obs_carry, params,
 
     Arguments and results as :func:`repro_torch.core.mega.mega_window`.
     ``t0`` must sit on a dwell boundary and the window must fit the tape
-    (``t0 + W <= J``).  Raises for non-CUDA tensors and for row blocks
-    (not ported, ROADMAP A10).  A graph window is W + 1 launches.
+    (``t0 + W <= J``).  Raises for non-CUDA tensors.  A graph window is
+    W + 1 launches.  A row block launches over the block's rows with its
+    operands cut to them; on a graph the block must be the whole fleet
+    (several blocks: :func:`mega_window_blocks_cuda`).
     """
-    mega_core._not_ported(row_block)
+    params, arrival, hazard, obs_valid, forced_down, speed = \
+        mega_core.block_window(
+            state, params, (arrival, hazard, obs_valid, forced_down, speed),
+            row_block, graph)
+    packed = _pack(state, est, obs_carry, params, arrival, hazard, obs_valid,
+                   uniforms, gumbel, t0, cfg=cfg, disc=disc,
+                   util_edges=util_edges, util_period=util_period, dt=dt,
+                   scrape_every=scrape_every,
+                   restart_blackout=restart_blackout, emits_mask=emits_mask,
+                   forced_down=forced_down, speed=speed, graph=graph)
+    w = gumbel.shape[0]
+    # a graph window: launch i publishes tick i - 1 and runs tick i
+    ranges = ([(0, w)] if graph is None
+              else [(i, min(i + 1, w)) for i in range(w + 1)])
+    for lo, hi in ranges:
+        _launch(packed, lo, hi)
+    return _unpack(packed)
+
+
+def mega_window_blocks_cuda(blocks: list, params, arrival: torch.Tensor,
+                            hazard: torch.Tensor,
+                            obs_valid: torch.Tensor | None, t0: int, *,
+                            cfg, disc, util_edges, util_period: int,
+                            dt: float, scrape_every: int,
+                            restart_blackout: bool, emits_mask: bool,
+                            forced_down=None, speed=None, graph=None):
+    """Kernel B3 on every row block of a sharded fleet.
+
+    Arguments and results as
+    :func:`repro_torch.core.mega.mega_window_blocks`.  Without a graph, or
+    with one block, each block is one :func:`mega_window_cuda` call on
+    its rows.  On a graph the blocks' launches interleave: launch i of
+    every block before launch i + 1 of any, each block's kernel reading
+    and writing the exchange buffer (2, R_pad, 10) by global row, with its
+    first row and R_pad as launch arguments.  Blocks on one device share
+    one buffer and run in order on its stream; with several devices each
+    has its own, and after each launch every block's rows of the tick it
+    wrote are copied into the other devices' buffers, in shard order.
+    """
+    kw = dict(cfg=cfg, disc=disc, util_edges=util_edges,
+              util_period=util_period, dt=dt, scrape_every=scrape_every,
+              restart_blackout=restart_blackout, emits_mask=emits_mask)
+    if graph is None or len(blocks) == 1:
+        return [mega_window_cuda(st, est, obs, params, arrival, hazard,
+                                 obs_valid, u, g, t0, forced_down=forced_down,
+                                 speed=speed, row_block=rb, graph=graph, **kw)
+                for st, est, obs, u, g, rb in blocks]
+    r_glob = graph.has_out.shape[0]
+    xch = {}
+    packs = []
+    for st, est, obs, u, g, rb in blocks:
+        dev = st.belief.device
+        if dev not in xch:
+            xch[dev] = torch.empty((2, r_glob, N_MID), device=dev)
+        gd = batched.GraphData(*(x.to(dev) for x in graph))
+        cut = batched.block_inputs(
+            params, rb, st.belief,
+            (arrival, hazard, obs_valid, forced_down, speed), axis=1)
+        p, arr, haz, ov, fd, sp = cut
+        packs.append(_pack(st, est, obs, p, arr, haz, ov, u, g, t0,
+                           forced_down=fd, speed=sp, graph=gd,
+                           row0=rb[0], xch=xch[dev], **kw))
+    w = blocks[0][4].shape[0]
+    for i in range(w + 1):
+        for pk in packs:
+            _launch(pk, i, min(i + 1, w))
+        if len(xch) > 1 and i < w:
+            # tick i's rows (parity i & 1) to every other device, in shard
+            # order, before any block reads them in launch i + 1
+            for pk in packs:
+                lo, n = pk["row0"], pk["args"].R
+                src = pk["xch"][i & 1, lo:lo + n]
+                for dev, buf in xch.items():
+                    if buf is not pk["xch"]:
+                        buf[i & 1, lo:lo + n].copy_(src)
+    return [_unpack(pk) for pk in packs]
+
+
+def _launch(packed: dict, lo: int, hi: int) -> None:
+    """One launch of B3 over ticks ``[lo, hi)`` of a packed window."""
+    args = packed["args"]
+    args.w_lo, args.w_hi = lo, hi
+    dev = packed["device"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _raise_on(library().mega_window_launch(ctypes.byref(args), stream),
+                  "mega_window")
+    mega_window_cuda.launches += 1
+
+
+def _pack(state, est, obs_carry, params, arrival, hazard, obs_valid,
+          uniforms, gumbel, t0, *, cfg, disc, util_edges, util_period, dt,
+          scrape_every, restart_blackout, emits_mask, forced_down, speed,
+          graph, row0: int = 0, xch: torch.Tensor | None = None) -> dict:
+    """Check and pack one window's operands for :func:`_launch`; the
+    tensors the launch arguments point at stay referenced in the returned
+    dict.  ``row0`` is the block's first row in the graph's global rows
+    and ``xch`` a shared exchange buffer (None: a new one of the block's
+    own rows)."""
     dev = state.belief.device
     if dev.type != "cuda":
         raise ValueError(f"mega_window_cuda runs on CUDA tensors, got {dev}")
@@ -170,6 +274,13 @@ def mega_window_cuda(state, est, obs_carry, params,
     if slot_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"slots must be float32 or bfloat16, got "
                         f"{slot_dtype}")
+
+    def dense(x):
+        return None if x is None else x.contiguous()
+
+    # a row block's schedule slices are strided views of the whole fleet's
+    arrival, hazard, obs_valid, forced_down, speed = (
+        dense(x) for x in (arrival, hazard, obs_valid, forced_down, speed))
     f32, i64 = torch.float32, torch.int64
     checks = [
         ("slots.q_prev", slots.q_prev, (r, j, s), slot_dtype),
@@ -198,17 +309,24 @@ def mega_window_cuda(state, est, obs_carry, params,
     for name, x in (("forced_down", forced_down), ("speed", speed)):
         if x is not None:
             checks.append((name, x, (w, r, k), f32))
+    r_glob = r
     if graph is not None:
         n_e = graph.src.shape[0]
+        r_glob = graph.has_out.shape[0]
+        if row0 < 0 or row0 + r > r_glob:
+            raise ValueError(f"rows [{row0}, {row0 + r}) are not rows of "
+                             f"the graph's {r_glob} cells")
         checks += [("graph.src", graph.src, (n_e,), i64),
                    ("graph.dst", graph.dst, (n_e,), i64),
                    ("graph.share", graph.share, (n_e,), f32),
                    ("graph.hop", graph.hop, (n_e,), f32),
-                   ("graph.has_out", graph.has_out, (r,), f32),
+                   ("graph.has_out", graph.has_out, (r_glob,), f32),
                    ("graph.in_edges", graph.in_edges,
-                    (r, graph.in_edges.shape[1]), i64),
+                    (r_glob, graph.in_edges.shape[1]), i64),
                    ("graph.out_edges", graph.out_edges,
-                    (r, graph.out_edges.shape[1]), i64)]
+                    (r_glob, graph.out_edges.shape[1]), i64)]
+        if xch is not None:
+            checks.append(("xch", xch, (2, r_glob, N_MID), f32))
     for name, t, shape, dtype in checks:
         _check(name, t, shape, dev, dtype)
 
@@ -243,18 +361,19 @@ def mega_window_cuda(state, est, obs_carry, params,
     tr_rk = torch.empty((w, 8, r, k), device=dev)
     tr_r = torch.empty((w, 4, r), device=dev)
     tr_rm = torch.empty((w, 3, r, m), device=dev)
-    tr_g = xch = None
+    tr_g = None
     graph_args = {}
     if graph is not None:
         tr_g = torch.empty((w, 4, r), device=dev)
-        xch = torch.empty((2, r, N_MID), device=dev)
+        if xch is None:
+            xch = torch.empty((2, r_glob, N_MID), device=dev)
         graph_args = dict(
             g_src=graph.src.data_ptr(), g_dst=graph.dst.data_ptr(),
             g_share=graph.share.data_ptr(), g_hop=graph.hop.data_ptr(),
             g_has_out=graph.has_out.data_ptr(),
             g_in=graph.in_edges.data_ptr(), g_out=graph.out_edges.data_ptr(),
             G_E=graph.src.shape[0], G_din=graph.in_edges.shape[1],
-            G_dout=graph.out_edges.shape[1])
+            G_dout=graph.out_edges.shape[1], G_R=r_glob, row0=row0)
     tb = _tables(cfg, disc, tuple(util_edges), dev)
 
     u_c = cfg.b_prior_uniform / s
@@ -304,19 +423,27 @@ def mega_window_cuda(state, est, obs_carry, params,
         log_miss=tb["log_miss"], timeout_s=params.timeout_s, a_lat=a_lat,
         a_err=a_err, a_rps=a_rps, keep_lat=1.0 - a_lat, keep_err=1.0 - a_err,
         keep_rps=1.0 - a_rps, scrape_den=scrape_every * dt, **graph_args)
-    lib, stream = library(), torch.cuda.current_stream(dev).cuda_stream
-    # a graph window: launch i publishes tick i - 1 and runs tick i
-    ranges = ([(0, w)] if graph is None
-              else [(i, min(i + 1, w)) for i in range(w + 1)])
-    for lo, hi in ranges:
-        args.w_lo, args.w_hi = lo, hi
-        _raise_on(lib.mega_window_launch(ctypes.byref(args), stream),
-                  "mega_window")
-        mega_window_cuda.launches += 1
+    return dict(args=args, device=dev, row0=row0, xch=xch, state=state,
+                emits_mask=emits_mask, obs_mask0=obs_mask0, w=w,
+                keep=(arrival, hazard, obs_valid, uniforms, gumbel,
+                      forced_down, speed, graph, pstack),
+                belief=belief, prev_action=prev_action, scal=scal,
+                obsm=obsm, tier_util=tier_util, envk=envk, envr=envr,
+                tr_act=tr_act, tr_rk=tr_rk, tr_r=tr_r, tr_rm=tr_rm,
+                tr_g=tr_g)
 
+
+def _unpack(pk: dict):
+    """(state, env state, obs carry, trace) of a packed window after its
+    launches, as :func:`repro_torch.core.mega.mega_window` returns them."""
+    w, envk, envr, obsm = pk["w"], pk["envk"], pk["envr"], pk["obsm"]
+    tr_rk, tr_r, tr_rm, tr_g = pk["tr_rk"], pk["tr_r"], pk["tr_rm"], \
+        pk["tr_g"]
+    scal, state = pk["scal"], pk["state"]
     new_state = state._replace(
-        belief=belief, prev_action=prev_action, dt_since_change=scal[:, 0],
-        error_ema=scal[:, 1], unstable=tr_r[-1, 2] > 0.5, t=state.t + w)
+        belief=pk["belief"], prev_action=pk["prev_action"],
+        dt_since_change=scal[:, 0], error_ema=scal[:, 1],
+        unstable=tr_r[-1, 2] > 0.5, t=state.t + w)
     new_est = batched.FluidState(
         backlog=envk[0], down_left=envk[1], util_accum=envk[2],
         util_scrape=envk[3], prev_tier_rps=envk[4], p95_ema=envr[:, 0],
@@ -334,10 +461,10 @@ def mega_window_cuda(state, est, obs_carry, params,
         **({} if tr_g is None else dict(
             spill_out=tr_g[:, 0], spill_in=tr_g[:, 1],
             spill_admitted=tr_g[:, 2], nbr_pressure=tr_g[:, 3])))
-    trace = (tr_act, tr_rk[:, 0], tr_rm[:, 2], tr_r[:, 2] > 0.5, tr_r[:, 3],
-             win)
+    trace = (pk["tr_act"], tr_rk[:, 0], tr_rm[:, 2], tr_r[:, 2] > 0.5,
+             tr_r[:, 3], win)
     new_carry = (tr_rm[-1, 0], tr_rk[-1, 1], tr_rk[-1, 2], tr_rk[-1, 3],
-                 tr_rm[-1, 1] if emits_mask else obs_mask0)
+                 tr_rm[-1, 1] if pk["emits_mask"] else pk["obs_mask0"])
     return new_state, new_est, new_carry, trace
 
 

@@ -9,7 +9,9 @@
   ``fleet_belief_efe`` also fuses the belief update (Eq. 2) into the same
   launch.
 * ``fleet_belief_posterior`` is the belief update alone (held ticks).
-* ``mega_window`` runs W fused ticks of the whole-window engine path.
+* ``mega_window`` runs W fused ticks of the whole-window engine path, and
+  ``mega_window_blocks`` one window for every row block of a sharded
+  fleet.
 
 The device of the tensors decides between the CUDA kernel and its plain
 PyTorch version (see :mod:`repro_torch.kernels.efe.efe` and
@@ -133,3 +135,20 @@ def mega_window(state, est, obs_carry, params,
           else mega_kernel.mega_window_cuda)
     return fn(state, est, obs_carry, params, arrival, hazard, obs_valid,
               uniforms, gumbel, t0, **kw)
+
+
+def mega_window_blocks(blocks: list, params, arrival: torch.Tensor,
+                       hazard: torch.Tensor, obs_valid: torch.Tensor | None,
+                       t0: int, **kw) -> list:
+    """One window for every row block of a sharded fleet.
+
+    Arguments and results are those of
+    :func:`repro_torch.core.mega.mega_window_blocks`.  Blocks on the CPU
+    run that plain version; blocks on CUDA run kernel B3
+    (:func:`repro_torch.kernels.efe.mega.mega_window_blocks_cuda`), a
+    graph window launch by launch across the blocks.
+    """
+    fn = (mega_core.mega_window_blocks
+          if blocks[0][0].belief.device.type == "cpu"
+          else mega_kernel.mega_window_blocks_cuda)
+    return fn(blocks, params, arrival, hazard, obs_valid, t0, **kw)

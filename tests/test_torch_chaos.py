@@ -196,7 +196,8 @@ def test_chaos_run_restarts_generator_noise_for_its_control():
 def test_mega_with_chaos_raises_a8b():
     """Chaos on the whole-window path, once refused (ROADMAP A8b), runs
     and matches the reference's mega run, its mega control included; only
-    row blocks (the sharded engine, A10) are still refused."""
+    the sharded engine (once refused, A10) runs it on two shards of one
+    cell each, against the reference's unsharded run."""
     e = api.Experiment(mega=True, scenario="zone-outage", n_cells=2,
                        n_windows=20, device="cpu")
     ref = ref_api.run(ref_api.Experiment(mega=True, scenario="zone-outage",
@@ -209,8 +210,13 @@ def test_mega_with_chaos_raises_a8b():
     assert_tree_close(port.trace.env, ref.trace.env, path="env")
     for k in ("regret_vs_control", "control_success_pct"):
         assert_close(port.recovery[k], ref.recovery[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="A10"):
-        mega_mod._not_ported(torch.ones(1))
+    from repro_torch.api import experiment
+    cpu = torch.device("cpu")
+    two = experiment._run_sharded(e, cpu, api.ShardSpec(),
+                                  JaxChainNoise(0, 2, 20), mesh=[cpu] * 2)
+    assert two.trace is None and two.cells_per_device == 1
+    assert_close(two.success_pct, ref.success_pct, err_msg="success_pct")
+    assert_tree_close(two.final_carry, ref.final_carry, path="sharded.carry")
 
 
 # --------------------------------------------------------- degenerate beliefs

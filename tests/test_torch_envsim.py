@@ -155,10 +155,51 @@ def test_weighted_p95_matches_reference():
 
 
 def test_waiting_env_options_raise():
-    _, sc_p, _, params_p = _world("steady", 2, 4)
+    """Row blocks of the sharded engine (once refused, ROADMAP A10): R=3
+    padded to 4, a mid-run window over two blocks of 2 rows against the
+    reference's row-block window on the same restart key (drawn at the true
+    R, phantom row 1.0), and a block of the whole fleet equal to the bit to
+    the unsharded window."""
+    r_true, r_pad, t = 3, 4, 5
+    sc_r, sc_p, _, _ = _world("paper-burst", r_true, 8)
+    sc_r = ref_scen.pad_scenario(sc_r, r_pad)
+    sc_p = scenarios.pad_scenario(sc_p, r_pad)
+    params_r = ref_batched.params_from_config(RefSimConfig(), r_pad,
+                                              sc_r.capacity_scale)
+    params_p = batched.params_from_config(SimConfig(), r_pad,
+                                          sc_p.capacity_scale, device="cpu")
+    rng = np.random.default_rng(0)
+    w = torch.tensor(rng.uniform(0.1, 1.0, (r_pad, 3)).astype(np.float32))
+    arr, haz = (torch.tensor(x) for x in (sc_p.arrival_rate,
+                                          sc_p.hazard_scale))
     st = batched.init_fluid_state(params_p)
-    u = (torch.zeros(2, 3), torch.zeros(2, 3))
-    args = (params_p, st, torch.ones(2, 3), torch.ones(2), torch.ones(2, 3),
-            u, 0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        batched.fluid_window_step(*args, row_block=(0, 2, 2))
+    for i in range(t):
+        st, _ = batched.fluid_window_step(
+            params_p, st, w, arr[i], haz[i],
+            env_uniforms(jax.random.key(i), (r_pad, 3)), i)
+    key = jax.random.key(99)
+    u_fire, u_dur = (torch.cat([u, torch.ones(r_pad - r_true, 3)])
+                     for u in env_uniforms(key, (r_true, 3)))
+    st_r = ref_batched.FluidState(**{k: jnp.asarray(v.numpy())
+                                     for k, v in st._asdict().items()})
+    for row0 in (0, 2):
+        sl = slice(row0, row0 + 2)
+        got = batched.fluid_window_step(
+            params_p, batched.FluidState(*(x[sl] for x in st)), w[sl],
+            arr[t], haz[t], (u_fire[sl], u_dur[sl]), t,
+            row_block=(row0, r_true, r_pad))
+        want = ref_batched.fluid_window_step(
+            params_r, jax.tree_util.tree_map(lambda a: a[sl], st_r),
+            jnp.asarray(w[sl].numpy()), jnp.asarray(sc_r.arrival_rate[t]),
+            jnp.asarray(sc_r.hazard_scale[t]), key, t,
+            row_block=(row0, r_true, r_pad))
+        assert_tree_close(got[0], want[0], path=f"block {row0} state")
+        assert_tree_close(got[1], want[1], path=f"block {row0} info")
+    whole = batched.fluid_window_step(params_p, st, w, arr[t], haz[t],
+                                      (u_fire, u_dur), t,
+                                      row_block=(0, r_pad, r_pad))
+    plain = batched.fluid_window_step(params_p, st, w, arr[t], haz[t],
+                                      (u_fire, u_dur), t)
+    for a, b in zip(whole, plain):
+        for x, y in zip(a, b):
+            assert (x is None and y is None) or torch.equal(x, y)

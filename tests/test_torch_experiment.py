@@ -116,9 +116,17 @@ def test_waiting_paths_raise_not_implemented():
                          err_msg=f"{scenario}.{field}")
         assert_tree_close(port.final_carry, ref.final_carry,
                           path=f"{scenario}.carry")
-    # the sharded engine's row blocks wait (A10)
-    with pytest.raises(NotImplementedError, match="A10"):
-        mega._not_ported((0, 2, 2))
+    # the sharded engine (once refused, A10): one shard on the mega path
+    # runs the unsharded program, against the reference's unsharded run
+    e = api.Experiment(mega=True, n_cells=2, n_windows=20, device="cpu",
+                       shard=api.ShardSpec(devices=1))
+    one = api.run(e, noise=JaxChainNoise(0, 2, 20))
+    ref = ref_api.run(ref_api.Experiment(mega=True, n_cells=2, n_windows=20))
+    assert one.trace is None and one.cells_per_device == 2
+    for field in ("success_pct", "obs_frac", "restarts"):
+        assert_close(getattr(one, field), getattr(ref, field),
+                     err_msg=field)
+    assert_tree_close(one.final_carry, ref.final_carry, path="sharded.carry")
 
 
 def test_uniform_router_weights_are_the_balanced_row():

@@ -399,8 +399,10 @@ def test_state_converter_round_trip_and_warm_paths_raise():
 def test_cuda_wrapper_refuses_cpu_tensors_and_unported_options():
     """On the CPU the dispatch takes the plain version, fault schedules
     included (against the reference's oracle on the same schedules); the
-    kernel's own wrapper never runs the plain version in its place, and row
-    blocks (the sharded engine, ROADMAP A10) stay refused on both."""
+    kernel's own wrapper never runs the plain version in its place, a row
+    block included; a row block of the whole fleet (the sharded engine's
+    one shard, once refused as ROADMAP A10) runs the unsharded window to
+    the bit."""
     router, env_step = _port_world("paper-burst", 3, 30, "k3")
     ref_router, params, ref_env = _ref_world("paper-burst", 3, 30, "k3")
     (state, est, obs), (st_r, est_r, obs_r) = _both_sides(
@@ -428,10 +430,11 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_unported_options():
     with pytest.raises(ValueError, match="CUDA"):
         mega_kernel.mega_window_cuda(*args, **kw,
                                      forced_down=torch.tensor(fd))
-    for fn in (ops.mega_window, mega_kernel.mega_window_cuda):
-        with pytest.raises(NotImplementedError, match="A10"):
-            fn(*args, **kw, row_block=(0, r, r))
+    with pytest.raises(ValueError, match="CUDA"):
+        mega_kernel.mega_window_cuda(*args, **kw, row_block=(0, r, r))
     assert mega_kernel.mega_window_cuda.launches == launches
+    assert_bits_equal(ops.mega_window(*args, **kw, row_block=(0, r, r)),
+                      ops.mega_window(*args, **kw))
     port = ops.mega_window(*args, **kw, forced_down=torch.tensor(fd),
                            speed=torch.tensor(sp))
     ref = ref_mega.mega_window(
