@@ -157,7 +157,22 @@ failure raising (exit code != 0):
    engines sharing the serve phase's weights (max_batch 2/3/8,
    steps_per_tick 1/1/3, max_len 512), 60 ticks at 4 arrivals per tick of
    128-token prompts with 16 new tokens, counts read around it;
-33. times — each kernel's ms per launch (CUDA events around one
+33. event small — the port's ``AifRouter`` on the paper's event simulator
+   (``SimConfig()``, 50 RPS), 300 control windows on the card and on the
+   CPU, both fed one host generator's draws: the action traces and the
+   two ``RunResult``s equal field by field; a flip passes only at a
+   near-tie (the two actions' scores within 1e-4 |G|, printed with its
+   window), and comparing stops there; no kernel launched (the
+   single-agent tick is plain PyTorch);
+34. event table1 — the paper's Table-1 protocol at CI speed
+   (``tools/event_table1.py``): ``evaluate_strategy`` with 3 runs x 600 s
+   for aif, uniform, capacity, round_robin, least_loaded, thompson and ucb,
+   AIF's tick on the card; the table, the Δ(AIF−Base) line beside the
+   paper's, each strategy's wall; then AIF's first run again window by
+   window (equal to it) with the host ms of the snapshot, the tick, the
+   weights' copy back and the world's window, the tick's device ms from a
+   profiler trace of 100 windows, and the card's idle share;
+35. times — each kernel's ms per launch (CUDA events around one
    synchronized call, warmed up, median) and its device ms (30 calls
    queued back to back behind a busy-wait, so the host's cost per call
    stays off the clock) beside its bound and its plain version's ms; B3 at the mega slice's
@@ -171,7 +186,7 @@ failure raising (exit code != 0):
    (its own row of the kernels line, as B3's warm branch from phase 17
    and B3 on chaos and graph windows from phases 19-20 and on row blocks
    from phase 24);
-34. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
+36. ssd kernel vs plain — B6 (the SSD chunked scan) against its plain
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
@@ -182,17 +197,17 @@ failure raising (exit code != 0):
    one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
    the plain model of that route's algebra, and closer to it than to the
    model that drops the lo halves;
-35. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
+37. mamba serve small — mamba2-2.7b's widths at 2 layers in f32, one
    ``ServingEngine`` on the card and one on the CPU with the same weights,
    4 prompts of 37-64 tokens (right-padded to the 64-token bucket), 8 new
    tokens each, checked as in phase 30 (B6: 2 per admission);
-36. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
+38. mamba serve — ``ServingEngine(get_arch("mamba2-2.7b").full,
    max_batch=8, max_len=2048)`` in bf16, all 64 layers, answering 8
    requests of 1000-1024 prompt tokens with 32 new tokens each, every
    kernel's count read around it (B6: 64 per request), then one prefill's
    and one decode wave's host and device time; the weights are freed
    after it;
-37. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
+39. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
    bf16) beside its bound and its plain version's ms.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
@@ -2787,6 +2802,227 @@ def phase_multitier(weights) -> dict:
     return launches
 
 
+
+# ------------------------------------------------- the event simulator
+T_EVENT_SMALL = 300       # event_small's control windows (one a second)
+EVENT_DURATION_S = 600.0  # event_table1: 3 runs x 10 simulated minutes
+EVENT_RUNS = 3
+T_EVENT_PROFILE = 100     # windows of the AIF tick under the profiler
+
+
+class RecordingNoise(MirroredNoise):
+    """:class:`MirroredNoise` that keeps each tick's Gumbel draw (on the
+    host), so a flip can be read against the draw that decided it."""
+
+    def __init__(self, seed: int, device: str):
+        super().__init__(seed, device)
+        self.gumbels = {}
+
+    def gumbel(self, t, shape):
+        g = self.src.gumbel(t, shape)
+        self.gumbels[t] = g[0]
+        return g.to(self.device)
+
+
+class GTrace:
+    """An event-simulator router around a port ``AifRouter`` that keeps
+    each tick's G (expected free energy of every action) on the host."""
+
+    def __init__(self, router):
+        self.router, self.g = router, []
+
+    @property
+    def actions(self):
+        return self.router.actions
+
+    def __call__(self, snapshot):
+        w = self.router(snapshot)
+        self.g.append(self.router.last_info.efe.g[0].cpu())
+        return w
+
+
+def event_result_diffs(a, b) -> list:
+    """Fields of two simulator ``RunResult``s that differ (arrays in value
+    or dtype, scalars in value or type)."""
+    import dataclasses
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            same = (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y))
+        else:
+            same = x == y and type(x) is type(y)
+        if not same:
+            out.append(f.name)
+    return out
+
+
+def phase_event_small() -> None:
+    """The port's AifRouter on the paper's world (``SimConfig()``, 50 RPS),
+    T_EVENT_SMALL windows on the card and on the CPU, both fed one host
+    generator's draws: the action traces and the two ``RunResult``s equal.
+    A flip passes only at a near-tie: at the first window whose action
+    differs, the two actions' scores (``-β G + gumbel``) must lie within
+    1e-4 |G| of each other (in G's units) on both devices; the traces
+    before it must be equal, and comparing stops there."""
+    from repro_torch.envsim import AifRouter, SimConfig, run_experiment
+    runs, traces, noises, launches = {}, {}, {}, {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        noises[side] = RecordingNoise(0, dev)
+        traces[side] = GTrace(AifRouter(seed=0, noise=noises[side],
+                                        device=dev))
+        runs[side], launches[side] = counted(lambda: run_experiment(
+            traces[side], SimConfig(), float(T_EVENT_SMALL), seed=0))
+    gpu, cpu = runs["card"], runs["cpu"]
+    card_launches = launches["card"]
+    beta = traces["card"].router.cfg.beta
+    differ = np.nonzero(gpu.action_trace != cpu.action_trace)[0]
+    fields = dict(n_windows=T_EVENT_SMALL, launches=card_launches,
+                  n_requests=cpu.n_requests, success_rate=cpu.success_rate,
+                  p50_ms=cpu.p50_ms, distinct_actions=len(set(cpu.action_trace)))
+    if differ.size == 0:
+        diffs = event_result_diffs(gpu, cpu)
+        emit("event_small", actions_equal=True, results_differ=diffs,
+             **fields)
+        if diffs:
+            raise AssertionError(f"event_small: equal actions but the "
+                                 f"RunResults differ in {diffs}")
+    else:
+        w = int(differ[0])
+        a1, a2 = int(gpu.action_trace[w]), int(cpu.action_trace[w])
+        gaps, bars = {}, {}
+        for side in ("card", "cpu"):
+            g = traces[side].g[w].double()
+            gum = noises[side].gumbels[w].double()
+            score = -beta * g + gum
+            gaps[side] = float(abs(score[a1] - score[a2])) / beta
+            bars[side] = 1e-4 * float(max(abs(g[a1]), abs(g[a2])))
+        prefix_ok = (np.array_equal(gpu.weights_trace[:w],
+                                    cpu.weights_trace[:w])
+                     and np.array_equal(gpu.p95_trace[:w + 1],
+                                        cpu.p95_trace[:w + 1])
+                     and np.array_equal(gpu.error_trace[:w + 1],
+                                        cpu.error_trace[:w + 1]))
+        emit("event_small", actions_equal=False, flip_window=w,
+             flip_actions={"card": a1, "cpu": a2}, gap_in_g=gaps,
+             bar=bars, prefix_equal=prefix_ok, **fields)
+        if not prefix_ok or any(gaps[k] > bars[k] for k in gaps):
+            raise AssertionError(f"event_small: the card's action at window "
+                                 f"{w} differs from the CPU's away from a "
+                                 f"near-tie (gap {gaps}, bar {bars})")
+    if card_launches != NO_LAUNCHES:
+        raise AssertionError(f"event_small launched {card_launches}: the "
+                             f"single-agent tick reaches no kernel")
+
+
+def event_window_breakdown(aif_run0, aif_wall_s: float) -> dict:
+    """Where an AIF control window's host time goes, on the first run of
+    event_table1's AIF row rerun window by window (same seeds: the result
+    must equal that run's): the snapshot, the tick (queued and waited for
+    by its action read), the weights' copy back to the host, and the
+    world's window; then the tick's device time from a profiler trace of
+    T_EVENT_PROFILE windows, and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.envsim import AifRouter, EdgeSimulator, SimConfig
+    cfg = SimConfig()
+    n = int(round(EVENT_DURATION_S))
+    router = AifRouter(seed=0, device=DEVICE)
+    sim = EdgeSimulator(cfg, seed=0)
+    parts = {"snapshot": 0.0, "tick": 0.0, "copy": 0.0, "world": 0.0}
+    torch.cuda.synchronize()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        snap = sim.snapshot()
+        t1 = time.perf_counter()
+        w_dev = router.step(snap)
+        t2 = time.perf_counter()
+        w = w_dev.cpu().numpy().astype(np.float64)
+        t3 = time.perf_counter()
+        sim.run_window(w)
+        t4 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k] += dt
+    host_ms = {k: 1e3 * v / n for k, v in parts.items()}
+    same_run = (sim.n_requests == aif_run0.n_requests
+                and sim.n_success == aif_run0.n_success
+                and router.actions == list(aif_run0.action_trace))
+    # the tick's device time: T_EVENT_PROFILE windows of a fresh run
+    router = AifRouter(seed=0, device=DEVICE)
+    sim = EdgeSimulator(cfg, seed=0)
+    snaps = []
+    for _ in range(T_EVENT_PROFILE):
+        snaps.append(sim.snapshot())
+        sim.run_window(router(snaps[-1]))
+    router = AifRouter(seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for snap in snaps:
+            router.step(snap)
+        end.record()
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU)
+    tick_device_ms = busy_ms / T_EVENT_PROFILE
+    window_ms = sum(host_ms.values())
+    aif_windows = EVENT_RUNS * n
+    out = dict(windows=n, host_ms_per_window=window_ms,
+               host_ms=host_ms, equals_run0=same_run,
+               tick_device_ms=tick_device_ms,
+               tick_event_ms=start.elapsed_time(end) / T_EVENT_PROFILE,
+               device_ops_per_tick=kernels / T_EVENT_PROFILE,
+               idle_share_window=1.0 - tick_device_ms / window_ms,
+               idle_share_aif_rows=1.0 - tick_device_ms * aif_windows
+               / (1e3 * aif_wall_s))
+    if not same_run:
+        raise AssertionError("event_table1: the AIF run rerun window by "
+                             "window differs from the same seeds' run")
+    return out
+
+
+def phase_event_table1() -> None:
+    """The paper's Table-1 protocol at CI speed on the card: the seven
+    event-engine strategies, EVENT_RUNS runs of EVENT_DURATION_S simulated
+    seconds each (``tools/event_table1.py``), AIF's tick on the card; the
+    table, the Δ(AIF−Base) line beside the paper's, each strategy's wall;
+    then AIF's control window taken apart (``event_window_breakdown``)."""
+    from repro_torch.envsim import table1
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from tools.event_table1 import (PAPER_DELTA, STRATEGIES, delta_line,
+                                    run_event, summary_json)
+    (summaries, walls), launches = counted(lambda: run_event(
+        EVENT_DURATION_S, EVENT_RUNS, STRATEGIES, DEVICE))
+    print(table1(summaries), flush=True)
+    delta = delta_line(summaries)
+    print(f"{delta}\n{PAPER_DELTA}", flush=True)
+    by = {s.name: s for s in summaries}
+    aif = by["aif"]
+    if aif.runs[0].action_trace is None:
+        raise AssertionError("event_table1: the AIF rows kept no actions")
+    breakdown = event_window_breakdown(aif.runs[0], walls["aif"])
+    emit("event_table1", n_runs=EVENT_RUNS, duration_s=EVENT_DURATION_S,
+         aif_device=DEVICE, launches=launches, delta=delta,
+         paper=PAPER_DELTA,
+         rows={s.name: summary_json(s, walls[s.name]) for s in summaries},
+         aif_window=breakdown)
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"event_table1 launched {launches}: the "
+                             f"single-agent tick reaches no kernel")
+    for s in summaries:
+        vals = [s.success_pct_mean, s.p50_ms_mean, s.p95_ms_mean,
+                *s.tier_share_mean]
+        if len(s.runs) != EVENT_RUNS or not all(
+                math.isfinite(v) for v in vals) or not (
+                0.0 < s.success_pct_mean <= 100.0):
+            raise AssertionError(f"event_table1: {s.name} gave {vals}")
+
+
 def attn_bound(q, k, out, pairs: int) -> tuple[float, str]:
     """Least time for one attention launch: q, the K/V rows it must read
     and the output, each once, over the HBM rate, against 4·D·Hq FLOP per
@@ -3178,6 +3414,8 @@ def main() -> int:
     weights, serve_counts, lengths = phase_serve()
     phase_multitier(weights)
     del weights
+    phase_event_small()
+    phase_event_table1()
     rows = phase_times(errs, launches, launches_5tier)
     rows += [graph_times(graph_err, graph_launches), warm_row, chaos_row,
              graph_row, shard_row]

@@ -318,6 +318,7 @@ class Experiment:
         graphed world spills rejected load to graph neighbors and publishes
         a fifth, neighbor-pressure, telemetry modality; registry routers
         grow to consume it.
+      label: display name (default: the router name).
     """
 
     router: str | router_mod.Router = "aif"
@@ -336,6 +337,7 @@ class Experiment:
     checkpoint_every: int = 0
     checkpoint_dir: str | None = None
     resume_from: str | None = None
+    label: str | None = None
     graph: graph_mod.FleetGraph | str | None = None
 
     def resolve_topology(self) -> Topology:
@@ -353,6 +355,12 @@ class Experiment:
                        graph: graph_mod.FleetGraph | None = None
                        ) -> router_mod.Router:
         if isinstance(self.router, router_mod.Router):
+            if not self.fused or self.mega:
+                raise ValueError(
+                    "fused/use_pallas/mega only apply to registry-built "
+                    "routers; set them on the Router instance itself (e.g. "
+                    "AifRouter(fused=True)) — silently ignoring them would "
+                    "misreport which execution path ran")
             return _graphify_router(self.router, graph)
         try:
             make = ROUTERS[self.router]
@@ -368,6 +376,8 @@ class Experiment:
 
     @property
     def name(self) -> str:
+        if self.label:
+            return self.label
         return (self.router if isinstance(self.router, str)
                 else self.router.name)
 
@@ -410,6 +420,8 @@ class RunResult:
     offload_frac: float = 0.0
     # cells a shard holds, padding included (R when unsharded)
     cells_per_device: int = 0
+    # wall clock per device (== wall_s: the shards share one host loop)
+    per_device_wall_s: float = 0.0
 
     def summary(self) -> dict:
         """JSON-safe metric dict (one Table-1 row)."""
@@ -431,6 +443,7 @@ class RunResult:
             "obs_frac": round(self.obs_frac, 4),
             "offload_frac": round(self.offload_frac, 4),
             "wall_s": round(self.wall_s, 2),
+            "per_device_wall_s": round(self.per_device_wall_s, 2),
             "cells_per_device": self.cells_per_device,
             "watchdog_events": round(self.watchdog_events, 1),
             **({"recovery": {k: (round(v, 4) if isinstance(v, float) else v)
@@ -594,6 +607,7 @@ def _run_dense(e: Experiment, dev: torch.device,
         resume_points=tuple(boundaries),
         offload_frac=offload,
         cells_per_device=e.n_cells,
+        per_device_wall_s=wall,
     )
 
 
@@ -687,6 +701,7 @@ def _run_sharded(e: Experiment, dev: torch.device, spec: ShardSpec,
         resume_points=tuple(boundaries),
         offload_frac=float(spill_sum) / total_req,
         cells_per_device=r_local,
+        per_device_wall_s=wall,
     )
 
 

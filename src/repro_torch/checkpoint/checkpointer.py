@@ -171,6 +171,11 @@ class Checkpointer:
                 out.append(int(d[5:]))
         return sorted(out)
 
+    def latest_step(self) -> int | None:
+        """The newest step that landed with a manifest (None if none has)."""
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
     def restore(self, like, step: int | None = None,
                 device: str | torch.device | None = None
                 ) -> tuple[Any, dict]:

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.core import belief as belief_mod
 from repro_torch.core import efe as efe_mod
-from repro_torch.core import generative, learning, policies, preferences
+from repro_torch.core import (generative, learning, policies, preferences,
+                              spaces)
 
 
 class AgentState(NamedTuple):
@@ -239,3 +240,23 @@ def tick(state: AgentState,
         idx = noise.replay_indices(t, state.replay.size, cfg.replay_batch)
         state = slow_step(state, idx, cfg, learn=learn)
     return state, info
+
+
+def observe_and_discretize(raw_metrics: torch.Tensor,
+                           disc: spaces.DiscretizationConfig,
+                           obs_mask: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw (..., M) metrics (latency_s, rps, queue, err) -> (observation
+    bins, float32 validity mask).
+
+    Out-of-range metrics clamp to the edge bins
+    (:func:`repro_torch.core.spaces.discretize_observation`).  ``obs_mask``
+    is the telemetry pipeline's per-modality validity; None means every
+    modality is fresh and the returned mask is all ones, so callers can
+    thread the pair into :func:`fast_step` / :func:`tick` unconditionally.
+    """
+    bins = spaces.discretize_observation(raw_metrics, disc)
+    if obs_mask is None:
+        obs_mask = all_valid_mask(bins)
+    return bins, torch.as_tensor(obs_mask, dtype=torch.float32,
+                                 device=bins.device)

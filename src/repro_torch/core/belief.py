@@ -41,6 +41,13 @@ def predict_prior(b_counts: torch.Tensor, belief: torch.Tensor,
     return propagate(b, belief)
 
 
+def prior_from_normalized(b_row: torch.Tensor,
+                          belief: torch.Tensor) -> torch.Tensor:
+    """``B_a · q`` for an already-normalized (..., S', S) transition row and
+    (..., S) beliefs, renormalized."""
+    return propagate(b_row, belief)
+
+
 def log_likelihood(a_counts: torch.Tensor, obs_bins: torch.Tensor,
                    topo: Topology,
                    obs_mask: torch.Tensor | None = None) -> torch.Tensor:

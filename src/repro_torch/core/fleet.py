@@ -320,6 +320,11 @@ def fleet_tick(state: agent_mod.AgentState,
     return state, info
 
 
+def fleet_routing_weights(info) -> torch.Tensor:
+    """(R, K) routing weights of a batched StepInfo."""
+    return info.routing_weights
+
+
 # ------------------------------------------------------------------ watchdog
 def fleet_watchdog_bad(state: agent_mod.AgentState) -> torch.Tensor:
     """(R,) bool — cells whose carry has diverged numerically.

@@ -47,6 +47,25 @@ def bins_mask(topo: Topology,
 # ---------------------------------------------------------------------------
 # State indexing
 # ---------------------------------------------------------------------------
+def state_index(levels, topo: Topology) -> int:
+    """Flatten a factor-level tuple into a state index in [0, n_states)."""
+    idx = 0
+    for lv in levels:
+        idx = idx * topo.n_levels + int(lv)
+    return idx
+
+
+def state_levels(index, topo: Topology) -> torch.Tensor:
+    """Inverse of :func:`state_index`: (...) int indices -> (...,
+    n_state_factors) int64 levels, latency level first."""
+    index = torch.as_tensor(index)
+    digits = []
+    for f in range(topo.n_state_factors):
+        power = topo.n_levels ** (topo.n_state_factors - 1 - f)
+        digits.append((index // power) % topo.n_levels)
+    return torch.stack(digits, dim=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def state_factor_table(topo: Topology) -> np.ndarray:
     """(n_states, n_state_factors) int table: level of each factor per state."""

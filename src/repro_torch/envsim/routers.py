@@ -50,10 +50,14 @@ class AifRouter:
         self.util_edges = np.asarray(
             self.topo.util_edges if util_edges is None else util_edges)
         self.ticks = 0
+        self.last_info: agent.StepInfo | None = None
         self.actions: list[int] = []
         self.unstable_trace: list[bool] = []
 
-    def __call__(self, snapshot: MetricsSnapshot) -> np.ndarray:
+    def step(self, snapshot: MetricsSnapshot) -> torch.Tensor:
+        """One control window's tick: the applied policy's (K,) float32
+        routing weights, left on the router's device (``last_info`` keeps
+        the tick's :class:`~repro_torch.core.agent.StepInfo`)."""
         raw = torch.tensor([[snapshot.p95_latency_s, snapshot.rps,
                              snapshot.queue_depth, snapshot.error_rate]],
                            dtype=torch.float32, device=self.device)
@@ -73,7 +77,13 @@ class AifRouter:
         self.state, info = agent.tick(self.state, obs_bins, err, self.cfg,
                                       self.noise, self.ticks, util_bins,
                                       util_valid)
+        self.last_info = info
         self.ticks += 1
         self.actions.append(int(info.action[0]))
         self.unstable_trace.append(bool(info.unstable[0]))
-        return info.routing_weights[0].cpu().numpy().astype(np.float64)
+        return info.routing_weights[0]
+
+    def __call__(self, snapshot: MetricsSnapshot) -> np.ndarray:
+        """:meth:`step`, with the weights copied back to the host as
+        float64 numpy (what the simulators take)."""
+        return self.step(snapshot).cpu().numpy().astype(np.float64)

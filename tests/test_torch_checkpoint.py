@@ -222,6 +222,25 @@ def test_interrupted_tmp_dir_is_invisible(tmp_path):
     assert extra["t"] == 20 and torch.equal(out["a"], tree2["a"])
 
 
+def test_latest_step_matches_reference(tmp_path):
+    """``latest_step``: None with no checkpoint, else the newest step that
+    landed, through rotation and past a dead ``.tmp`` save, as the
+    reference's checkpointer says on the same saves."""
+    from repro.checkpoint import Checkpointer as RefCheckpointer
+    ck = Checkpointer(str(tmp_path / "port"), keep_n=2)
+    ref = RefCheckpointer(str(tmp_path / "ref"), keep_n=2)
+    assert ck.latest_step() is None and ref.latest_step() is None
+    for step in (3, 1, 7, 5):
+        ck.save(step, {"x": torch.full((2,), float(step))}, blocking=True)
+        ref.save(step, {"x": jax.numpy.full((2,), float(step))},
+                 blocking=True)
+        assert ck.latest_step() == ref.latest_step()
+    assert ck.all_steps() == ref.all_steps() == [5, 7]
+    assert ck.latest_step() == 7
+    os.makedirs(str(tmp_path / "port" / "step_00000009.tmp"))
+    assert ck.latest_step() == 7
+
+
 def test_rotation_and_shape_checks(tmp_path):
     ck = Checkpointer(str(tmp_path), keep_n=2)
     for step in (1, 2, 3):

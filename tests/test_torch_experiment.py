@@ -156,6 +156,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.ssd.ops, repro_torch.models.ssm\n"
         "import repro_torch.envsim.routers, repro_torch.envsim.simulator\n"
         "import repro_torch.checkpoint, repro_torch.envsim.chaos\n"
+        "import repro_torch.baselines, repro_torch.envsim.harness\n"
+        "import repro_torch.core.agent, repro_torch.core.spaces\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -168,10 +170,12 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_port_sources_name_neither_jax_nor_the_reference():
-    """Lazy imports inside functions too: no import statement of the port
-    or of chip_smoke.py names ``jax`` or ``repro``."""
+    """Lazy imports inside functions too: no import statement of the port,
+    of chip_smoke.py or of the port's event-protocol script names ``jax``
+    or ``repro``."""
     root = os.path.join(os.path.dirname(__file__), "..")
-    files = [os.path.join(root, "chip_smoke.py")]
+    files = [os.path.join(root, "chip_smoke.py"),
+             os.path.join(root, "tools", "event_table1.py")]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

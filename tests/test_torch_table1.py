@@ -121,6 +121,49 @@ def test_experiment_unknown_names_raise():
                                n_cells=2, n_windows=5, device="cpu"))
 
 
+def test_experiment_router_instance_with_path_options_raises():
+    """A Router instance with another path asked of the Experiment raises,
+    as the reference does, instead of running the instance's own path."""
+    from repro.envsim import SimConfig as RefSimConfig
+    from repro_torch.envsim import SimConfig
+    with pytest.raises(ValueError, match="silently ignoring"):
+        ref_api.Experiment(router=ref_api.UniformRouter(),
+                           mega=True).resolve_router(RefSimConfig())
+    for kw in ({"mega": True}, {"fused": False},
+               {"fused": False, "mega": True}):
+        e = api.Experiment(router=api.UniformRouter(), n_cells=2,
+                           n_windows=5, device="cpu", **kw)
+        with pytest.raises(ValueError, match="silently ignoring"):
+            e.resolve_router(SimConfig())
+        with pytest.raises(ValueError, match="silently ignoring"):
+            api.run(e)
+    # the defaults leave the instance's own path alone
+    r = api.UniformRouter()
+    assert api.Experiment(router=r).resolve_router(SimConfig()) is r
+
+
+def test_experiment_label_and_per_device_wall():
+    """``label`` names the row (the reference's ``Experiment.label``), so two
+    variants of one router stay apart in a grid; ``per_device_wall_s``
+    is the wall clock of the one host loop, sharded or not."""
+    kw = dict(router="uniform", n_cells=2, n_windows=10)
+    ref = ref_api.run(ref_api.Experiment(label="static", **kw))
+    res = api.run(api.Experiment(label="static", device="cpu", **kw))
+    assert res.name == ref.name == "static"
+    s = res.summary()
+    assert s["router"] == "static" and s["device"] == "cpu"
+    assert set(s) == set(ref.summary()) | {"device"}
+    assert res.per_device_wall_s == res.wall_s > 0.0
+    assert s["per_device_wall_s"] == round(res.wall_s, 2)
+    sharded = api.run(api.Experiment(label="static", device="cpu",
+                                     shard=api.ShardSpec(devices=1), **kw))
+    assert sharded.per_device_wall_s == sharded.wall_s > 0.0
+    comp = api.compare([api.Experiment(label=name, device="cpu", **kw)
+                        for name in ("a", "b")])
+    assert list(comp.to_json()["paper-burst"]) == ["a", "b"]
+    assert api.Experiment(**kw).name == "uniform"
+
+
 def test_experiment_run_and_summary():
     res = api.run(api.Experiment(router="least_loaded", n_cells=2,
                                  n_windows=25, device="cpu"))
