@@ -137,9 +137,17 @@ failure raising (exit code != 0):
    internlm2-1.8b's heads (Hq=16, Hkv=8, D=128) at b=1, Sq=Skv=1024 causal
    in bf16 and f32, a chunked prefill (q_offset > 0, ragged Sq), gemma3-1b's
    heads (Hq=4, Hkv=1, D=256) with window 512, B5 at B=8, S=2048 with
-   ragged positions that include 0 and S-1 in bf16 and f32, and the other
-   head dims (16, 32, 64) at small shapes; each case launched twice, the
-   two outputs equal to the bit; then each kernel against the plain model
+   ragged positions that include 0 and S-1 in bf16 and f32,
+   mixtral-8x7b's heads (Hq=32, Hkv=8, D=128) past its 4096-token window
+   (B4 at Sq=Skv=8192; B5 at B=8 over 8192 slots with positions on both
+   sides of 4096), seamless-m4t-medium's (16/16, D=64) unmasked with Sq !=
+   Skv allowed (B4 for its encoder at b=8, 1024 x 1024, and its
+   cross-attention, 16 x 1024; B5 over the cross cache at position 1023)
+   and causal for its decoder (B4 at b=8, 16 x 16; B5 at b=8 over 80
+   slots),
+   and the other head dims (16, 32, 64) at small shapes; each case
+   launched twice, the two outputs equal to the bit; then each kernel
+   against the plain model
    of its algebra (``ref.decode_split_model`` at the wrapper's chunk: f32
    within 1e-6; bf16 B4 and B5 within one bf16 ulp of their model, B4
    closer to ``ref.prefill_two_half_model`` than to the model that drops
@@ -208,7 +216,32 @@ failure raising (exit code != 0):
    and one decode wave's host and device time; the weights are freed
    after it;
 39. ssd times — B6 at the mamba serve phase's prefill shape (b=1, S=1024,
-   bf16) beside its bound and its plain version's ms.
+   bf16) beside its bound and its plain version's ms;
+40. moe serve small — mixtral-8x7b's widths (8 experts, top-2) at 2
+   layers in f32, checked as in phase 30;
+41. moe serve — ``ServingEngine(mixtral-8x7b cut to 16 of its 32 layers,
+   max_batch=8, max_len=8192)`` in bf16, answering 8 requests of
+   4200-5000 prompt tokens with 32 new tokens each, past the 4096-token
+   window in every prefill and decode wave, every kernel's count read
+   around it (B4: 16 per request, B5: 16 per decode wave), wall, tokens/s,
+   peak memory, then one prefill's and one decode wave's host and device
+   time; the weights are freed after it;
+42. encdec small — seamless-m4t-medium's widths at 2 encoder + 2 decoder
+   layers in f32, the card's model against the CPU's with the same
+   weights (2 sources of 200 frames, an 8-token prefix, 8 greedy steps):
+   tokens equal, every step's logits within 1e-4 relative, the kernels
+   launched as expected;
+43. encdec — seamless-m4t-medium whole (12 + 12 layers, bf16): 8 sources
+   of 1024 frame embeddings, a 16-token prefix and 64 greedy decode steps
+   through ``prefill`` and ``decode_step`` (B4: 36, B5: 1536, counted),
+   wall, tokens/s, peak memory, then one prefill's and one step's host and
+   device time;
+44. moe/encdec attention times — B4 and B5 at the shapes of phases 41 and
+   43 (mixtral's windowed prefill at the 8192 bucket and its decode wave;
+   seamless's encoder, cross prefill, self and cross decode) beside their
+   plain versions (each within ATTN_TOL of it, or the phase fails) and
+   SDPA, under ``moe_encdec_shapes`` in B4's and B5's
+   rows of the kernels line with the launches those phases counted.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -250,6 +283,16 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 MODEL_TOL_F32 = 1e-6
 SERVE_ARCH = "internlm2-1.8b"
 MAMBA_ARCH = "mamba2-2.7b"
+MOE_ARCH = "mixtral-8x7b"
+# moe_serve: mixtral-8x7b cut from 32 to 16 layers (46.4 GB of layer
+# weights in bf16, 0.5 GB of embeddings, 4.3 GB of KV cache at 8 lanes of
+# 8192), serving prompts past its sliding window of 4096
+MOE_LAYERS, MOE_MAX_LEN, MOE_WINDOW = 16, 8192, 4096
+MOE_PROMPTS = (4200, 5001)     # prompt lengths drawn from [4200, 5001)
+ENCDEC_ARCH = "seamless-m4t-medium"
+# encdec: 8 sources of 1024 frame embeddings, a 16-token target prefix,
+# then 64 greedy decode steps
+ENCDEC_B, ENCDEC_FRAMES, ENCDEC_PREFIX, ENCDEC_STEPS = 8, 1024, 16, 64
 # B6 vs its plain version: y's max abs error over max(1, |y|), the state's
 # below 10x that: the reference's kernel bar
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -2433,8 +2476,16 @@ def attn_cases():
     and the float32 ``f32`` beside it), or is None (B4 in f32).  Shapes:
     those the serve phase (b=1 Sq=1024 prefill, B=8 S=2048 decode) and the
     multitier phase (b=1 prefill at the 128-token bucket, decode over
-    max_len 512 lanes at the tiers' B = 2, 3, 8) give each kernel, a chunked prefill (q_offset, ragged Sq), gemma3-1b's heads
-    (D=256, window 512), and the smoke configs' head dims (f32)."""
+    max_len 512 lanes at the tiers' B = 2, 3, 8) give each kernel, a
+    chunked prefill (q_offset, ragged Sq), gemma3-1b's heads (D=256, window
+    512), mixtral-8x7b's (Hq=32, Hkv=8, D=128) past its 4096-token window
+    (prefill at the moe_serve phase's 8192 bucket, decode over its 8192
+    slots with positions on both sides of 4096), seamless-m4t-medium's
+    (16/16, D=64) unmasked for its encoder (Sq=Skv=1024) and its
+    cross-attention (Sq=16 against 1024 frames), B5 over the cross cache at
+    position S_enc - 1, the decoder's causal self-attention at the encdec
+    phase's shapes (prefill over the 16-token prefix, decode over 80
+    slots), and the smoke configs' head dims (f32)."""
     from repro_torch.kernels.attention import flash, ref
 
     def prefill(name, b, sq, skv, hq, hkv, d, dtype, seed, **kw):
@@ -2450,9 +2501,9 @@ def attn_cases():
                 lambda: flash.flash_prefill(q, k, v, **kw),
                 lambda: ref.mha_ref(q, k, v, **kw), models, dtype)
 
-    def decode(name, b, s, hq, hkv, d, dtype, seed, **kw):
+    def decode(name, b, s, hq, hkv, d, dtype, seed, pos=None, **kw):
         q, k, v = attn_operands(b, 1, s, hq, hkv, d, dtype, seed)
-        pos = ragged_positions(b, s, seed)
+        pos = ragged_positions(b, s, seed) if pos is None else pos
         return (f"decode_{name}_{str(dtype)[6:]}",
                 lambda: flash.flash_decode(q, k, v, position=pos, **kw),
                 lambda: ref.decode_ref(q, k, v, position=pos, **kw),
@@ -2460,6 +2511,10 @@ def attn_cases():
                     q, k, v, position=pos, chunk=flash.decode_chunk(b, s, hkv),
                     **kw)), dtype)
 
+    # the moe_serve phase's decode: both sides of the window's edge
+    moe_pos = torch.tensor([0, MOE_MAX_LEN - 1, MOE_WINDOW - 1, MOE_WINDOW,
+                            MOE_WINDOW + 1, 2500, 4731, 6000],
+                           dtype=torch.int32, device=DEVICE)
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         cases += [
@@ -2473,7 +2528,21 @@ def attn_cases():
             prefill("gemma3_window512", 1, 1024, 1024, 4, 1, 256, dtype, 3,
                     window=512),
             decode("gemma3_window512", 8, 2048, 4, 1, 256, dtype, 4,
-                   window=512)]
+                   window=512),
+            prefill("mixtral_8192_window4096", 1, MOE_MAX_LEN, MOE_MAX_LEN,
+                    32, 8, 128, dtype, 30, window=MOE_WINDOW),
+            decode("mixtral_b8_s8192_window4096", 8, MOE_MAX_LEN, 32, 8, 128,
+                   dtype, 31, pos=moe_pos, window=MOE_WINDOW),
+            prefill("seamless_encoder_b8_1024", 8, 1024, 1024, 16, 16, 64,
+                    dtype, 32, causal=False),
+            prefill("seamless_cross_b8_16x1024", 8, 16, 1024, 16, 16, 64,
+                    dtype, 33, causal=False),
+            decode("seamless_cross_b8_s1024_last", 8, 1024, 16, 16, 64,
+                   dtype, 34, pos=1023),
+            prefill("seamless_self_b8_16", ENCDEC_B, ENCDEC_PREFIX,
+                    ENCDEC_PREFIX, 16, 16, 64, dtype, 35),
+            decode("seamless_self_b8_s80", ENCDEC_B,
+                   ENCDEC_PREFIX + ENCDEC_STEPS, 16, 16, 64, dtype, 36)]
     for d in (16, 32, 64):                # the smoke configs' head dims
         cases += [prefill(f"d{d}_window48", 2, 200, 200, 8, 2, d,
                           torch.float32, d, window=48),
@@ -2637,18 +2706,22 @@ def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
 
 
 def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
-                phase: str = "serve"):
-    """The full ``arch`` (all layers, bf16) answering 8 long prompts with
-    ``n_new`` new tokens each; returns (its weights, launches, decode
-    positions of a mid-run wave)."""
+                phase: str = "serve", n_layers: int | None = None,
+                max_len: int = 2048, prompt_range=(1000, 1025)):
+    """The full ``arch`` (bf16; all layers, or its first ``n_layers``)
+    answering 8 prompts of lengths drawn from ``prompt_range`` with
+    ``n_new`` new tokens each, 8 lanes of ``max_len``; returns (its
+    weights, launches, prompt lengths)."""
+    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.serving import ServingEngine
-    cfg = get_arch(arch).full
+    full = get_arch(arch).full
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(cfg, max_batch=8, max_len=2048, seed=0,
+    eng = ServingEngine(cfg, max_batch=8, max_len=max_len, seed=0,
                         device=DEVICE)
     rng = np.random.default_rng(1)
-    lengths = rng.integers(1000, 1025, 8)
+    lengths = rng.integers(*prompt_range, 8)
     prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in lengths]
     (reqs, wall), launches = counted(
         lambda: serve_requests(eng, prompts, n_new))
@@ -2659,8 +2732,10 @@ def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
              and all(0 <= t < cfg.vocab_size for t in r.output)
              for r in reqs)
     emit(phase, arch=arch, n_layers=cfg.n_layers,
+         published_n_layers=full.n_layers,
+         window=cfg.sliding_window if cfg.attn_type == "swa" else 0,
          params=cfg.param_count(), dtype=cfg.param_dtype, max_batch=8,
-         max_len=2048, prompt_lengths=[int(n) for n in lengths],
+         max_len=max_len, prompt_lengths=[int(n) for n in lengths],
          new_tokens=n_new, decode_waves=waves, wall_s=wall,
          tokens_per_s=tokens / wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2724,11 +2799,13 @@ def device_ms(fn) -> dict:
 
 
 def serve_breakdown(eng, prompt, lengths, arch: str) -> None:
-    """Where the serve phase's time goes: one 1024-token admission prefill
-    and one 8-slot decode wave (each slot at its prompt length + 31), host
-    wall (synchronized) beside the device time a profiler trace shows."""
+    """Where the serve phase's time goes: one admission prefill of the
+    first prompt at its bucket and one 8-slot decode wave (each slot at its
+    prompt length + 31), host wall (synchronized) beside the device time a
+    profiler trace shows."""
     model = eng.model
-    toks = torch.tensor([list(prompt) + [0] * (1024 - len(prompt))],
+    bucket = eng._bucket(len(prompt))
+    toks = torch.tensor([list(prompt) + [0] * (bucket - len(prompt))],
                         device=DEVICE)
     pos = torch.from_numpy(np.asarray(lengths, np.int64) + 31).to(DEVICE)
     last = eng.last_tokens
@@ -2740,8 +2817,15 @@ def serve_breakdown(eng, prompt, lengths, arch: str) -> None:
     def wave():
         return model.decode_step(last, eng.caches, pos)
 
+    emit("serve_breakdown", arch=arch, bucket=bucket,
+         **breakdown((("prefill", prefill), ("decode_wave", wave))))
+
+
+def breakdown(calls) -> dict:
+    """Host wall ms (synchronized) and profiler device ms of each named
+    call, with the device's idle share."""
     parts = {}
-    for name, fn in (("prefill", prefill), ("decode_wave", wave)):
+    for name, fn in calls:
         wall = host_ms(fn)
         dev = device_ms(fn)
         parts[name] = dict(host_ms=wall, device_ms=dev["all"],
@@ -2750,7 +2834,7 @@ def serve_breakdown(eng, prompt, lengths, arch: str) -> None:
                            top_kernels_ms_count_name=dev["top"],
                            device_idle_share=(None if dev["all"] <= 0 else
                                               max(0.0, 1 - dev["all"] / wall)))
-    emit("serve_breakdown", arch=arch, **parts)
+    return parts
 
 
 def phase_multitier(weights) -> dict:
@@ -3053,25 +3137,79 @@ def decode_blocks(b: int, s: int, hkv: int, pos, window: int = 0) -> dict:
                 blocks_live=live * hkv, merge_blocks=hkv * b)
 
 
-def decode_times_row(b: int, s: int, positions, seed: int) -> tuple:
-    """B5 at (b, s) with internlm2-1.8b's heads in bf16 and ``positions``:
-    (kernel call, plain call, SDPA call with a per-slot mask, (bound ms,
-    bound by), fields of its times line)."""
+def decode_times_row(b: int, s: int, positions, seed: int, hq: int = 16,
+                     hkv: int = 8, d: int = 128, window: int = 0) -> tuple:
+    """B5 at (b, s) with ``hq``/``hkv``/``d`` heads (internlm2-1.8b's by
+    default) in bf16 and ``positions``: (kernel call, plain call, SDPA call
+    with a per-slot mask, (bound ms, bound by), fields of its times line)."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import flash, ref
-    q, k, v = attn_operands(b, 1, s, 16, 8, 128, torch.bfloat16, seed=seed)
+    q, k, v = attn_operands(b, 1, s, hq, hkv, d, torch.bfloat16, seed=seed)
     pos = torch.from_numpy(np.asarray(positions, np.int32)).to(DEVICE)
-    mask = (torch.arange(s, device=DEVICE)[None, :]
-            <= pos[:, None].long())[:, None, None, :]
-    calls = (lambda: flash.flash_decode(q, k, v, position=pos),
-             lambda: ref.decode_ref(q, k, v, position=pos),
+    mask = ref._mask(pos.long()[:, None], s, True, window)[:, None]
+    calls = (lambda: flash.flash_decode(q, k, v, position=pos, window=window),
+             lambda: ref.decode_ref(q, k, v, position=pos, window=window),
              lambda: F.scaled_dot_product_attention(
                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  attn_mask=mask, enable_gqa=True))
-    pairs = int((pos.long() + 1).sum())
+    pairs = int(mask.sum())
     return (calls, attn_bound(q, k, q, pairs),
-            dict(b=b, s=s, positions=[int(x) for x in positions],
-                 **decode_blocks(b, s, 8, positions)))
+            dict(b=b, s=s, heads=[hq, hkv, d], window=window,
+                 positions=[int(x) for x in positions],
+                 **decode_blocks(b, s, hkv, positions, window)))
+
+
+def prefill_times_row(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                      seed: int, causal: bool = True,
+                      window: int = 0) -> tuple:
+    """B4 at (b, sq, skv) in bf16, as :func:`decode_times_row`; SDPA is
+    causal with no mask where it can be, else given the mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import flash, ref
+    q, k, v = attn_operands(b, sq, skv, hq, hkv, d, torch.bfloat16, seed)
+    kw = dict(causal=causal, window=window)
+    mask = ref._mask(torch.arange(sq, device=DEVICE), skv, causal, window)
+    plain_causal = causal and window == 0 and sq == skv
+    sdpa_kw = (dict(is_causal=True) if plain_causal else
+               dict(attn_mask=mask) if causal else {})
+    calls = (lambda: flash.flash_prefill(q, k, v, **kw),
+             lambda: ref.mha_ref(q, k, v, **kw),
+             lambda: F.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 enable_gqa=True, **sdpa_kw))
+    return (calls, attn_bound(q, k, q, b * int(mask.sum())),
+            dict(b=b, sq=sq, skv=skv, heads=[hq, hkv, d], causal=causal,
+                 window=window, blocks=hq * b * -(-sq // 64)))
+
+
+def attn_time_fields(name: str, calls, bound, shape: dict) -> dict:
+    """Time one B4/B5 shape (bf16): kernel, plain version and SDPA on the
+    same inputs, ``ms`` one synchronized call (:func:`time_ms`, the host's
+    cost included, as for every kernel), ``device_ms`` the card's time a
+    call when calls queue back to back (:func:`queued_ms`); emits its times
+    line and returns its fields.  Raises where the kernel disagrees with
+    its plain version beyond ``ATTN_TOL``."""
+    kern, plain, lib = calls
+    out_k = kern().float()
+    plain_err = (out_k - plain().float()).abs().max().item()
+    lib_err = (out_k - lib().transpose(1, 2).float()).abs().max().item()
+    del out_k
+    if not plain_err <= ATTN_TOL[torch.bfloat16]:
+        raise AssertionError(f"{name} {shape}: kernel disagrees with its "
+                             f"plain version, max abs err {plain_err}")
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+    ms2 = time_ms(kern)
+    (dev, ahead), (plain_dev, plain_ahead), (lib_dev, lib_ahead) = (
+        queued_ms(kern), queued_ms(plain), queued_ms(lib))
+    dev2, _ = queued_ms(kern)
+    fields = dict(**shape, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                  library_ms=lib_ms, device_ms=dev, device_ms_repeat=dev2,
+                  plain_device_ms=plain_dev, library_device_ms=lib_dev,
+                  queued_ahead=[ahead, plain_ahead, lib_ahead],
+                  plain_max_abs_err=plain_err, library_max_abs_diff=lib_err, bound_ms=bound[0],
+                  bound_by=bound[1])
+    emit("times", kernel=name, dtype="bfloat16", **fields)
+    return fields
 
 
 def attn_times(errs: dict, launches: dict, lengths) -> list:
@@ -3079,58 +3217,80 @@ def attn_times(errs: dict, launches: dict, lengths) -> list:
     (B=8, S=2048, each slot at its prompt length + 31, mid-run), bf16:
     kernel, plain version and SDPA (with GQA; causal, or a per-slot
     mask) on the same inputs; then B5 at the multitier phase's shapes
-    (B = 2, 3, 8 over S=512, positions 128-143).  ``ms`` is one
-    synchronized call (:func:`time_ms`, the host's cost included, as for
-    every kernel), ``device_ms`` the card's time a call when calls queue
-    back to back (:func:`queued_ms`).  The kernels line takes the serve
-    shapes."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.attention import flash, ref
-    bf = torch.bfloat16
-    rows = []
-    q, k, v = attn_operands(1, 1024, 1024, 16, 8, 128, bf, seed=5)
-    calls = (lambda: flash.flash_prefill(q, k, v),
-             lambda: ref.mha_ref(q, k, v),
-             lambda: F.scaled_dot_product_attention(
-                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 is_causal=True, enable_gqa=True))
-    pairs = 1024 * 1025 // 2
-    rows.append(("flash_prefill", "src/repro/kernels/attention/flash.py:94",
-                 calls, attn_bound(q, k, q, pairs),
-                 dict(b=1, sq=1024, blocks=16 * (1024 // 64))))
-    calls_d, bound_d, shape_d = decode_times_row(
-        8, 2048, np.asarray(lengths, np.int64) + 31, seed=6)
+    (B = 2, 3, 8 over S=512, positions 128-143).  The kernels line takes
+    the serve shapes."""
+    rows = [("flash_prefill", "src/repro/kernels/attention/flash.py:94",
+             *prefill_times_row(1, 1024, 1024, 16, 8, 128, seed=5))]
     rows.append(("flash_decode", "src/repro/kernels/attention/flash.py:190",
-                 calls_d, bound_d, shape_d))
+                 *decode_times_row(8, 2048,
+                                   np.asarray(lengths, np.int64) + 31,
+                                   seed=6)))
     rng = np.random.default_rng(11)
     for b in (2, 3, 8):
-        calls_m, bound_m, shape_m = decode_times_row(
-            b, 512, rng.integers(128, 144, b), seed=20 + b)
-        rows.append((None, None, calls_m, bound_m, shape_m))
+        rows.append((None, None, *decode_times_row(
+            b, 512, rng.integers(128, 144, b), seed=20 + b)))
     out = []
-    for name, replaces, (kern, plain, lib), (b_ms, b_by), shape in rows:
-        lib_err = (kern().float() - lib().transpose(1, 2).float()
-                   ).abs().max().item()
-        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
-        ms2 = time_ms(kern)
-        (dev, ahead), (plain_dev, plain_ahead), (lib_dev, lib_ahead) = (
-            queued_ms(kern), queued_ms(plain), queued_ms(lib))
-        dev2, _ = queued_ms(kern)
-        emit("times", kernel=name or "flash_decode", dtype="bfloat16",
-             **shape, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
-             library_ms=lib_ms, device_ms=dev, device_ms_repeat=dev2,
-             plain_device_ms=plain_dev, library_device_ms=lib_dev,
-             queued_ahead=[ahead, plain_ahead, lib_ahead],
-             library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by)
+    for name, replaces, calls, bound, shape in rows:
+        f = attn_time_fields(name or "flash_decode", calls, bound, shape)
         if name is None:         # a multitier shape: not in the kernels line
             continue
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/csrc/flash_attn.cu",
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "max_err": errs[name],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib_ms,
-                    "device_ms": dev, "library_device_ms": lib_dev})
+                    "ms": f["ms"], "plain_ms": f["plain_ms"],
+                    "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                    "library_ms": f["library_ms"],
+                    "device_ms": f["device_ms"],
+                    "library_device_ms": f["library_device_ms"]})
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_encdec_attn_times(moe_launches: dict, moe_lengths,
+                          encdec_launches: dict) -> dict:
+    """B4 and B5 at the moe_serve phase's shapes (mixtral-8x7b's heads:
+    one admission at the 8192 bucket with window 4096; a decode wave over
+    8 x 8192 slots with each slot at its prompt length + 31) and the
+    encdec phase's (seamless-m4t-medium's heads, B=8: the encoder's
+    unmasked 1024 x 1024, the cross-attention's 16 x 1024 at prefill; a
+    self decode step at position 48 of 80 slots and a cross step over the
+    1024 frames), each beside its plain version and SDPA on the same
+    inputs; with the launches each phase counted.  Returns, per kernel,
+    {shape: times fields} for its row of the kernels line."""
+    h = (32, 8, 128)
+    e = (16, 16, 64)
+    out = {"flash_prefill": dict(
+        moe_serve_launches=moe_launches["flash_prefill"],
+        encdec_launches=encdec_launches["flash_prefill"]),
+        "flash_decode": dict(
+        moe_serve_launches=moe_launches["flash_decode"],
+        encdec_launches=encdec_launches["flash_decode"])}
+    rows = [
+        ("flash_prefill", "mixtral_prefill_8192_window4096",
+         prefill_times_row(1, MOE_MAX_LEN, MOE_MAX_LEN, *h, seed=40,
+                           window=MOE_WINDOW)),
+        ("flash_decode", "mixtral_decode_b8_s8192_window4096",
+         decode_times_row(8, MOE_MAX_LEN,
+                          np.asarray(moe_lengths, np.int64) + 31, 41, *h,
+                          window=MOE_WINDOW)),
+        ("flash_prefill", "seamless_encoder_b8_1024",
+         prefill_times_row(ENCDEC_B, ENCDEC_FRAMES, ENCDEC_FRAMES, *e,
+                           seed=42, causal=False)),
+        ("flash_prefill", "seamless_cross_b8_16x1024",
+         prefill_times_row(ENCDEC_B, ENCDEC_PREFIX, ENCDEC_FRAMES, *e,
+                           seed=43, causal=False)),
+        ("flash_decode", "seamless_self_b8_s80",
+         decode_times_row(ENCDEC_B, ENCDEC_PREFIX + ENCDEC_STEPS,
+                          [ENCDEC_PREFIX + ENCDEC_STEPS // 2] * ENCDEC_B, 44,
+                          *e)),
+        ("flash_decode", "seamless_cross_b8_s1024",
+         decode_times_row(ENCDEC_B, ENCDEC_FRAMES,
+                          [ENCDEC_FRAMES - 1] * ENCDEC_B, 45, *e))]
+    for kernel, shape_name, (calls, bound, shape) in rows:
+        out[kernel][shape_name] = attn_time_fields(kernel, calls, bound,
+                                                   dict(shape=shape_name,
+                                                        **shape))
     torch.cuda.empty_cache()
     return out
 
@@ -3322,6 +3482,124 @@ def ssd_times(errs: dict, launches: dict) -> dict:
             "device_ms": dev, "library_device_ms": None}
 
 
+# ------------------------------------------- MoE and the encoder-decoder
+def encdec_generate(model, embeds, prefix, n_steps: int,
+                    keep_logits: bool = False):
+    """``model.prefill`` over the source frames ``embeds`` and the target
+    ``prefix``, then ``n_steps`` greedy ``decode_step``s: (tokens (B,
+    n_steps + 1), every step's logits in float32 on the host if
+    ``keep_logits``, whether every logit was finite)."""
+    s = prefix.shape[1]
+    lg, caches = model.prefill(embeds, prefix, max_len=s + n_steps)
+    toks, logits, finite = [], [], torch.ones((), dtype=torch.bool,
+                                              device=lg.device)
+    for step in range(n_steps + 1):
+        finite &= torch.isfinite(lg).all()
+        if keep_logits:
+            logits.append(lg.float().cpu())
+        toks.append(lg[:, -1].argmax(-1, keepdim=True))
+        if step < n_steps:
+            lg, caches = model.decode_step(toks[-1], caches, s + step)
+    return torch.cat(toks, 1), logits, bool(finite)
+
+
+def encdec_launches(cfg, n_steps: int) -> dict:
+    """B4 once per encoder layer and twice per decoder layer (self and
+    cross) at prefill; B5 twice per decoder layer at each decode step."""
+    return dict(NO_LAUNCHES, flash_prefill=cfg.n_enc_layers + 2 * cfg.n_layers,
+                flash_decode=2 * cfg.n_layers * n_steps)
+
+
+def phase_encdec_small() -> None:
+    """seamless-m4t-medium's widths at 2 encoder + 2 decoder layers in
+    f32, one model on the card and one on the CPU with the same weights:
+    2 sources of 200 frames, an 8-token prefix and 8 greedy steps; tokens
+    equal, every step's logits within 1e-4 relative, the kernels launched
+    as expected."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, convert
+    cfg = dataclasses.replace(get_arch(ENCDEC_ARCH).full, n_layers=2,
+                              n_enc_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    rng = np.random.default_rng(0)
+    embeds = torch.from_numpy(
+        rng.standard_normal((2, 200, cfg.d_model)).astype(np.float32))
+    prefix = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        model = convert.model_from_state_dict(cfg, weights, dev)
+        out[dev] = counted(lambda: encdec_generate(
+            model, embeds.to(dev), prefix.to(dev), 8, keep_logits=True))
+        del model
+    (toks_k, lg_k, fin_k), launches = out[DEVICE]
+    (toks_c, lg_c, _), _ = out["cpu"]
+    lg_k, lg_c = torch.cat(lg_k, 1), torch.cat(lg_c, 1)
+    rel = ((lg_k - lg_c).abs().max() / lg_c.abs().max()).item()
+    want = encdec_launches(cfg, 8)
+    equal = torch.equal(toks_k.cpu(), toks_c)
+    emit("encdec_small", arch=ENCDEC_ARCH, n_enc_layers=2, n_layers=2,
+         dtype="float32", frames=200, prefix=8, steps=8, tokens_equal=equal,
+         logits_rel_err=rel, launches=launches, expected_launches=want,
+         tokens=toks_k.tolist())
+    if not (equal and fin_k and rel <= 1e-4):
+        raise AssertionError(f"encdec_small: the card disagrees with the "
+                             f"CPU (logits rel err {rel})")
+    if launches != want:
+        raise AssertionError(f"encdec_small launched {launches}, expected "
+                             f"{want}")
+    torch.cuda.empty_cache()
+
+
+def phase_encdec() -> dict:
+    """seamless-m4t-medium whole (12 + 12 layers, bf16): 8 sources of 1024
+    frame embeddings from a seed, a 16-token target prefix and 64 greedy
+    decode steps, every kernel's count read around it; then one prefill's
+    and one decode step's host and device ms.  Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch(ENCDEC_ARCH).full
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, DEVICE, seed=0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    embeds = torch.randn((ENCDEC_B, ENCDEC_FRAMES, cfg.d_model),
+                         generator=gen, device=DEVICE)
+    prefix = torch.randint(0, cfg.vocab_size, (ENCDEC_B, ENCDEC_PREFIX),
+                           generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (toks, _, finite), launches = counted(lambda: encdec_generate(
+        model, embeds, prefix, ENCDEC_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = encdec_launches(cfg, ENCDEC_STEPS)
+    ok = (finite and tuple(toks.shape) == (ENCDEC_B, ENCDEC_STEPS + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
+    emit("encdec", arch=ENCDEC_ARCH, n_enc_layers=cfg.n_enc_layers,
+         n_layers=cfg.n_layers, params=cfg.param_count(),
+         dtype=cfg.param_dtype, batch=ENCDEC_B, frames=ENCDEC_FRAMES,
+         prefix=ENCDEC_PREFIX, steps=ENCDEC_STEPS, wall_s=wall,
+         tokens_per_s=toks.numel() / wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, expected_launches=want, outputs_ok=ok,
+         first_tokens=toks[0, :8].tolist())
+    if launches != want or not ok:
+        raise AssertionError(f"encdec launched {launches}, expected {want};"
+                             f" outputs ok: {ok}")
+    max_len = ENCDEC_PREFIX + ENCDEC_STEPS
+    _, caches = model.prefill(embeds, prefix, max_len=max_len)
+    last = toks[:, ENCDEC_PREFIX // 2:ENCDEC_PREFIX // 2 + 1]
+    emit("encdec_breakdown", arch=ENCDEC_ARCH, **breakdown((
+        ("prefill", lambda: model.prefill(embeds, prefix, max_len=max_len)),
+        ("decode_step", lambda: model.decode_step(
+            last, caches, ENCDEC_PREFIX + ENCDEC_STEPS // 2)))))
+    del model, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_times(errs: dict, launches: dict, launches_5tier: int) -> list:
     d = full_width_operands(masked=False)
     rows = []
@@ -3422,8 +3700,21 @@ def main() -> int:
     rows += attn_times(errs, serve_counts, lengths)
     ssd_errs = phase_ssd_kernel_vs_plain()
     phase_serve_small(MAMBA_ARCH, (64, 50, 37, 64), "mamba_serve_small")
-    _, mamba_launches, _ = phase_serve(MAMBA_ARCH, 32, "mamba_serve")
+    weights, mamba_launches, _ = phase_serve(MAMBA_ARCH, 32, "mamba_serve")
+    del weights
     rows.append(ssd_times(ssd_errs, mamba_launches))
+    phase_serve_small(MOE_ARCH, (64, 50, 37, 64), "moe_serve_small")
+    weights, moe_launches, moe_lengths = phase_serve(
+        MOE_ARCH, 32, "moe_serve", n_layers=MOE_LAYERS, max_len=MOE_MAX_LEN,
+        prompt_range=MOE_PROMPTS)
+    del weights
+    torch.cuda.empty_cache()
+    phase_encdec_small()
+    encdec_launches = phase_encdec()
+    shapes = moe_encdec_attn_times(moe_launches, moe_lengths, encdec_launches)
+    for row in rows:
+        if row["name"] in shapes:
+            row["moe_encdec_shapes"] = shapes[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

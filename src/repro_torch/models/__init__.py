@@ -1,6 +1,6 @@
-"""Model zoo of the port: the dense and Mamba-2 decoder-only families on
-PyTorch (the other families raise ``NotImplementedError`` naming their
-ROADMAP item)."""
+"""Model zoo of the port: the dense, MoE and Mamba-2 decoder-only families
+and the encoder-decoder on PyTorch (the hybrid family raises
+``NotImplementedError`` naming its ROADMAP item)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (DecoderOnlyLM, EncoderDecoderLM,
                                       build_model)

@@ -16,6 +16,12 @@ layer:
     rotated ring needs no unrotation.  A warm ring holds exactly the window,
     so its decode attends every slot: B5 at position L - 1 with no window.
 Decode writes each new token's K/V into its slot **in place**.
+
+Cross-attention (the encoder-decoder's decoder blocks) projects its queries
+and the encoder memory's K/V with the same weights' names, without RoPE or
+bias; its cache is that K/V, ``{"k", "v"}`` of (B, S_enc, n_kv, head_dim),
+made once at prefill.  Its prefill is B4 unmasked (Sq != Skv), its decode
+B5 at position S_enc - 1, which sees every slot.
 """
 from __future__ import annotations
 
@@ -77,6 +83,16 @@ class Attention(nn.Module):
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
+
+    def project_q(self, x: torch.Tensor) -> torch.Tensor:
+        """Cross-attention queries: x (B, S, D) -> (B, S, Hq, hd)."""
+        return self._project(x, self.wq)
+
+    def project_kv(self, memory: torch.Tensor) -> dict:
+        """The cross cache of the encoder output ``memory`` (B, S_enc, D):
+        ``{"k", "v"}`` of (B, S_enc, Hkv, hd)."""
+        return {"k": self._project(memory, self.wk),
+                "v": self._project(memory, self.wv)}
 
     def output(self, o: torch.Tensor) -> torch.Tensor:
         """(B, S, Hq, hd) -> (B, S, D)."""

@@ -1,16 +1,21 @@
-"""Layer blocks of the decoder (the port of ``repro/models/blocks.py``).
+"""Layer blocks of the models (the port of ``repro/models/blocks.py``).
 
-A *block* is one residual layer: (norm → mixer → residual, norm → gated
-MLP → residual).  Its kind comes from ``cfg.layer_kind(i)``: ``attn``
-(full causal), ``swa`` (sliding window), ``lattn``/``gattn`` (gemma3's
-local / global layers), each with ``mlp``; or ``mamba``, a pure-mixer
-Mamba-2 layer with no MLP (mamba2's blocks), whose cache is its SSM state
-and which ignores positions.
+A *block* is one residual layer: (norm → mixer → residual, [norm → cross-
+attention → residual,] norm → FFN → residual).  Its kind comes from
+``cfg.layer_kind(i)``: the mixer is ``attn`` (full causal), ``swa``
+(sliding window), ``lattn``/``gattn`` (gemma3's local / global layers) or
+``encattn`` (the encoder's unmasked self-attention), and the FFN a gated
+MLP (``_mlp``) or a Mixture-of-Experts (``_moe``, :mod:`.moe`); or the
+kind is ``mamba``, a pure-mixer Mamba-2 layer with no FFN (mamba2's
+blocks), whose cache is its SSM state and which ignores positions.  A
+decoder block of the encoder-decoder family also cross-attends to the
+encoder's output (``cross=True``): its queries against per-layer K/V of
+the encoder memory, unmasked and without RoPE.
 
 The reference scans stacked parameters over the repeating kind pattern
 (``PeriodStack``); PyTorch runs eagerly, so the port keeps one block per
 layer in an ``nn.ModuleList`` and walks it in a Python loop
-(:class:`repro_torch.models.model.DecoderOnlyLM`).
+(:mod:`repro_torch.models.model`).
 """
 from __future__ import annotations
 
@@ -20,23 +25,22 @@ from torch import nn
 from repro_torch.kernels.attention import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 #: ROADMAP items of what later slices port: model families and block parts.
-WAITING = {"moe": "A12c (MoE, models/moe.py)",
-           "hybrid": "A12d (hybrid Jamba)", "encdec": "A12e (encoder-decoder)"}
+WAITING = {"hybrid": "A12d (hybrid Jamba)"}
+MIXERS = ("attn", "swa", "lattn", "gattn", "encattn")
 
 
 def check_kind(kind: str) -> None:
     """Raise ``NotImplementedError`` for a block kind the port lacks."""
-    for part in kind.split("_"):
-        if part in WAITING:
-            raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                      f"yet: ROADMAP {WAITING[part]}")
-    mixer, _, rest = kind.partition("_")
-    if kind != "mamba" and not (mixer in ("attn", "swa", "lattn", "gattn")
-                                and rest == "mlp"):
+    mixer, _, ffn = kind.partition("_")
+    if mixer == "mamba" and ffn:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
+                                  f"ROADMAP {WAITING['hybrid']}")
+    if kind != "mamba" and not (mixer in MIXERS and ffn in ("mlp", "moe")):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
@@ -49,7 +53,8 @@ def window_of(cfg: ModelConfig, kind: str) -> int:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None,
+                 cross: bool = False):
         super().__init__()
         check_kind(kind)
         self.cfg = cfg
@@ -61,40 +66,68 @@ class Block(nn.Module):
             return
         self.attn = attn_mod.Attention(cfg, device)
         self.norm_mlp = layers.RMSNorm(cfg.d_model, dtype, device)
-        self.mlp = layers.Mlp(cfg.d_model, cfg.d_ff, dtype, device)
+        if kind.endswith("_moe"):
+            self.moe = moe_mod.Moe(cfg, device)
+        else:
+            self.mlp = layers.Mlp(cfg.d_model, cfg.d_ff, dtype, device)
+        if cross:
+            self.norm_cross = layers.RMSNorm(cfg.d_model, dtype, device)
+            self.cross = attn_mod.Attention(cfg, device)
 
     def init_weights(self, gen: torch.Generator) -> None:
         for m in self.children():
             m.init_weights(gen)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN's residual step (the MoE or the MLP)."""
         h = self.norm_mlp(x, self.cfg.norm_eps)
-        return x + self.mlp(h, self.cfg.mlp_act).to(x.dtype)
+        out = self.moe(h) if hasattr(self, "moe") else \
+            self.mlp(h, self.cfg.mlp_act)
+        return x + out.to(x.dtype)
+
+    def _cross(self, x: torch.Tensor, memory_kv: dict,
+               decode: bool) -> torch.Tensor:
+        """The cross-attention's residual step: B4 unmasked over the whole
+        prefix, or B5 for one token at the last slot's position (every
+        slot visible)."""
+        h = self.norm_cross(x, self.cfg.norm_eps)
+        q, k, v = self.cross.project_q(h), memory_kv["k"], memory_kv["v"]
+        out = (ops.decode_attention(q, k, v, position=k.shape[1] - 1)
+               if decode else ops.attention(q, k, v, causal=False))
+        return x + self.cross.output(out).to(x.dtype)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
-                layer_idx: int, seq_len: int) -> tuple[torch.Tensor, dict]:
-        """One block over a full sequence x (B, S, D).  Returns (x, cache)
-        with the cache at capacity ``seq_len`` (>= S; ring-bounded for
-        windowed layers, see :func:`attention.fill_cache`); a Mamba layer's
-        cache is its state after the S tokens."""
+                layer_idx: int, seq_len: int | None,
+                memory_kv: dict | None = None):
+        """One block over a full sequence x (B, S, D).  Returns (x,
+        cache): the cache at capacity ``seq_len`` (>= S; ring-bounded for
+        windowed layers, see :func:`attention.fill_cache`; None when
+        ``seq_len`` is None, as for the encoder), a Mamba layer's cache its
+        state after the S tokens.  ``memory_kv``: a decoder block's cross K/V
+        (:meth:`attention.Attention.project_kv` of the encoder output)."""
         cfg = self.cfg
         h = self.norm_mixer(x, cfg.norm_eps)
         if self.kind == "mamba":
             out, cache = self.mamba.prefill(h)
             return x + out.to(x.dtype), cache
         q, k, v = self.attn.qkv(h, positions)
-        out = ops.attention(q, k, v, causal=True,
+        out = ops.attention(q, k, v, causal=not self.kind.startswith("enc"),
                             window=window_of(cfg, self.kind))
         x = x + self.attn.output(out).to(x.dtype)
-        cache = attn_mod.fill_cache(
+        cache = None if seq_len is None else attn_mod.fill_cache(
             k, v, attn_mod.cache_len(cfg, layer_idx, seq_len))
-        return self._mlp(x), cache
+        if memory_kv is not None:
+            x = self._cross(x, memory_kv, decode=False)
+        return self._ffn(x), cache
 
     def decode(self, x: torch.Tensor, cache: dict,
-               position: int | torch.Tensor) -> torch.Tensor:
+               position: int | torch.Tensor,
+               memory_kv: dict | None = None) -> torch.Tensor:
         """One block for one new token x (B, 1, D) at ``position`` (an int
         or a (B,) tensor); writes the token's K/V (a Mamba layer: its new
-        state) into ``cache`` in place."""
+        state) into ``cache`` in place.  ``memory_kv``: a decoder block's
+        cross cache, every slot of which the token attends (B5 at the last
+        slot's position)."""
         cfg = self.cfg
         h = self.norm_mixer(x, cfg.norm_eps)
         if self.kind == "mamba":
@@ -113,4 +146,6 @@ class Block(nn.Module):
         out = attn_mod.decode_attend(cache, q, full_ring=full_ring,
                                      position=position, window=window)
         x = x + self.attn.output(out).to(x.dtype)
-        return self._mlp(x)
+        if memory_kv is not None:
+            x = self._cross(x, memory_kv, decode=True)
+        return self._ffn(x)

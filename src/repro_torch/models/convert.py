@@ -5,10 +5,13 @@ the layers by their place in the repeating kind pattern (``pos{p}``, each
 leaf stacked over the repeats), and its caches as ``{"main": {pos: stacked},
 "tail": {pos: single}}``.  :func:`params_from_numpy` unstacks such a tree
 (``jax.tree.map(np.asarray, params)``) into this port's ``state_dict``
-(``layers.{i}.attn.wq`` and so on) and :func:`caches_from_numpy` the cache
-tree (attention ``{"k", "v"}`` and Mamba ``{"conv_x", "conv_b", "conv_c",
-"ssm"}`` leaves alike) into the port's per-layer list, so both packages
-compute on the same numbers.  bfloat16 leaves (numpy's ``ml_dtypes``
+(``layers.{i}.attn.wq``, ``layers.{i}.moe.wi`` and so on; an
+encoder-decoder's two stacks ``encoder`` and ``decoder`` into
+``encoder.{i}.*`` and ``decoder.{i}.*``) and :func:`caches_from_numpy` the
+cache tree (attention ``{"k", "v"}`` and Mamba ``{"conv_x", "conv_b",
+"conv_c", "ssm"}`` leaves alike; an encoder-decoder's ``{"self",
+"cross"}``) into the port's per-layer lists, so both packages compute on
+the same numbers.  bfloat16 leaves (numpy's ``ml_dtypes``
 type) keep their bits.
 """
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DecoderOnlyLM
+from repro_torch.models.model import model_class
 
 
 def tensor_from_numpy(x, device: torch.device | str = "cpu") -> torch.Tensor:
@@ -56,28 +59,45 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
                       device: torch.device | str = "cpu") -> dict:
     """The reference's LM parameter tree (numpy leaves) as the port's
     ``state_dict``, tensors on ``device``."""
-    period = cfg.period()
     sd = {f"embed.{k}": tensor_from_numpy(v, device)
           for k, v in _flatten(tree["embed"]).items()}
-    sd["final_norm.scale"] = tensor_from_numpy(tree["final_norm"]["scale"],
-                                               device)
-    for i in range(cfg.n_layers):
-        # position i % period holds layers i % period, + period, ... stacked
-        stacked = _flatten(tree["stack"][f"pos{i % period}"])
-        for k, v in stacked.items():
-            sd[f"layers.{i}.{k}"] = tensor_from_numpy(
-                np.asarray(v)[i // period], device)
+    for norm in ("final_norm", "enc_norm"):
+        if norm in tree:
+            sd[f"{norm}.scale"] = tensor_from_numpy(tree[norm]["scale"],
+                                                    device)
+    # (stack, its layers, its kind pattern's period); an encoder's layers
+    # are all of one kind
+    stacks = ({"encoder": (tree["encoder"], cfg.n_enc_layers, 1),
+               "decoder": (tree["decoder"], cfg.n_layers, cfg.period())}
+              if cfg.is_encoder_decoder else
+              {"layers": (tree["stack"], cfg.n_layers, cfg.period())})
+    for name, (stack, n_layers, period) in stacks.items():
+        for i in range(n_layers):
+            # position i % period holds layers i % period, + period, ...
+            for k, v in _flatten(stack[f"pos{i % period}"]).items():
+                sd[f"{name}.{i}.{k}"] = tensor_from_numpy(
+                    np.asarray(v)[i // period], device)
     return sd
 
 
 def caches_from_numpy(cfg: ModelConfig, tree: dict,
-                      device: torch.device | str = "cpu") -> list:
+                      device: torch.device | str = "cpu") -> list | dict:
     """The reference's cache tree (numpy leaves) as the port's per-layer
-    list of cache dicts (``{"k", "v"}`` or the Mamba state) on ``device``."""
+    list of cache dicts (``{"k", "v"}`` or the Mamba state) on ``device``;
+    an encoder-decoder's as ``{"self": [...], "cross": [...]}``."""
+    if cfg.is_encoder_decoder:
+        return {part: _cache_list(cfg, tree[part], device)
+                for part in ("self", "cross")}
+    return _cache_list(cfg, tree, device)
+
+
+def _cache_list(cfg: ModelConfig, tree: dict, device) -> list:
     out = []
     for i in range(cfg.n_layers):
         part, pos, rep = _layer_slot(cfg, i)
-        (leaves,) = tree[part][pos].values()   # {"attn"|"mamba": {...}}
+        node = tree[part][pos]
+        # {"attn"|"mamba": {...}}, or a cross cache's {"k", "v"} itself
+        (leaves,) = [node] if set(node) == {"k", "v"} else node.values()
         out.append({name: tensor_from_numpy(
             np.asarray(v) if rep is None else np.asarray(v)[rep], device)
             for name, v in leaves.items()})
@@ -86,12 +106,12 @@ def caches_from_numpy(cfg: ModelConfig, tree: dict,
 
 def model_from_state_dict(cfg: ModelConfig, state_dict: dict,
                           device: torch.device | str = "cuda"
-                          ) -> DecoderOnlyLM:
+                          ) -> torch.nn.Module:
     """A model whose parameters *are* the tensors of ``state_dict`` (moved
     to ``device`` if they live elsewhere): no copy on the device, so models
     built from one state dict share their weights."""
     dev = resolve_device(device)
-    model = DecoderOnlyLM(cfg, "meta")
+    model = model_class(cfg)(cfg, "meta")
     model.load_state_dict({k: v.to(dev) for k, v in state_dict.items()},
                           assign=True)
     return model

@@ -105,9 +105,14 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
         h = x @ self.wi.to(x.dtype)
-        g = x @ self.wg.to(x.dtype)
-        g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+        g = gate_act(x @ self.wg.to(x.dtype), act)
         return (h * g) @ self.wo.to(x.dtype)
+
+
+def gate_act(g: torch.Tensor, act: str) -> torch.Tensor:
+    """The gate's activation: SiLU, or GELU's tanh approximation (as
+    ``jax.nn.gelu`` defaults to)."""
+    return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
 
 
 class Embedding(nn.Module):

@@ -1,20 +1,27 @@
-"""Model assembly: the decoder-only LM of the dense and Mamba-2 families
-(the port of ``repro/models/model.py``).
+"""Model assembly: the decoder-only LM (dense, MoE and Mamba-2 families) and
+the encoder-decoder (the port of ``repro/models/model.py``).
 
-:func:`build_model` returns a :class:`DecoderOnlyLM` — an ``nn.Module``
-exposing
+:func:`build_model` returns an ``nn.Module``:
 
-  init_weights(gen)                               random weights from a seed
-  prefill(tokens, max_len, last_index) -> (last_logits, caches)
-  decode_step(tokens, caches, position) -> (logits, caches)
-  init_caches(batch_size, seq_len) -> zero caches
+* :class:`DecoderOnlyLM`
+    init_weights(gen)                               random weights from a seed
+    prefill(tokens, max_len, last_index) -> (last_logits, caches)
+    decode_step(tokens, caches, position) -> (logits, caches)
+    init_caches(batch_size, seq_len) -> zero caches
+* :class:`EncoderDecoderLM` (seamless-m4t: stub frontend embeddings ->
+  encoder -> decoder that cross-attends)
+    prefill(embeds, tokens, max_len) -> (last_logits, {"self", "cross"})
+    decode_step(tokens, caches, position) -> (logits, caches)
+    init_caches(batch_size, seq_len, enc_len) -> zero caches
 
-``tokens`` are (B, S) integer tensors; caches are a list with one dict per
-layer, updated in place by ``decode_step``: ``{"k", "v"}`` for attention
-(see :mod:`repro_torch.models.attention`), ``{"conv_x", "conv_b",
-"conv_c", "ssm"}`` for Mamba (see :mod:`repro_torch.models.ssm`).  Families
-other than ``dense`` and ``ssm`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``tokens`` are (B, S) integer tensors, ``embeds`` (B, S_enc, D) frame
+embeddings; caches are a list with one dict per layer, updated in place by
+``decode_step``: ``{"k", "v"}`` for attention (see
+:mod:`repro_torch.models.attention`), ``{"conv_x", "conv_b", "conv_c",
+"ssm"}`` for Mamba (see :mod:`repro_torch.models.ssm`); the
+encoder-decoder's are ``{"self": [...], "cross": [...]}``, the cross caches
+the decoder layers' K/V of the encoder output.  The hybrid family raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -29,24 +36,45 @@ from repro_torch.models.blocks import WAITING, Block
 from repro_torch.models.config import ModelConfig
 
 
-class DecoderOnlyLM(nn.Module):
+class _LM(nn.Module):
+    """What both model classes share: the token embedding and LM head, the
+    final norm, and the decoder's caches."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        family = "encdec" if cfg.is_encoder_decoder else cfg.family
-        if family in WAITING:
+        if cfg.family in WAITING:
             raise NotImplementedError(
-                f"{cfg.name}: the {family} family is not ported yet: "
-                f"ROADMAP {WAITING[family]}")
+                f"{cfg.name}: the {cfg.family} family is not ported yet: "
+                f"ROADMAP {WAITING[cfg.family]}")
         self.cfg = cfg
         self.embed = layers.Embedding(cfg, device)
-        self.layers = nn.ModuleList(
-            Block(cfg, cfg.layer_kind(i), device) for i in range(cfg.n_layers))
         self.final_norm = layers.RMSNorm(cfg.d_model, layers.dtype_of(cfg),
                                          device)
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.final_norm(x, self.cfg.norm_eps)
+        return self.embed.logits(x)
+
+    def _decoder_caches(self, blocks, batch_size: int, seq_len: int) -> list:
+        cfg = self.cfg
+        dtype = layers.dtype_of(cfg, "compute")
+        return [ssm_mod.init_state(cfg, batch_size, dtype, self.device)
+                if blk.kind == "mamba" else
+                attn_mod.init_cache(cfg, batch_size,
+                                    attn_mod.cache_len(cfg, i, seq_len),
+                                    dtype, self.device)
+                for i, blk in enumerate(blocks)]
+
+
+class DecoderOnlyLM(_LM):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.layers = nn.ModuleList(
+            Block(cfg, cfg.layer_kind(i), device) for i in range(cfg.n_layers))
 
     def init_weights(self, gen: torch.Generator) -> "DecoderOnlyLM":
         """Random weights with the reference's scales, drawn from ``gen``
@@ -57,10 +85,6 @@ class DecoderOnlyLM(nn.Module):
         self.final_norm.init_weights(gen)
         return self
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x, self.cfg.norm_eps)
-        return self.embed.logits(x)
-
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None,
                 last_index: int | torch.Tensor | None = None
@@ -69,7 +93,8 @@ class DecoderOnlyLM(nn.Module):
 
         ``last_index``: position whose logits to return (defaults to the
         final position; right-padded prompts pass their true last index).
-        Returns (logits (B, 1, V), caches).
+        Returns (logits (B, 1, V), caches); the MoE layers' aux loss is
+        not computed, as the reference drops it.
         """
         x = self.embed.embed(tokens.to(self.device))
         s = x.shape[1]
@@ -95,33 +120,101 @@ class DecoderOnlyLM(nn.Module):
 
     def init_caches(self, batch_size: int, seq_len: int) -> list:
         """Zero caches shaped for decoding against a seq_len context."""
-        cfg = self.cfg
-        dtype = layers.dtype_of(cfg, "compute")
-        return [ssm_mod.init_state(cfg, batch_size, dtype, self.device)
-                if blk.kind == "mamba" else
-                attn_mod.init_cache(cfg, batch_size,
-                                    attn_mod.cache_len(cfg, i, seq_len),
-                                    dtype, self.device)
-                for i, blk in enumerate(self.layers)]
+        return self._decoder_caches(self.layers, batch_size, seq_len)
 
 
-class EncoderDecoderLM:
-    """seamless-m4t style encoder-decoder: not ported yet."""
+class EncoderDecoderLM(_LM):
+    """seamless-m4t style: precomputed frame embeddings (the speech
+    frontend is a stub, as in the reference) -> an encoder of unmasked
+    self-attention blocks -> ``enc_norm`` -> a causal decoder whose blocks
+    cross-attend to the encoder output."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model is not ported yet: "
-            f"ROADMAP {WAITING['encdec']}")
+        super().__init__(cfg, device)
+        dtype = layers.dtype_of(cfg)
+        self.encoder = nn.ModuleList(
+            Block(cfg, "encattn_mlp", device)
+            for _ in range(cfg.n_enc_layers))
+        self.decoder = nn.ModuleList(
+            Block(cfg, cfg.layer_kind(i), device, cross=True)
+            for i in range(cfg.n_layers))
+        self.enc_norm = layers.RMSNorm(cfg.d_model, dtype, device)
+
+    def init_weights(self, gen: torch.Generator) -> "EncoderDecoderLM":
+        """Random weights with the reference's scales, drawn from ``gen``
+        (on the model's device) in a fixed order."""
+        self.embed.init_weights(gen)
+        for blk in (*self.encoder, *self.decoder):
+            blk.init_weights(gen)
+        self.enc_norm.init_weights(gen)
+        self.final_norm.init_weights(gen)
+        return self
+
+    @torch.no_grad()
+    def encode(self, embeds: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings (B, S_enc, D) -> the encoder memory, normed."""
+        x = embeds.to(self.device, layers.dtype_of(self.cfg, "compute"))
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i, blk in enumerate(self.encoder):
+            x, _ = blk.prefill(x, positions, i, None)
+        return self.enc_norm(x, self.cfg.norm_eps)
+
+    @torch.no_grad()
+    def prefill(self, embeds: torch.Tensor, tokens: torch.Tensor,
+                max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+        """Encode the source, then prefill the decoder over the target
+        prefix ``tokens`` (B, S); self caches get capacity ``max_len``.
+        Returns (logits (B, 1, V) at the last position, {"self": [...],
+        "cross": [...]})."""
+        memory = self.encode(embeds)
+        cross = [blk.cross.project_kv(memory) for blk in self.decoder]
+        x = self.embed.embed(tokens.to(self.device))
+        s = x.shape[1]
+        max_len = max_len or s
+        positions = torch.arange(s, device=x.device)
+        caches = []
+        for i, (blk, kv) in enumerate(zip(self.decoder, cross)):
+            x, cache = blk.prefill(x, positions, i, max_len, memory_kv=kv)
+            caches.append(cache)
+        return self._head(x[:, -1:]), {"self": caches, "cross": cross}
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, caches: dict,
+                    position: int | torch.Tensor
+                    ) -> tuple[torch.Tensor, dict]:
+        """One target token per sequence, tokens (B, 1), at ``position``.
+        The self caches are written in place; the cross caches are read."""
+        x = self.embed.embed(tokens.to(self.device))
+        for blk, cache, kv in zip(self.decoder, caches["self"],
+                                  caches["cross"]):
+            x = blk.decode(x, cache, position, memory_kv=kv)
+        return self._head(x), caches
+
+    def init_caches(self, batch_size: int, seq_len: int,
+                    enc_len: int | None = None) -> dict:
+        """Zero caches: self caches for a seq_len target context, cross
+        caches for ``enc_len`` (default seq_len) source frames."""
+        cfg = self.cfg
+        dtype = layers.dtype_of(cfg, "compute")
+        return {"self": self._decoder_caches(self.decoder, batch_size,
+                                             seq_len),
+                "cross": [attn_mod.init_cache(cfg, batch_size,
+                                              enc_len or seq_len, dtype,
+                                              self.device)
+                          for _ in self.decoder]}
+
+
+def model_class(cfg: ModelConfig) -> type:
+    return EncoderDecoderLM if cfg.is_encoder_decoder else DecoderOnlyLM
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda",
-                seed: int = 0) -> DecoderOnlyLM:
+                seed: int = 0) -> DecoderOnlyLM | EncoderDecoderLM:
     """The model of ``cfg`` on ``device`` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (to load given weights, see
     :func:`repro_torch.models.convert.model_from_state_dict`)."""
     dev = resolve_device(device)
-    cls = EncoderDecoderLM if cfg.is_encoder_decoder else DecoderOnlyLM
-    model = cls(cfg, dev)
+    model = model_class(cfg)(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return model.init_weights(gen)

@@ -151,6 +151,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.core.fleet, repro_torch.kernels.efe.ops\n"
         "import repro_torch.kernels.build, repro_torch.envsim\n"
         "import repro_torch.models, repro_torch.models.convert\n"
+        "import repro_torch.models.moe, repro_torch.models.blocks\n"
         "import repro_torch.configs, repro_torch.serving\n"
         "import repro_torch.kernels.attention.ops\n"
         "import repro_torch.kernels.ssd.ops, repro_torch.models.ssm\n"

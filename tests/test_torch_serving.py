@@ -5,7 +5,9 @@
   its own direct greedy decode (``tests/test_serving_checkpoint.py``); the
   same for the Mamba-2 smoke model, with prompts right-padded to their
   buckets (whose state then carries the pad tokens, as the reference's
-  does: ROADMAP C, R5);
+  does: ROADMAP C, R5), and for the Mixtral smoke model (MoE, prompts past
+  its 16-token window, pad tokens and idle lanes routed as in the
+  reference);
 * ``MultiTierServer`` with the port's ``AifRouter`` over the three tiny
   tiers of ``examples/serve_multitier.py``, with the reference router's key
   chain replayed as its noise (``RouterKeyChainNoise``), gives the
@@ -134,6 +136,32 @@ def test_mamba_engine_matches_reference_engine_on_padded_prompts():
     got = _serve(port, Request, prompts, 5)
     assert got == want
     assert got[1] == _greedy(port, prompts[1], 5)
+    assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+
+
+def test_moe_engine_matches_reference_engine():
+    """mixtral's smoke model in float32 (top-2 of 4 experts, window 16):
+    two slots, four requests of lengths 20, 11, 30 and 16 (three
+    right-padded to their buckets, two past the window), so slots are
+    reused and a decode wave runs with an idle lane."""
+    from repro.serving import Request as RefRequest
+
+    def f32(c):
+        return dataclasses.replace(c, param_dtype="float32",
+                                   compute_dtype="float32")
+    ref_cfg = f32(ref_get_arch("mixtral-8x7b").smoke)
+    params = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(0))
+    ref = RefServingEngine(ref_cfg, params, max_batch=2, max_len=64)
+    cfg = f32(get_arch("mixtral-8x7b").smoke)
+    sd, _ = lm_to_port(cfg, params)
+    port = ServingEngine(cfg, sd, max_batch=2, max_len=64, device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (20, 11, 30, 16)]
+    want = _serve(ref, RefRequest, prompts, 6)
+    got = _serve(port, Request, prompts, 6)
+    assert got == want
+    assert got[3] == _greedy(port, prompts[3], 6)
     assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
 
 

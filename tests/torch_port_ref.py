@@ -21,7 +21,8 @@ tick, then ``tick``'s ``k_fast, k_slow = split(k)``): the Gumbel noise of
 The rest converts between the packages: topologies, reference pytrees to
 the dicts of numpy leaves that ``repro_torch``'s ``*_from_numpy`` take
 (:func:`lm_to_port` carries a reference LM's parameter and cache trees
-across), and port tensors back to numpy.
+across, decoder-only or encoder-decoder; :func:`moe_to_port` one MoE
+layer's parameters), and port tensors back to numpy.
 """
 from __future__ import annotations
 
@@ -290,8 +291,9 @@ def snapshot_to_port(snapshot):
 
 def lm_to_port(cfg, params=None, caches=None):
     """A reference LM's parameter tree and/or cache tree as the port's
-    ``state_dict`` / per-layer cache list (on the CPU), through the numpy
-    converters of :mod:`repro_torch.models.convert`; ``cfg`` is the port's
+    ``state_dict`` / per-layer cache list (``{"self", "cross"}`` lists for
+    an encoder-decoder) on the CPU, through the numpy converters of
+    :mod:`repro_torch.models.convert`; ``cfg`` is the port's
     ``ModelConfig``.  Returns (state_dict or None, caches or None)."""
     from repro_torch.models import convert
     sd = (None if params is None else
@@ -299,3 +301,16 @@ def lm_to_port(cfg, params=None, caches=None):
     cl = (None if caches is None else
           convert.caches_from_numpy(cfg, jax.tree.map(np.asarray, caches)))
     return sd, cl
+
+
+def moe_to_port(cfg, params):
+    """A reference MoE layer (``repro.models.moe.init_moe``'s tree) as a
+    port :class:`repro_torch.models.moe.Moe` on the CPU with those
+    weights."""
+    from repro_torch.models import convert, moe
+    m = moe.Moe(cfg, "meta")
+    m.load_state_dict({k: convert.tensor_from_numpy(v) for k, v in
+                       convert._flatten(jax.tree.map(np.asarray,
+                                                     params)).items()},
+                      assign=True)
+    return m
