@@ -241,7 +241,27 @@ failure raising (exit code != 0):
    seamless's encoder, cross prefill, self and cross decode) beside their
    plain versions (each within ATTN_TOL of it, or the phase fails) and
    SDPA, under ``moe_encdec_shapes`` in B4's and B5's
-   rows of the kernels line with the launches those phases counted.
+   rows of the kernels line with the launches those phases counted;
+45. train small — the training path (``make_train_step``: AdamW,
+   Adafactor, ``accum_steps=2``, ``int8_ef``) for 3 steps on the card and
+   on the CPU from the same weights and batches, in float32 (TF32 off), on
+   the reference tests' TINY and the internlm2, mixtral, mamba2 and
+   seamless smoke configs: loss, aux and gradient norm within 1e-4
+   relative, parameters within rtol 1e-4 / atol 1e-5; then TINY trained
+   for 50 steps through ``Trainer`` on the card (the last 5 losses under
+   0.7 of the first 5); then ``run_with_restarts`` preempted at step 25
+   against the uninterrupted run, parameters within 1e-5, whether they are
+   equal to the bit and which ops ``torch.use_deterministic_algorithms``
+   names as nondeterministic in a step; no kernel launched throughout;
+46. train — internlm2-1.8b at its published widths and depth (bf16
+   parameters, AdamW with a float32 master and moments) trained through
+   ``Trainer.run`` for 4 steps at sequence 4096, global batch 8 as 4
+   microbatches of 2: every loss and gradient norm finite, lr equal to the
+   schedule, every parameter's master moved, no kernel launched; each
+   step's wall ms, tokens/s, peak memory and model FLOP utilization, then
+   one more step's device ms and top device ops under ``torch.profiler``,
+   with the card's idle share of an unprofiled step (the profiler slows
+   the host, not the card).
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -3600,6 +3620,390 @@ def phase_encdec() -> dict:
     return launches
 
 
+# ------------------------------------------------------------- training
+# the reference training tests' TINY (tests/test_training.py)
+TINY_FIELDS = dict(name="tiny", family="dense", n_layers=2, d_model=64,
+                   n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=211,
+                   param_dtype="float32")
+TRAIN_SMALL_ARCHS = ("internlm2-1.8b", "mixtral-8x7b", "mamba2-2.7b",
+                     "seamless-m4t-medium")
+TRAIN_SMALL_STEPS = 3
+TRAIN_ARCH = "internlm2-1.8b"
+# train: the train_4k cell's sequence, its global batch of 256 cut to 8
+# (4 microbatches of 2) for the time limit, 4 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 4
+
+
+def train_variants() -> dict:
+    """The train step's variants held card against CPU.  Their peak rate
+    is 3e-4 (warmup 5): at the reference tests' 3e-3, Adam's and
+    Adafactor's normalization turns the float32 noise of near-zero
+    gradients (|g| near eps = 1e-8, where card and CPU differ by ~1e-9)
+    into parameter differences up to 2.6x the bar; at 3e-4 that noise
+    stays under a third of it, and an update of the wrong sign would
+    still miss it tenfold."""
+    from repro_torch.training import OptimizerConfig, TrainConfig
+    from repro_torch.training.grad_compression import CompressionConfig
+
+    def opt(**kw):
+        return OptimizerConfig(peak_lr=3e-4, warmup_steps=5,
+                               total_steps=100, **kw)
+    return {"adamw": TrainConfig(optimizer=opt()),
+            "adafactor": TrainConfig(optimizer=opt(name="adafactor",
+                                                   factored_min_dim=32)),
+            "accum2": TrainConfig(optimizer=opt(), accum_steps=2),
+            "int8_ef": TrainConfig(optimizer=opt(), compression=(
+                CompressionConfig(mode="int8_ef")))}
+
+
+def train_params(state) -> list:
+    """The train state's parameters, flat, in float32 on the host."""
+    from repro_torch.training.optimizer import members
+    return [p.detach().float().cpu() for leaf in state.params.values()
+            for p in members(leaf)]
+
+
+def int8_ties(ties: list):
+    """A stand-in for ``grad_compression.compress_int8_ef`` that ORs into
+    ``ties`` (one bool tensor a parameter, on the host) the elements whose
+    scaled gradient sits within 1e-3 of a half-integer, the quantizer's
+    rounding ties, where float32 noise picks the int8 value; then
+    quantizes as the original does."""
+    from repro_torch.training import grad_compression
+    from repro_torch.training.optimizer import members
+    orig = grad_compression.compress_int8_ef
+
+    def compress(grads, residual):
+        i = 0
+        for path, leaf in grads.items():
+            r = residual[path]
+            g32 = [g.float() + ri for g, ri in zip(
+                members(leaf), r.unbind(0) if isinstance(leaf, list)
+                else [r])]
+            scale = torch.clamp(torch.stack(
+                [x.abs().amax() for x in g32]).amax(), min=1e-12) / 127.0
+            for x in g32:
+                t = (x / scale).abs()
+                tie = ((t - t.floor() - 0.5).abs() < 1e-3).cpu()
+                if len(ties) <= i:
+                    ties.append(tie)
+                else:
+                    ties[i] |= tie
+                i += 1
+        return orig(grads, residual)
+    return compress
+
+
+def train_run(cfg, weights: dict, tcfg, batches: list, device: str,
+              ties: list | None = None):
+    """``TRAIN_SMALL_STEPS`` steps of ``make_train_step`` on ``device`` from
+    ``weights`` (copied) over ``batches``: (each step's (loss, aux, grad
+    norm), final parameters).  With ``ties`` the int8 quantizer's rounding
+    ties are recorded there (:func:`int8_ties`)."""
+    from repro_torch.models import convert
+    from repro_torch.training import (grad_compression, init_train_state,
+                                      make_train_step)
+    model = convert.model_from_state_dict(
+        cfg, {k: v.clone() for k, v in weights.items()}, device)
+    state = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    metrics = []
+    orig = grad_compression.compress_int8_ef
+    if ties is not None:
+        grad_compression.compress_int8_ef = int8_ties(ties)
+    try:
+        for b in batches:
+            state, m = step(state, {k: v.to(device) for k, v in b.items()})
+            metrics.append((float(m.loss), float(m.aux_loss),
+                            float(m.grad_norm)))
+    finally:
+        grad_compression.compress_int8_ef = orig
+    return metrics, train_params(state)
+
+
+def small_trainer(ckpt_dir: str, total: int, injector=None):
+    """The reference tests' ``_trainer``: TINY (bf16 compute) on the card,
+    batches of 8 x 32 tokens, AdamW at peak 3e-3, a checkpoint every 10
+    steps."""
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import ModelConfig, build_model
+    from repro_torch.training import (OptimizerConfig, TrainConfig, Trainer,
+                                      TrainerConfig)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        peak_lr=3e-3, warmup_steps=5, total_steps=100))
+    dcfg = DataConfig(vocab_size=211, seq_len=32, global_batch=8)
+    return Trainer(build_model(ModelConfig(**TINY_FIELDS), DEVICE), tcfg,
+                   SyntheticPipeline(dcfg, device=DEVICE),
+                   TrainerConfig(total_steps=total, checkpoint_every=10,
+                                 log_every=1000, ckpt_dir=ckpt_dir),
+                   failure_injector=injector, log_fn=lambda s: None)
+
+
+def nondeterministic_ops(trainer, state) -> list:
+    """The ops ``torch.use_deterministic_algorithms`` warns about in one
+    train step of ``trainer`` (on a copy of its next batch; the step's
+    result is dropped)."""
+    import warnings
+    batch = trainer.data._batch_for(0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0][:120]
+                   for w in caught})
+
+
+def phase_train_small() -> None:
+    """The training path on the card against the CPU, then TINY trained
+    and preempted on the card (see the module docstring, phase 45)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import ModelConfig, build_model
+    from repro_torch.training import FailureInjector, run_with_restarts
+    from repro_torch.training.optimizer import members
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train_small compares float32 steps: TF32 "
+                             "must be off")
+    cfgs = {"tiny": ModelConfig(**TINY_FIELDS, compute_dtype="float32")}
+    for arch in TRAIN_SMALL_ARCHS:
+        cfgs[arch] = dataclasses.replace(
+            get_arch(arch).smoke, param_dtype="float32",
+            compute_dtype="float32")
+    worst = {"metrics_rel": 0.0, "params_excess": 0.0}
+    rows = []
+
+    def compare():
+        for name, cfg in cfgs.items():
+            weights = build_model(cfg, "cpu", seed=0).state_dict()
+            pipe = SyntheticPipeline(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                input_mode=cfg.input_mode, d_model=cfg.d_model),
+                device="cpu")
+            batches = [next(pipe) for _ in range(TRAIN_SMALL_STEPS)]
+            for variant, tcfg in train_variants().items():
+                # int8_ef: an element whose quantization was a rounding tie
+                # on either side at any step is held apart (its int8 value
+                # is float32 noise's pick); every other parameter element
+                # is held to the bar
+                ties = [] if tcfg.compression.mode == "int8_ef" else None
+                mk, pk = train_run(cfg, weights, tcfg, batches, DEVICE, ties)
+                mc, pc = train_run(cfg, weights, tcfg, batches, "cpu", ties)
+                rel = max(abs(a - b) / max(abs(b), 1e-6)
+                          for sk, sc in zip(mk, mc) for a, b in zip(sk, sc))
+                # the largest |card - cpu| over the bar's allowance
+                over = [(a - b).abs() / (1e-5 + 1e-4 * b.abs())
+                        for a, b in zip(pk, pc)]
+                tied = ties or [torch.zeros_like(o, dtype=torch.bool)
+                                for o in over]
+                excess = max(float(o.masked_fill(t, 0.0).max())
+                             for o, t in zip(over, tied))
+                worst["metrics_rel"] = max(worst["metrics_rel"], rel)
+                worst["params_excess"] = max(worst["params_excess"], excess)
+                rows.append({"config": name, "variant": variant,
+                             "losses": [m[0] for m in mk],
+                             "aux": mk[-1][1], "metrics_rel_err": rel,
+                             "params_err_over_bar": excess,
+                             "int8_ties": sum(int(t.sum()) for t in tied),
+                             "tied_err_over_bar": max(
+                                 float(o.masked_fill(~t, 0.0).max())
+                                 for o, t in zip(over, tied))})
+
+    _, cmp_launches = counted(compare)
+    for row in rows:
+        emit("train_small_step", **row)
+
+    def trained():
+        with tempfile.TemporaryDirectory() as d:
+            tr = small_trainer(os.path.join(d, "a"), 50)
+            tr.run()
+            return tr.losses
+    losses, fit_launches = counted(trained)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+
+    def restarted():
+        with tempfile.TemporaryDirectory() as d:
+            inj = FailureInjector(fail_at_steps=(25,))
+            state_r, restarts = run_with_restarts(
+                lambda: small_trainer(os.path.join(d, "x"), 40, inj))
+            whole = small_trainer(os.path.join(d, "y"), 40)
+            state_c = whole.run()
+            pr, pc = train_params(state_r), train_params(state_c)
+            ids = {id(p): n for n, p in whole.model.named_parameters()}
+            names = [ids[id(p)] for leaf in state_c.params.values()
+                     for p in members(leaf)]
+            differ = {n: float((a - b).abs().max())
+                      for n, a, b in zip(names, pr, pc)
+                      if not torch.equal(a, b)}
+            gap = max(float((a - b).abs().max()) for a, b in zip(pr, pc))
+            nondet = nondeterministic_ops(whole, state_c)
+            return restarts, gap, differ, nondet, len(names)
+    (restarts, gap, differ, nondet, n_params), rs_launches = counted(
+        restarted)
+    launches = {k: cmp_launches[k] + fit_launches[k] + rs_launches[k]
+                for k in cmp_launches}
+    emit("train_small", configs=list(cfgs), variants=list(train_variants()),
+         steps=TRAIN_SMALL_STEPS, dtype="float32",
+         metrics_max_rel_err=worst["metrics_rel"],
+         params_max_err_over_bar=worst["params_excess"],
+         tiny_50_steps_first5=first, tiny_50_steps_last5=last,
+         restarts=restarts, resume_max_abs_diff=gap,
+         resume_bit_equal=not differ, resume_params_differing=differ,
+         resume_n_params=n_params, nondeterministic_ops=nondet,
+         launches=launches)
+    if worst["metrics_rel"] > 1e-4 or worst["params_excess"] > 1.0:
+        raise AssertionError(f"train_small: the card's steps disagree with "
+                             f"the CPU's ({worst})")
+    if not last < 0.7 * first:
+        raise AssertionError(f"train_small: TINY's loss fell from {first} "
+                             f"to only {last}")
+    if restarts != 1 or not gap <= 1e-5:
+        raise AssertionError(f"train_small: the resumed run is {gap} from "
+                             f"the uninterrupted one ({restarts} restarts)")
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"train_small launched {launches}")
+    torch.cuda.empty_cache()
+
+
+def strided_sample(t: torch.Tensor, n: int = 1 << 20) -> torch.Tensor:
+    """Up to ``n`` evenly strided elements of ``t``, as float32."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // n)].float().clone()
+
+
+def master_samples(state) -> list:
+    """A strided sample of each parameter's float32 master (the parameter
+    itself where it has none), in the grouped order."""
+    from repro_torch.training.optimizer import members
+    out = []
+    for path, leaf in state.params.items():
+        st = state.opt.inner[path]
+        rows = ((st["master"].unbind(0) if isinstance(leaf, list)
+                 else [st["master"]]) if "master" in st else members(leaf))
+        out += [strided_sample(r) for r in rows]
+    return out
+
+
+def train_model_flops(cfg, tokens: int) -> float:
+    """Model FLOPs of one training step on ``tokens`` tokens: 6 x the
+    parameters that multiply (all but the token table, a gather) per
+    token, plus the causal attention products (QK^T and PV over half the
+    sequence on average, 3x for forward and backward); recompute is not
+    counted."""
+    n = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    attn = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * TRAIN_SEQ
+    return tokens * (6 * n + attn)
+
+
+def device_time(prof) -> tuple[float, list]:
+    """(device ms, [(ms, count, name)] by kernel name, longest first) of a
+    ``torch.profiler`` trace, summed straight from its raw events: a
+    training step has some 10^6 of them, which ``key_averages`` takes
+    minutes to build."""
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        row = by_name.setdefault(e.name()[:80], [0.0, 0])
+        row[0] += (e.end_ns() - e.start_ns()) / 1e6
+        row[1] += 1
+    top = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                 reverse=True)
+    return sum(r[0] for r in top), top
+
+
+def phase_train() -> None:
+    """internlm2-1.8b trained at its published widths and depth (see the
+    module docstring, phase 46)."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import group_params
+    from repro_torch.training import (OptimizerConfig, TrainConfig, Trainer,
+                                      TrainerConfig)
+    from repro_torch.training.optimizer import members, schedule
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_arch(TRAIN_ARCH).full
+    # the reference's train_config_for below 150 B parameters
+    ocfg = OptimizerConfig(name="adamw", master_fp32=True,
+                           moment_dtype="float32")
+    tcfg = TrainConfig(optimizer=ocfg, accum_steps=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, DEVICE, seed=0)
+    # before training the masters are the parameters, widened
+    before = [strided_sample(p) for leaf in group_params(model).values()
+              for p in members(leaf)]
+    data = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH),
+                             device=DEVICE)
+    stamps = []
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(model, tcfg, data, TrainerConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=10 * TRAIN_STEPS,
+            log_every=1, ckpt_dir=d),
+            log_fn=lambda s: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, launches = counted(lambda: trainer.run(seed=0))
+    walls = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = master_samples(state)
+    moved = [bool((a != b).any()) for a, b in zip(before, after)]
+    moved_share = float(sum((a != b).float().mean() for a, b in
+                            zip(before, after)) / len(before))
+    m = trainer.metrics
+    lr_want = [float(schedule(ocfg, i + 1)) for i in range(TRAIN_STEPS)]
+    finite = all(math.isfinite(x.loss) and math.isfinite(x.grad_norm)
+                 for x in m)
+    lr_ok = all(abs(x.lr - w) <= 1e-6 * w for x, w in zip(m, lr_want))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = statistics.median(walls[1:])
+    flops = train_model_flops(cfg, tokens)
+    emit("train", arch=TRAIN_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, params=cfg.param_count(),
+         dtype=cfg.param_dtype, optimizer="adamw f32 master + moments",
+         seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+         accum_steps=TRAIN_ACCUM, steps=TRAIN_STEPS,
+         losses=[x.loss for x in m], grad_norms=[x.grad_norm for x in m],
+         lr=[x.lr for x in m], lr_schedule=lr_want, step_wall_ms=walls,
+         steady_step_ms=steady, tokens_per_s=tokens / (steady / 1e3),
+         peak_mem_gb=peak, model_flops_per_step=flops,
+         mfu=flops / (steady / 1e3) / BF16_FLOP_PER_S,
+         params_moved=sum(moved), n_params=len(moved),
+         master_elements_moved_share=moved_share, launches=launches)
+    if not (finite and lr_ok and all(moved)) or launches != NO_LAUNCHES:
+        raise AssertionError(
+            f"train: finite {finite}, lr equal to the schedule {lr_ok}, "
+            f"{sum(moved)} of {len(moved)} parameters moved, launches "
+            f"{launches}")
+
+    # one more step (the run warmed everything up) under the profiler
+    batch = next(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    dev, top = device_time(prof)
+    emit("train_breakdown", arch=TRAIN_ARCH, profiled_step_wall_ms=wall,
+         steady_step_ms=steady, device_ms=dev,
+         device_idle_share=max(0.0, 1 - dev / steady),
+         profiled_idle_share=max(0.0, 1 - dev / wall),
+         top_device_ops_ms_count_name=top[:10],
+         profile_read_s=time.perf_counter() - t1)
+    del trainer, state, model, batch
+    torch.cuda.empty_cache()
+
+
 def phase_times(errs: dict, launches: dict, launches_5tier: int) -> list:
     d = full_width_operands(masked=False)
     rows = []
@@ -3715,6 +4119,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in shapes:
             row["moe_encdec_shapes"] = shapes[row["name"]]
+    phase_train_small()
+    phase_train()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

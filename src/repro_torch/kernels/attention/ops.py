@@ -2,19 +2,26 @@
 
 The device of the tensors decides: CPU tensors run the plain versions
 (:mod:`.ref`), CUDA tensors launch kernel B4 (prefill) or B5 (decode) or
-raise (:mod:`.flash`).  Model code reaches attention only through here.
+raise (:mod:`.flash`).  Serving reaches attention only through here;
+training takes the differentiable
+:func:`repro_torch.models.attention.blockwise_attention`, and both entry
+points raise when an input needs gradients (:func:`..refuse_grad`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attention.flash import flash_decode, flash_prefill
+
+_INSTEAD = "repro_torch.models.attention.blockwise_attention"
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               q_offset: int = 0) -> torch.Tensor:
     """Prefill attention: q (B, Sq, Hq, D) against k/v (B, Skv, Hkv, D)."""
+    refuse_grad("ops.attention", _INSTEAD, q, k, v)
     return flash_prefill(q, k, v, causal=causal, window=window,
                          q_offset=q_offset)
 
@@ -23,4 +30,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      position: int | torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """One-token decode attention at ``position`` (an int or (B,) tensor)."""
+    refuse_grad("ops.decode_attention", _INSTEAD, q, k, v)
     return flash_decode(q, k, v, position=position, window=window)

@@ -2,12 +2,15 @@
 
 The device of the tensors decides: CPU tensors run the plain version
 (:func:`.ref.ssd_chunked`), CUDA tensors launch kernel B6 or raise
-(:mod:`.ssd`).  Model code reaches the SSD scan only through here.
+(:mod:`.ssd`).  Serving reaches the SSD scan only through here; training
+calls :func:`.ref.ssd_chunked` directly, and this entry point raises when
+an input needs gradients (:func:`..refuse_grad`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.ssd.ssd import ssd_scan
 
 
@@ -17,4 +20,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan: x (B, S, H, P); dt (B, S, H) positive; a (H,)
     negative; b/c (B, S, G, N).  Returns (y, final_state)."""
+    refuse_grad("ops.ssd", "repro_torch.kernels.ssd.ref.ssd_chunked", x, dt,
+                a, b, c, init_state)
     return ssd_scan(x, dt, a, b, c, chunk, init_state)

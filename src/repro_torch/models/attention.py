@@ -1,11 +1,14 @@
 """Attention layer: GQA/MQA/MHA projections with RoPE, and the KV cache
 (the port of ``repro/models/attention.py``).
 
-The attention itself is reached only through
+Serving reaches the attention itself only through
 :mod:`repro_torch.kernels.attention.ops`: kernel B4 (prefill) and B5
 (decode) on the card, their plain versions ``mha_ref``/``decode_ref`` on
-the CPU.  The reference's XLA ``blockwise_attention`` computes the same
-function (equal to ``mha_ref`` in float32) and has no second copy here.
+the CPU.  Training takes :func:`blockwise_attention`, the port of the
+reference's XLA online-softmax attention, which is plain and
+differentiable on every device (the reference trains through it, not
+through its Pallas kernels; the kernels' entry points refuse inputs that
+need gradients).
 
 KV caches, one ``{"k", "v"}`` dict of (B, L, n_kv, head_dim) tensors per
 layer:
@@ -99,6 +102,102 @@ class Attention(nn.Module):
         hq, hd, d = self.wo.shape
         return o.reshape(o.shape[:-2] + (hq * hd,)) @ self.wo.to(
             o.dtype).reshape(hq * hd, d)
+
+
+NEG = -1e30
+
+
+def _chunk(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    """(... N ...) -> (n_chunks, ... size ...), chunks moved to the front."""
+    n = x.shape[axis] // size
+    x = x.reshape(x.shape[:axis] + (n, size) + x.shape[axis + 1:])
+    return x.movedim(axis, 0)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, mask_mode: str = "causal", window: int = 0,
+                        q_offset: int | torch.Tensor = 0,
+                        kv_valid_len: int | torch.Tensor | None = None,
+                        q_chunk: int = 512, kv_chunk: int = 1024
+                        ) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, plain and differentiable.
+
+    q (B, Sq, Hq, D) against k/v (B, Skv, Hkv, D), Hq a multiple of Hkv
+    (GQA groups).  ``mask_mode``: "causal", "window" (causal and within
+    ``window``) or "full".  ``q_offset``: the absolute position of q[:, 0],
+    an int or a per-batch (B,) tensor; KV positions are 0..Skv-1.
+    ``kv_valid_len`` (an int or (B,)): KV indices at or past it are masked
+    in every mode.  ``q_chunk``/``kv_chunk`` are clamped to the lengths and
+    must then divide them.  Returns (B, Sq, Hq, D) in q's type.
+
+    The reference multiplies its operands with a float32 result
+    (``preferred_element_type``); a torch product of bf16 operands rounds
+    its result to bf16, so both products here widen their operands to
+    float32 first (a bf16 product is exact in float32).  The probabilities
+    are rounded to v's type before the second product, as there.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    assert hq == g * hkv, (hq, hkv)
+    cq = min(q_chunk, sq)
+    ck = min(kv_chunk, skv)
+    assert sq % cq == 0 and skv % ck == 0, (sq, cq, skv, ck)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    f32 = torch.float32
+
+    # the operands widened once (exact), chunked
+    q_chunks = _chunk(q.reshape(b, sq, hkv, g, d).to(f32), 1, cq)
+    k_chunks = _chunk(k.to(f32), 1, ck)                    # (nk,B,ck,hkv,d)
+    v_chunks = _chunk(v.to(f32), 1, ck)
+    per_batch = isinstance(q_offset, torch.Tensor) and q_offset.ndim > 0
+    q_off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev)
+    if kv_valid_len is not None:
+        kv_valid = torch.as_tensor(kv_valid_len, dtype=torch.int64,
+                                   device=dev)
+        per_batch = per_batch or kv_valid.ndim > 0
+        if per_batch:
+            kv_valid = kv_valid.expand(b)
+    if per_batch:
+        q_off = q_off.expand(b)
+
+    outs = []
+    for qi in range(q_chunks.shape[0]):
+        qc = q_chunks[qi]                                   # (B,cq,hkv,g,d)
+        ar = torch.arange(cq, device=dev)
+        q_pos = (q_off[:, None] + qi * cq + ar[None, :] if per_batch
+                 else q_off + qi * cq + ar)                 # (B, cq) / (cq,)
+        m = torch.full((b, hkv, g, cq), NEG, dtype=f32, device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=f32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, d), dtype=f32, device=dev)
+        for ki in range(k_chunks.shape[0]):
+            kc, vc = k_chunks[ki], v_chunks[ki]
+            k_pos = ki * ck + torch.arange(ck, device=dev)   # (ck,)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * scale
+            if mask_mode != "full":
+                mask = k_pos[None, :] <= q_pos[..., :, None]
+                if mask_mode == "window" and window > 0:
+                    mask &= k_pos[None, :] > q_pos[..., :, None] - window
+                s = torch.where(mask[:, None, None] if per_batch
+                                else mask[None, None, None], s, NEG)
+            if kv_valid_len is not None:
+                if per_batch:
+                    vmask = k_pos[None, :] < kv_valid[:, None]
+                    s = torch.where(vmask[:, None, None, None], s, NEG)
+                else:
+                    s = torch.where(k_pos < kv_valid, s, NEG)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))   # (b,h,g,q)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).to(f32),
+                              vc)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)     # (b,h,g,q,d)
+        outs.append(out.movedim(3, 1).reshape(b, cq, hq, d).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------

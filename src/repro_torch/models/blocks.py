@@ -16,11 +16,17 @@ The reference scans stacked parameters over the repeating kind pattern
 (``PeriodStack``); PyTorch runs eagerly, so the port keeps one block per
 layer in an ``nn.ModuleList`` and walks it in a Python loop
 (:mod:`repro_torch.models.model`).
+
+:meth:`Block.prefill` and :meth:`Block.decode` serve, through the kernels
+of :mod:`repro_torch.kernels`; :meth:`Block.forward` trains, through the
+plain differentiable functions the reference trains through
+(``blockwise_attention``, ``ssd_chunked``, ``Moe.apply``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.attention import ops
 from repro_torch.models import attention as attn_mod
@@ -44,12 +50,15 @@ def check_kind(kind: str) -> None:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
-def window_of(cfg: ModelConfig, kind: str) -> int:
-    """The causal attention window of a block kind: ``cfg.sliding_window``
-    for swa/local layers, 0 (unbounded) otherwise."""
+def mask_args(cfg: ModelConfig, kind: str) -> tuple[str, int]:
+    """The attention mask of a block kind (the reference's ``_mask_args``):
+    ("window", cfg.sliding_window) for swa/local layers, ("full", 0) for
+    the encoder's, ("causal", 0) otherwise."""
     if kind.startswith("swa") or kind.startswith("lattn"):
-        return cfg.sliding_window
-    return 0
+        return "window", cfg.sliding_window
+    if kind.startswith("enc"):
+        return "full", 0
+    return "causal", 0
 
 
 class Block(nn.Module):
@@ -96,6 +105,43 @@ class Block(nn.Module):
                if decode else ops.attention(q, k, v, causal=False))
         return x + self.cross.output(out).to(x.dtype)
 
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                memory: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training block over a full sequence x (B, S, D) (the
+        reference's ``apply_block`` without a cache): (x, the float32 MoE
+        load-balancing loss, 0 for other kinds).  A decoder block projects
+        the encoder output ``memory`` to its cross K/V here.  With
+        ``cfg.remat != "none"`` the attention's chunks are recomputed in the
+        backward pass instead of kept."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = self.norm_mixer(x, cfg.norm_eps)
+        if self.kind == "mamba":
+            return x + self.mamba(h).to(x.dtype), aux
+        q, k, v = self.attn.qkv(h, positions)
+        mode, window = mask_args(cfg, self.kind)
+
+        def attend(q_, k_, v_):
+            return attn_mod.blockwise_attention(q_, k_, v_, mask_mode=mode,
+                                                window=window)
+        out = (checkpoint(attend, q, k, v, use_reentrant=False)
+               if cfg.remat != "none" else attend(q, k, v))
+        x = x + self.attn.output(out).to(x.dtype)
+        if memory is not None and hasattr(self, "cross"):
+            h = self.norm_cross(x, cfg.norm_eps)
+            kv = self.cross.project_kv(memory)
+            out = attn_mod.blockwise_attention(self.cross.project_q(h),
+                                               kv["k"], kv["v"],
+                                               mask_mode="full")
+            x = x + self.cross.output(out).to(x.dtype)
+        h = self.norm_mlp(x, cfg.norm_eps)
+        if hasattr(self, "moe"):
+            out, aux = self.moe.apply(h)
+        else:
+            out = self.mlp(h, cfg.mlp_act)
+        return x + out.to(x.dtype), aux
+
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_idx: int, seq_len: int | None,
                 memory_kv: dict | None = None):
@@ -111,8 +157,8 @@ class Block(nn.Module):
             out, cache = self.mamba.prefill(h)
             return x + out.to(x.dtype), cache
         q, k, v = self.attn.qkv(h, positions)
-        out = ops.attention(q, k, v, causal=not self.kind.startswith("enc"),
-                            window=window_of(cfg, self.kind))
+        mode, window = mask_args(cfg, self.kind)
+        out = ops.attention(q, k, v, causal=mode != "full", window=window)
         x = x + self.attn.output(out).to(x.dtype)
         cache = None if seq_len is None else attn_mod.fill_cache(
             k, v, attn_mod.cache_len(cfg, layer_idx, seq_len))
@@ -141,7 +187,7 @@ class Block(nn.Module):
             pos_arr = torch.full((1, 1), int(position), device=x.device)
         q, k, v = self.attn.qkv(h, pos_arr)
         attn_mod.cache_write_decode(cache, k, v, position)
-        window = window_of(cfg, self.kind)
+        _, window = mask_args(cfg, self.kind)
         full_ring = 0 < cache["k"].shape[1] <= window
         out = attn_mod.decode_attend(cache, q, full_ring=full_ring,
                                      position=position, window=window)

@@ -104,6 +104,127 @@ def _cache_list(cfg: ModelConfig, tree: dict, device) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The reference's leaves, grouped from the port's per-layer parameters
+# ---------------------------------------------------------------------------
+def ref_leaf(cfg: ModelConfig, name: str) -> tuple[str, int | None]:
+    """The reference leaf that holds the port parameter ``name``, as a path
+    (``"stack/pos0/attn/wq"``), and its row in that leaf's layer stack (None
+    for an unstacked leaf such as ``embed/table``)."""
+    head, *rest = name.split(".")
+    if head not in ("layers", "encoder", "decoder"):
+        return "/".join([head, *rest]), None
+    i, rest = int(rest[0]), rest[1:]
+    period = 1 if head == "encoder" else cfg.period()
+    stack = "stack" if head == "layers" else head
+    return "/".join([stack, f"pos{i % period}", *rest]), i // period
+
+
+def group_params(model: torch.nn.Module) -> dict:
+    """The model's parameters laid out as the reference's leaves: path ->
+    the parameter itself (an unstacked leaf) or the list of the layers'
+    parameters in stack order (a stacked leaf), paths in the order of
+    ``jax.tree_util``'s flatten (sorted keys at every level).  The
+    tensors *are* the model's parameters."""
+    rows: dict[str, dict[int | None, torch.Tensor]] = {}
+    for name, p in model.named_parameters():
+        path, row = ref_leaf(model.cfg, name)
+        rows.setdefault(path, {})[row] = p
+    out = {}
+    for path in sorted(rows, key=lambda x: x.split("/")):
+        members = rows[path]
+        out[path] = (members[None] if None in members else
+                     [members[i] for i in range(len(members))])
+    return out
+
+
+def _subtree(tree, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, last = path.split("/")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = v
+    return out
+
+
+def _leaf_numpy(t) -> np.ndarray:
+    """A leaf (a tensor or a list of layer rows, stacked) as numpy;
+    bfloat16 widened to float32."""
+    if isinstance(t, list):
+        t = torch.stack([x.detach() for x in t])
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(model: torch.nn.Module) -> dict:
+    """The inverse of :func:`params_from_numpy`: the model's parameters as
+    the reference's LM parameter tree of numpy leaves (layers stacked;
+    bfloat16 widened to float32)."""
+    return _nest({path: _leaf_numpy(leaf)
+                  for path, leaf in group_params(model).items()})
+
+
+def train_state_from_numpy(cfg: ModelConfig, tcfg, ref_state,
+                           device: torch.device | str = "cpu"):
+    """A reference ``TrainState`` (numpy leaves: ``jax.tree.map(np.asarray,
+    state)``) as the port's: the model whose parameters are its weights,
+    and a :class:`repro_torch.training.TrainState` over them carrying the
+    reference's step, optimizer state (stacked leaves as the reference
+    keeps them) and error-feedback buffers.  Returns (model, state).
+    Raises ``ValueError`` when the state does not fit ``tcfg`` (the
+    optimizer's state names, the error-feedback buffers)."""
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import TrainState, unfreeze
+    if (ref_state.ef_residual is None) != (tcfg.compression.mode
+                                           != "int8_ef"):
+        raise ValueError(f"error-feedback buffers do not fit compression "
+                         f"{tcfg.compression.mode!r}")
+    dev = resolve_device(device)
+    model = model_from_state_dict(
+        cfg, params_from_numpy(cfg, ref_state.params, dev), dev)
+    params = unfreeze(model)
+    ref_opt = ref_state.opt
+    inner = {path: {k: tensor_from_numpy(v, dev)
+                    for k, v in _subtree(ref_opt.inner, path).items()}
+             for path in params}
+    names = ({"v"}, {"vr", "vc"}) if tcfg.optimizer.name == "adafactor" \
+        else ({"m", "v"}, {"m", "v", "master"})
+    bad = [path for path, st in inner.items() if set(st) not in names]
+    if bad:
+        raise ValueError(f"optimizer state of {bad[:3]} does not fit "
+                         f"{tcfg.optimizer.name!r}")
+    ef = (None if ref_state.ef_residual is None else
+          {path: tensor_from_numpy(_subtree(ref_state.ef_residual, path), dev)
+           for path in params})
+    step = torch.tensor(int(np.asarray(ref_opt.step)), dtype=torch.int32,
+                        device=dev)
+    return model, TrainState(params, opt_mod.OptState(step, inner), ef)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of :func:`train_state_from_numpy` for comparison: the
+    port's ``TrainState`` as the reference's tree of numpy leaves, as
+    nested dicts (``{"params", "opt": {"step", "inner"}, "ef_residual"}``),
+    stacked leaves stacked."""
+    inner = state.opt.inner
+    return {
+        "params": _nest({k: _leaf_numpy(v)
+                         for k, v in state.params.items()}),
+        "opt": {"step": _leaf_numpy(state.opt.step),
+                "inner": _nest({k: {n: _leaf_numpy(t) for n, t in st.items()}
+                                for k, st in inner.items()})},
+        "ef_residual": (None if state.ef_residual is None else _nest(
+            {k: _leaf_numpy(v) for k, v in state.ef_residual.items()}))}
+
+
 def model_from_state_dict(cfg: ModelConfig, state_dict: dict,
                           device: torch.device | str = "cuda"
                           ) -> torch.nn.Module:

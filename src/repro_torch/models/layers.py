@@ -1,6 +1,5 @@
-"""Common layers: RMSNorm, rotary embeddings, the gated MLP, the embedding
-and the LM head (the port of ``repro/models/layers.py``; the losses come
-with the training slice).
+"""Common layers: RMSNorm, rotary embeddings, the gated MLP, the embedding,
+the LM head and the losses (the port of ``repro/models/layers.py``).
 
 Each layer is an ``nn.Module`` whose parameters keep the reference's names
 and shapes, so a reference parameter tree converts leaf for leaf
@@ -29,7 +28,8 @@ def dtype_of(cfg: ModelConfig, kind: str = "param") -> torch.dtype:
 
 def parameter(shape: tuple[int, ...], dtype: torch.dtype,
               device: torch.device | str | None) -> nn.Parameter:
-    """An uninitialized frozen parameter (serving never takes gradients)."""
+    """An uninitialized frozen parameter (serving never takes gradients;
+    :func:`repro_torch.training.init_train_state` unfreezes them)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -142,3 +142,32 @@ class Embedding(nn.Module):
         if self.cfg.tie_embeddings:
             return x @ self.table.to(x.dtype).T
         return x @ self.head.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V) of any type, reduced in
+    float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def chunked_lm_loss(embed: Embedding, x: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Cross-entropy over the LM head without the full (B, S, V) logits:
+    with ``cfg.loss_chunk`` > 0 the sequence is cut into chunks of that
+    many tokens, taken in order, and the loss is the mean of the chunks'
+    means (the memory lever of the large-vocabulary archs)."""
+    if cfg.loss_chunk <= 0 or x.shape[1] <= cfg.loss_chunk:
+        return softmax_xent(embed.logits(x), labels)
+    s, c = x.shape[1], cfg.loss_chunk
+    assert s % c == 0, f"seq {s} not divisible by loss_chunk {c}"
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        total = total + softmax_xent(embed.logits(x[:, i:i + c]),
+                                     labels[:, i:i + c])
+    return total / (s // c)

@@ -5,17 +5,25 @@ the encoder-decoder (the port of ``repro/models/model.py``).
 
 * :class:`DecoderOnlyLM`
     init_weights(gen)                               random weights from a seed
+    train_loss(batch) -> (loss, aux)                differentiable
     prefill(tokens, max_len, last_index) -> (last_logits, caches)
     decode_step(tokens, caches, position) -> (logits, caches)
     init_caches(batch_size, seq_len) -> zero caches
 * :class:`EncoderDecoderLM` (seamless-m4t: stub frontend embeddings ->
   encoder -> decoder that cross-attends)
+    train_loss(batch) -> (loss, aux)
     prefill(embeds, tokens, max_len) -> (last_logits, {"self", "cross"})
     decode_step(tokens, caches, position) -> (logits, caches)
     init_caches(batch_size, seq_len, enc_len) -> zero caches
 
 ``tokens`` are (B, S) integer tensors, ``embeds`` (B, S_enc, D) frame
-embeddings; caches are a list with one dict per layer, updated in place by
+embeddings.  A training batch is a dict: ``{"tokens", "labels"}`` of (B,
+S), plus ``"embeds"`` for the audio frontend stub (which replaces the
+decoder-only model's tokens in its embeddings mode, and is the
+encoder-decoder's source).  ``train_loss`` runs the plain differentiable
+path the reference trains through (see :meth:`Block.forward`) and launches
+no kernel; ``prefill``/``decode_step`` serve under ``torch.no_grad()``
+through the kernels.  Caches are a list with one dict per layer, updated in place by
 ``decode_step``: ``{"k", "v"}`` for attention (see
 :mod:`repro_torch.models.attention`), ``{"conv_x", "conv_b", "conv_c",
 "ssm"}`` for Mamba (see :mod:`repro_torch.models.ssm`); the
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -54,6 +63,28 @@ class _LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+    def _stack(self, blocks, x: torch.Tensor,
+               memory: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training blocks over x (B, S, D): (x, the summed float32 aux
+        loss).  With ``cfg.remat == "full"`` each block keeps only its input
+        and is recomputed in the backward pass."""
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in blocks:
+            if self.cfg.remat == "full":
+                x, a = checkpoint(blk, x, positions, memory,
+                                  use_reentrant=False)
+            else:
+                x, a = blk(x, positions, memory)
+            aux = aux + a
+        return x, aux
+
+    def _loss(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        x = self.final_norm(x, self.cfg.norm_eps)
+        return layers.chunked_lm_loss(self.embed, x,
+                                      labels.to(self.device), self.cfg)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x, self.cfg.norm_eps)
@@ -84,6 +115,18 @@ class DecoderOnlyLM(_LM):
             blk.init_weights(gen)
         self.final_norm.init_weights(gen)
         return self
+
+    def train_loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean token cross-entropy, summed MoE load-balancing loss), both
+        float32 scalars, differentiable in the parameters."""
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings" and "embeds" in batch:
+            x = batch["embeds"].to(self.device, layers.dtype_of(cfg,
+                                                                "compute"))
+        else:
+            x = self.embed.embed(batch["tokens"].to(self.device))
+        x, aux = self._stack(self.layers, x)
+        return self._loss(x, batch["labels"]), aux
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None,
@@ -149,6 +192,18 @@ class EncoderDecoderLM(_LM):
         self.enc_norm.init_weights(gen)
         self.final_norm.init_weights(gen)
         return self
+
+    def train_loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Encode ``batch["embeds"]``, then the decoder over
+        ``batch["tokens"]`` cross-attending to it: (mean token
+        cross-entropy, summed aux loss), differentiable."""
+        cfg = self.cfg
+        x = batch["embeds"].to(self.device, layers.dtype_of(cfg, "compute"))
+        x, _ = self._stack(self.encoder, x)
+        memory = self.enc_norm(x, cfg.norm_eps)
+        x = self.embed.embed(batch["tokens"].to(self.device))
+        x, aux = self._stack(self.decoder, x, memory)
+        return self._loss(x, batch["labels"]), aux
 
     @torch.no_grad()
     def encode(self, embeds: torch.Tensor) -> torch.Tensor:

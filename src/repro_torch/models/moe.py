@@ -125,12 +125,29 @@ class Moe(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, S, D) -> y (B, S, D) in x's type.  The serving path drops
-        the load-balancing loss, so it is not computed here: a training
-        step takes it from :meth:`route` with :func:`aux_loss`."""
+        the load-balancing loss, so it is not computed here (see
+        :meth:`apply`)."""
+        _, gates, expert_idx = self.route(x.reshape(-1, x.shape[-1]))
+        return self._experts(x, gates, expert_idx)
+
+    def apply(self, x):
+        """The training path, the reference's ``apply_moe``: x (B, S, D) ->
+        (y, the float32 load-balancing loss), differentiable.  Given a
+        function instead of a tensor it is ``nn.Module.apply`` (which a
+        parent module's ``apply`` calls on its children)."""
+        if callable(x):
+            return super().apply(x)
+        probs, gates, expert_idx = self.route(x.reshape(-1, x.shape[-1]))
+        return (self._experts(x, gates, expert_idx),
+                aux_loss(probs, expert_idx, self.cfg.n_experts))
+
+    def _experts(self, x: torch.Tensor, gates: torch.Tensor,
+                 expert_idx: torch.Tensor) -> torch.Tensor:
+        """The routed experts' gated sum (dense or by dispatch) plus the
+        shared expert."""
         cfg = self.cfg
         b, s, d = x.shape
         xf = x.reshape(-1, d)
-        _, gates, expert_idx = self.route(xf)
         if xf.shape[0] <= DENSE_MODE_MAX_TOKENS:
             y = self.dense(xf, gates, expert_idx).reshape(b, s, d)
         else:

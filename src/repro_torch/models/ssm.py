@@ -6,7 +6,9 @@ channels; a per-head scalar decay A and an input-dependent step dt through
 softplus.  Prefill runs the chunked SSD scan through
 :func:`repro_torch.kernels.ssd.ops.ssd` (kernel B6 on the card, the plain
 ``ssd_chunked`` on the CPU); decode is the plain one-token recurrence
-(the reference has no kernel for it).
+(the reference has no kernel for it).  Training (:meth:`Mamba.forward`)
+calls the plain, differentiable ``ssd_chunked`` on every device, as the
+reference's ``mamba_forward`` does.
 
 Parameters keep the reference's names (``in_z in_x in_b in_c in_dt
 conv_{x,b,c}_{w,b} a_log d_skip dt_bias norm out_proj``), so a reference
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ssd import ops
-from repro_torch.kernels.ssd.ref import ssd_decode_step
+from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_decode_step
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -116,6 +118,14 @@ class Mamba(nn.Module):
     def prefill(self, x_in: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """The mixer over a full sequence x_in (B, S, D) from a zero state:
         (out (B, S, D), cache)."""
+        return self._mix(x_in, ops.ssd)
+
+    def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        """The training mixer over x_in (B, S, D) from a zero state, through
+        the differentiable ``ssd_chunked``: out (B, S, D)."""
+        return self._mix(x_in, ssd_chunked)[0]
+
+    def _mix(self, x_in: torch.Tensor, scan) -> tuple[torch.Tensor, dict]:
         cfg = self.cfg
         h, p = cfg.ssm_heads, cfg.ssm_head_dim
         g, n = cfg.ssm_ngroups, cfg.ssm_state
@@ -131,8 +141,8 @@ class Mamba(nn.Module):
         xh = xr.reshape(bsz, s, h, p)
         dt_pos = softplus(dt.float() + self.dt_bias[None, None, :])
         a = -torch.exp(self.a_log)
-        y, ssm = ops.ssd(xh, dt_pos, a, bb.reshape(bsz, s, g, n),
-                         cc.reshape(bsz, s, g, n), cfg.ssm_chunk)
+        y, ssm = scan(xh, dt_pos, a, bb.reshape(bsz, s, g, n),
+                      cc.reshape(bsz, s, g, n), cfg.ssm_chunk)
         y = y + xh * self.d_skip[None, None, :, None].to(xh.dtype)
         out = self._output(y.reshape(bsz, s, cfg.d_inner), z)
         return out, {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c,

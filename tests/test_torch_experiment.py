@@ -159,6 +159,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.checkpoint, repro_torch.envsim.chaos\n"
         "import repro_torch.baselines, repro_torch.envsim.harness\n"
         "import repro_torch.core.agent, repro_torch.core.spaces\n"
+        "import repro_torch.training, repro_torch.data\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

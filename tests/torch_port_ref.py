@@ -22,7 +22,9 @@ The rest converts between the packages: topologies, reference pytrees to
 the dicts of numpy leaves that ``repro_torch``'s ``*_from_numpy`` take
 (:func:`lm_to_port` carries a reference LM's parameter and cache trees
 across, decoder-only or encoder-decoder; :func:`moe_to_port` one MoE
-layer's parameters), and port tensors back to numpy.
+layer's parameters; :func:`train_state_to_port` a reference train state
+with its optimizer state and error-feedback buffers), and port tensors
+back to numpy.
 """
 from __future__ import annotations
 
@@ -314,3 +316,32 @@ def moe_to_port(cfg, params):
                                                      params)).items()},
                       assign=True)
     return m
+
+
+def port_train_config(tcfg):
+    """The port's ``TrainConfig`` with the fields of the reference's."""
+    from repro_torch.training import grad_compression, optimizer
+    from repro_torch.training.train_step import TrainConfig
+    return TrainConfig(
+        optimizer=optimizer.OptimizerConfig(
+            **dataclasses.asdict(tcfg.optimizer)),
+        compression=grad_compression.CompressionConfig(
+            **dataclasses.asdict(tcfg.compression)),
+        moe_aux_weight=tcfg.moe_aux_weight, accum_steps=tcfg.accum_steps)
+
+
+def train_state_to_port(cfg, tcfg, state):
+    """A reference ``TrainState`` as the port's (model, state, train
+    config) on the CPU, through
+    :func:`repro_torch.models.convert.train_state_from_numpy`; ``cfg`` is
+    the port's ``ModelConfig``, ``tcfg`` the reference's ``TrainConfig``."""
+    from repro_torch.models import convert
+    ptcfg = port_train_config(tcfg)
+    model, st = convert.train_state_from_numpy(
+        cfg, ptcfg, jax.tree.map(np.asarray, state), "cpu")
+    return model, st, ptcfg
+
+
+def batch_to_port(batch):
+    """A reference batch (dict of arrays) as CPU tensors."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
