@@ -45,8 +45,8 @@ failure raising (exit code != 0):
    row's wall and metrics, then the markdown table; then
    ``Experiment(router="aif", fused=False)`` on paper-burst at the same
    size (plain PyTorch: no launch), with its wall; then the device time of
-   one uniform, Thompson, fused and unfused AIF run beside its wall
-   (``torch.profiler``);
+   one uniform, Thompson, fused and unfused AIF run at R=1024 x T=100
+   beside its wall (``torch.profiler``);
 11. hetero — B1 against its plain version at the continuum-5tier widths
    (R=1024, S=128, A=37), then ``hetero_fleet_rollout`` over a paper-3tier
    and a continuum-5tier group, fused, R=1024 each, T=300, B1's launches
@@ -144,8 +144,9 @@ failure raising (exit code != 0):
    Skv allowed (B4 for its encoder at b=8, 1024 x 1024, and its
    cross-attention, 16 x 1024; B5 over the cross cache at position 1023)
    and causal for its decoder (B4 at b=8, 16 x 16; B5 at b=8 over 80
-   slots),
-   and the other head dims (16, 32, 64) at small shapes; each case
+   slots), jamba-1.5-large's (Hq=64, Hkv=8, D=128: B4 at b=1, Sq=Skv=1024
+   causal; B5 at B=8 over 2048 slots with positions 0 and S-1 among
+   them), and the other head dims (16, 32, 64) at small shapes; each case
    launched twice, the two outputs equal to the bit; then each kernel
    against the plain model
    of its algebra (``ref.decode_split_model`` at the wrapper's chunk: f32
@@ -153,10 +154,11 @@ failure raising (exit code != 0):
    closer to ``ref.prefill_two_half_model`` than to the model that drops
    p_lo);
 30. serve small — internlm2-1.8b's widths at 2 layers in f32, one
-   ``ServingEngine`` on the card and one on the CPU with the same weights,
-   4 prompts of 64 tokens, 8 new tokens each: tokens equal, the logits of
-   the first prompt's prefill and of one decode step after it within 1e-4
-   relative, the kernels launched as expected;
+   ``ServingEngine`` on the card and one on the CPU with the same weights
+   (drawn once on the card, copied to the host), 4 prompts of 64 tokens,
+   8 new tokens each: tokens equal, the logits of the first prompt's
+   prefill and of one decode step after it within 1e-4 relative, the
+   kernels launched as expected;
 31. serve — ``ServingEngine(get_arch("internlm2-1.8b").full, max_batch=8,
    max_len=2048)`` in bf16, all 24 layers, answering 8 requests of
    1000-1024 prompt tokens with 64 new tokens each, every kernel's count
@@ -198,8 +200,9 @@ failure raising (exit code != 0):
    version ``kernels/ssd/ref.py::ssd_chunked`` on the card: mamba2-2.7b's
    widths (H=80, P=64, G=1, N=128, Q=256) at b=1, S=1024 in bf16 and f32,
    at the mamba serve-small phase's S=64, a ragged S=1000 and a short
-   S=80 (under one chunk) with an initial state, b=2, and G=2 at small
-   widths; y within 1e-4 (f32) / 3e-2 (bf16) of max(1, |y|), the state
+   S=80 (under one chunk) with an initial state, b=2, G=2 at small
+   widths, and jamba-1.5-large's widths (H=256, P=64, G=1, N=128, Q=256)
+   at b=1, S=1024; y within 1e-4 (f32) / 3e-2 (bf16) of max(1, |y|), the state
    within 10x that; each case launched twice, the two outputs equal to the
    bit; the bf16 cases (the chunk-parallel tensor-core route) also within
    one bf16 ulp + 1e-5 max(1, |y|) of ``ref.ssd_chunk_parallel_model``,
@@ -245,8 +248,8 @@ failure raising (exit code != 0):
 45. train small — the training path (``make_train_step``: AdamW,
    Adafactor, ``accum_steps=2``, ``int8_ef``) for 3 steps on the card and
    on the CPU from the same weights and batches, in float32 (TF32 off), on
-   the reference tests' TINY and the internlm2, mixtral, mamba2 and
-   seamless smoke configs: loss, aux and gradient norm within 1e-4
+   the reference tests' TINY and the internlm2, mixtral, mamba2, seamless
+   and jamba (hybrid) smoke configs: loss, aux and gradient norm within 1e-4
    relative, parameters within rtol 1e-4 / atol 1e-5; then TINY trained
    for 50 steps through ``Trainer`` on the card (the last 5 losses under
    0.7 of the first 5); then ``run_with_restarts`` preempted at step 25
@@ -261,7 +264,29 @@ failure raising (exit code != 0):
    step's wall ms, tokens/s, peak memory and model FLOP utilization, then
    one more step's device ms and top device ops under ``torch.profiler``,
    with the card's idle share of an unprofiled step (the profiler slows
-   the host, not the card).
+   the host, not the card);
+47. jamba serve small — jamba-1.5-large's widths at 2 layers
+   (``mamba_mlp``, ``mamba_moe``) in f32, 48.6 GB a side, checked as in
+   phase 30 (B6: 2 per admission), with the card's peak memory and the
+   host's available memory and peak resident set beside it;
+48. jamba serve small dense — phase 47 again on the same weights with
+   the MoE's dense switch (``moe.DENSE_MODE_MAX_TOKENS``) set to 4 on
+   both sides for this run only: every decode step's MoE takes
+   ``Moe.dense`` (its calls counted, one per decode step a side), each
+   64-token prefill the capacity dispatch, under the same bars;
+49. jamba serve — ``ServingEngine(jamba-1.5-large cut to its first 4 of
+   72 layers, max_batch=8, max_len=2048)`` in bf16 (46.5 GB of weights;
+   the first attention layer is layer 7, and 8 layers do not fit one
+   card), answering 8 requests of 1000-1024 prompt tokens with 32 new
+   tokens each, every kernel's count read around it (B6: 4 per request,
+   B4 and B5: none), wall, tokens/s, peak memory, then one prefill's and
+   one decode wave's host and device time with the top device kernels
+   and the card's idle share; the weights are freed after it;
+50. jamba times — B4 and B5 at jamba's attention widths (b=1 1024 x 1024
+   causal; B=8 over 2048 slots at the jamba serve prompts' lengths + 31)
+   beside their plain versions and SDPA, and B6 at its Mamba widths
+   (b=1, S=1024, H=256) beside its plain version, under ``jamba_shape`` in
+   the B4, B5 and B6 rows of the kernels line with phase 49's launches.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -289,6 +314,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 R_FULL, T_FULL = 1024, 300
+# table1_breakdown profiles its four rows over the first 100 windows (10
+# periods): reading a 300-window trace took ~35 s a row
+T_BREAKDOWN = 100
 R_MEGA, T0_MEGA = 4096, 150   # the mega slice's fleet; B3's timed window
 T0_OUTAGE = 120               # a window inside zone-outage's outage (90-149)
 DEVICE = "cuda"
@@ -310,6 +338,16 @@ MOE_ARCH = "mixtral-8x7b"
 MOE_LAYERS, MOE_MAX_LEN, MOE_WINDOW = 16, 8192, 4096
 MOE_PROMPTS = (4200, 5001)     # prompt lengths drawn from [4200, 5001)
 ENCDEC_ARCH = "seamless-m4t-medium"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# jamba_serve: jamba-1.5-large cut to its first 4 of 72 layers (mamba_mlp,
+# mamba_moe, mamba_mlp, mamba_moe: 46.5 GB of weights in bf16); its first
+# attention layer is layer 7, and the first 8 layers (90.3 GB) do not fit
+# one 80 GB card
+JAMBA_LAYERS = 4
+# jamba_serve_small's repeat with the MoE's dense switch on: decode waves
+# of at most this many tokens (its 4 lanes) take Moe.dense, its 64-token
+# prefill buckets the capacity dispatch
+JAMBA_DENSE_MAX = 4
 # encdec: 8 sources of 1024 frame embeddings, a 16-token target prefix,
 # then 64 greedy decode steps
 ENCDEC_B, ENCDEC_FRAMES, ENCDEC_PREFIX, ENCDEC_STEPS = 8, 1024, 16, 64
@@ -323,8 +361,15 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SSD_MODEL_TOL = 1e-5
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields and the seconds since the
+    script started (``elapsed_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -1115,19 +1160,19 @@ def phase_table1() -> None:
 
 def table1_breakdown() -> None:
     """The device's share of four Table-1 rows on paper-burst at R=1024 x
-    T=300 (a static baseline, a bandit, AIF fused and unfused): the device
-    time of one ``api.run`` from a ``torch.profiler`` trace beside the
-    rollout's wall, and the kernels that took longest."""
+    ``T_BREAKDOWN`` (a static baseline, a bandit, AIF fused and unfused):
+    the device time of one ``api.run`` from a ``torch.profiler`` trace
+    beside the rollout's wall, and the kernels that took longest."""
     from repro_torch import api
     for router, fused in (("uniform", True), ("thompson", True),
                           ("aif", True), ("aif", False)):
         e = api.Experiment(router=router, fused=fused, scenario="paper-burst",
-                           n_cells=R_FULL, n_windows=T_FULL, seed=0,
+                           n_cells=R_FULL, n_windows=T_BREAKDOWN, seed=0,
                            device=DEVICE)
         walls = []
         dev = device_ms(lambda: walls.append(api.run(e).wall_s))
         emit("table1_breakdown", router=router, fused=fused,
-             n_cells=R_FULL, n_windows=T_FULL, wall_s=walls[-1],
+             n_cells=R_FULL, n_windows=T_BREAKDOWN, wall_s=walls[-1],
              device_ms=dev["all"],
              device_idle_share=1.0 - dev["all"] / (1e3 * walls[-1]),
              top=dev["top"])
@@ -2505,7 +2550,9 @@ def attn_cases():
     cross-attention (Sq=16 against 1024 frames), B5 over the cross cache at
     position S_enc - 1, the decoder's causal self-attention at the encdec
     phase's shapes (prefill over the 16-token prefix, decode over 80
-    slots), and the smoke configs' head dims (f32)."""
+    slots), jamba-1.5-large's (Hq=64, Hkv=8, D=128: causal prefill at b=1,
+    Sq=Skv=1024; decode at B=8 over 2048 slots, ragged positions with 0
+    and S-1), and the smoke configs' head dims (f32)."""
     from repro_torch.kernels.attention import flash, ref
 
     def prefill(name, b, sq, skv, hq, hkv, d, dtype, seed, **kw):
@@ -2562,7 +2609,9 @@ def attn_cases():
             prefill("seamless_self_b8_16", ENCDEC_B, ENCDEC_PREFIX,
                     ENCDEC_PREFIX, 16, 16, 64, dtype, 35),
             decode("seamless_self_b8_s80", ENCDEC_B,
-                   ENCDEC_PREFIX + ENCDEC_STEPS, 16, 16, 64, dtype, 36)]
+                   ENCDEC_PREFIX + ENCDEC_STEPS, 16, 16, 64, dtype, 36),
+            prefill("jamba_1024", 1, 1024, 1024, 64, 8, 128, dtype, 50),
+            decode("jamba_b8_s2048", 8, 2048, 64, 8, 128, dtype, 51)]
     for d in (16, 32, 64):                # the smoke configs' head dims
         cases += [prefill(f"d{d}_window48", 2, 200, 200, 8, 2, d,
                           torch.float32, d, window=48),
@@ -2668,43 +2717,95 @@ def serve_requests(engine, prompts, n_new: int):
 
 def serve_launches(cfg, admissions: int, waves: int) -> dict:
     """The kernel launches an engine of ``cfg`` makes for ``admissions``
-    prefills and ``waves`` decode waves: B4 and B5 per attention layer, B6
-    per Mamba layer's prefill (its decode is plain PyTorch)."""
-    if cfg.family == "ssm":
-        return dict(NO_LAUNCHES, ssd_scan=cfg.n_layers * admissions)
-    return dict(NO_LAUNCHES, flash_prefill=cfg.n_layers * admissions,
-                flash_decode=cfg.n_layers * waves)
+    prefills and ``waves`` decode waves: B4 per attention layer per
+    admission and B5 per attention layer per wave, B6 per Mamba layer per
+    admission (its decode is plain PyTorch); a hybrid stack mixes both."""
+    n_mamba = sum(cfg.layer_kind(i).startswith("mamba")
+                  for i in range(cfg.n_layers))
+    n_attn = cfg.n_layers - n_mamba
+    return dict(NO_LAUNCHES, flash_prefill=n_attn * admissions,
+                flash_decode=n_attn * waves, ssd_scan=n_mamba * admissions)
+
+
+def host_mem_gb() -> dict:
+    """The host's available memory (``MemAvailable``) and this process's
+    peak resident set, in GB."""
+    import resource
+    with open("/proc/meminfo") as f:
+        info = {line.split(":")[0]: int(line.split()[1]) for line in f}
+    return dict(available_gb=info["MemAvailable"] * 1024 / 1e9,
+                total_gb=info["MemTotal"] * 1024 / 1e9,
+                process_peak_rss_gb=resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+
+
+class DenseCalls:
+    """Within the block, the MoE's dense switch
+    (``moe.DENSE_MODE_MAX_TOKENS``) set to ``max_tokens`` and the calls of
+    ``Moe.dense`` counted in ``.calls``."""
+
+    def __init__(self, max_tokens: int):
+        self.max_tokens, self.calls = max_tokens, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved = moe.DENSE_MODE_MAX_TOKENS, moe.Moe.dense
+        dense = moe.Moe.dense
+
+        def counting(module, *args):
+            self.calls += 1
+            return dense(module, *args)
+        moe.DENSE_MODE_MAX_TOKENS, moe.Moe.dense = self.max_tokens, counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.DENSE_MODE_MAX_TOKENS, moe.Moe.dense = self.saved
 
 
 def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
-                      phase: str = "serve_small") -> None:
+                      phase: str = "serve_small", weights=None,
+                      dense_max: int = 0):
     """``arch``'s widths at 2 layers in f32: the card's engine (kernels)
     against the CPU's (plain versions) with the same weights, 4 prompts of
     ``lengths`` tokens (right-padded to their bucket), 8 new tokens each:
     tokens equal, and the logits of the first prompt's prefill and of one
     decode step after it within 1e-4 relative (with random weights greedy
-    decode can repeat one token, so the logits carry the check)."""
+    decode can repeat one token, so the logits carry the check).  The
+    weights are drawn once on the card and copied to the host; ``weights``
+    (the pair this returns) reuses them.  ``dense_max`` > 0 sets the MoE's
+    dense switch to it on both sides for this run only: every call of at
+    most that many tokens (each decode step) takes ``Moe.dense``, whose
+    calls are counted and must be one per MoE layer per decode step."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
     cfg = dataclasses.replace(get_arch(arch).full, n_layers=2,
                               param_dtype="float32", compute_dtype="float32")
-    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    host_before = host_mem_gb()
+    torch.cuda.reset_peak_memory_stats()
+    if weights is None:
+        on_card = build_model(cfg, DEVICE, seed=0).state_dict()
+        weights = (on_card, {k: v.cpu() for k, v in on_card.items()})
     rng = np.random.default_rng(0)
     prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in lengths]
-    outs, logits = {}, {}
-    for dev in (DEVICE, "cpu"):
-        eng = ServingEngine(cfg, weights, max_batch=4, max_len=128,
-                            device=dev)
-        lg, caches = eng.model.prefill(torch.tensor(prompts[:1]),
-                                       max_len=128)
-        lg2, _ = eng.model.decode_step(lg[:, -1].argmax(-1, keepdim=True),
-                                       caches, lengths[0])
-        logits[dev] = torch.cat([lg, lg2], 1).cpu()
-        del caches
-        (reqs, _), launches = counted(lambda: serve_requests(eng, prompts, 8))
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    outs, logits, dense_calls, want_dense = {}, {}, {}, {}
+    for dev, sd in ((DEVICE, weights[0]), ("cpu", weights[1])):
+        eng = ServingEngine(cfg, sd, max_batch=4, max_len=128, device=dev)
+        with DenseCalls(dense_max) as dense:
+            lg, caches = eng.model.prefill(torch.tensor(prompts[:1]),
+                                           max_len=128)
+            lg2, _ = eng.model.decode_step(
+                lg[:, -1].argmax(-1, keepdim=True), caches, lengths[0])
+            logits[dev] = torch.cat([lg, lg2], 1).cpu()
+            del caches
+            (reqs, _), launches = counted(
+                lambda: serve_requests(eng, prompts, 8))
         outs[dev] = [r.output for r in reqs]
+        dense_calls[dev] = dense.calls
+        want_dense[dev] = n_moe * (eng.busy_steps + 1) if dense_max else 0
         if dev == DEVICE:
             want = serve_launches(cfg, len(prompts), eng.busy_steps)
             card_launches = launches
@@ -2712,9 +2813,14 @@ def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
     rel = ((logits[DEVICE] - logits["cpu"]).abs().max()
            / logits["cpu"].abs().max()).item()
     emit(phase, arch=arch, n_layers=2, dtype="float32",
+         kinds=[cfg.layer_kind(i) for i in range(cfg.n_layers)],
          prompt_lengths=list(lengths),
          tokens_equal=outs[DEVICE] == outs["cpu"], logits_rel_err=rel,
          launches=card_launches, expected_launches=want,
+         moe_dense_max_tokens=dense_max, moe_dense_calls=dense_calls,
+         expected_moe_dense_calls=want_dense,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         host_mem_before=host_before, host_mem_after=host_mem_gb(),
          tokens=outs[DEVICE])
     if outs[DEVICE] != outs["cpu"] or not rel <= 1e-4:
         raise AssertionError(f"{phase}: the card's engine disagrees "
@@ -2722,7 +2828,11 @@ def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
     if card_launches != want:
         raise AssertionError(f"{phase}: the card's engine launched "
                              f"{card_launches}, expected {want}")
+    if dense_calls != want_dense:
+        raise AssertionError(f"{phase}: Moe.dense ran {dense_calls} times, "
+                             f"expected {want_dense}")
     torch.cuda.empty_cache()
+    return weights
 
 
 def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
@@ -2753,6 +2863,7 @@ def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
              for r in reqs)
     emit(phase, arch=arch, n_layers=cfg.n_layers,
          published_n_layers=full.n_layers,
+         kinds=sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)}),
          window=cfg.sliding_window if cfg.attn_type == "swa" else 0,
          params=cfg.param_count(), dtype=cfg.param_dtype, max_batch=8,
          max_len=max_len, prompt_lengths=[int(n) for n in lengths],
@@ -3315,6 +3426,32 @@ def moe_encdec_attn_times(moe_launches: dict, moe_lengths,
     return out
 
 
+def jamba_kernel_times(launches: dict, lengths) -> dict:
+    """B4 and B5 at jamba-1.5-large's attention widths (64/8 heads, D=128,
+    bf16: a causal prefill at b=1, Sq=Skv=1024; a decode wave over 8 x
+    2048 slots with each slot at a jamba_serve prompt length + 31) beside
+    their plain versions and SDPA, and B6 at its Mamba widths (H=256) at
+    the jamba_serve phase's prefill shape; each with the launches that
+    phase counted (its 4 layers hold no attention).  Returns, per kernel,
+    the fields for its row of the kernels line."""
+    h = (64, 8, 128)
+    rows = (("flash_prefill", "jamba_prefill_1024",
+             prefill_times_row(1, 1024, 1024, *h, seed=60)),
+            ("flash_decode", "jamba_decode_b8_s2048",
+             decode_times_row(8, 2048, np.asarray(lengths, np.int64) + 31,
+                              61, *h)))
+    out = {}
+    for kernel, shape_name, (calls, bound, shape) in rows:
+        out[kernel] = dict(
+            jamba_serve_launches=launches[kernel],
+            **attn_time_fields(kernel, calls, bound,
+                               dict(shape=shape_name, **shape)))
+    out["ssd_scan"] = dict(jamba_serve_launches=launches["ssd_scan"],
+                           **ssd_time_fields(JAMBA_ARCH, seed=62))
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ Mamba-2 / SSD
 def ssd_operands(b: int, s: int, h: int, p: int, g: int, n: int,
                  dtype: torch.dtype, init: bool = False, seed: int = 0):
@@ -3335,17 +3472,24 @@ def ssd_operands(b: int, s: int, h: int, p: int, g: int, n: int,
     return x, dt, a, bb, cc, st
 
 
+def ssd_widths(arch: str) -> tuple:
+    """(H, P, G, N, Q) of ``arch``'s Mamba-2 mixer at its published
+    widths."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).full
+    return (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_ngroups, cfg.ssm_state,
+            cfg.ssm_chunk)
+
+
 def ssd_cases():
     """(name, B, S, H, P, G, N, Q, dtype, init) of every B6 check, in bf16
     and f32: mamba2-2.7b's widths at the mamba serve phase's prefill
     (b=1, S=1024) and the serve-small phase's bucket (S=64), a ragged
     S=1000 and a short S=80 (under one chunk) from an initial state, b=2,
-    and G=2 at the reference sweep's small widths."""
-    from repro_torch.configs import get_arch
-    cfg = get_arch(MAMBA_ARCH).full
-    m = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_ngroups, cfg.ssm_state,
-         cfg.ssm_chunk)
+    G=2 at the reference sweep's small widths, and jamba-1.5-large's
+    widths (H=256) at the jamba serve phase's prefill (b=1, S=1024)."""
     cases = []
+    m, jm = ssd_widths(MAMBA_ARCH), ssd_widths(JAMBA_ARCH)
     for dtype in (torch.bfloat16, torch.float32):
         cases += [("mamba_b1_s1024", 1, 1024, *m, dtype, False),
                   ("mamba_b1_s64", 1, 64, *m, dtype, False),
@@ -3353,6 +3497,8 @@ def ssd_cases():
                   ("mamba_short_s80_init", 1, 80, *m, dtype, True),
                   ("mamba_b2_s512", 2, 512, *m, dtype, False),
                   ("g2_small", 1, 128, 4, 32, 2, 16, 32, dtype, False)]
+    cases += [("jamba_b1_s1024", 1, 1024, *jm, dtype, False)
+              for dtype in (torch.bfloat16, torch.float32)]
     return cases
 
 
@@ -3467,16 +3613,14 @@ def ssd_bound(b: int, s: int, h: int, p: int, g: int, n: int, q: int,
                 ops_tpu_way_ms=1e3 * flops_tpu / BF16_FLOP_PER_S)
 
 
-def ssd_times(errs: dict, launches: dict) -> dict:
-    """B6 at the mamba serve phase's prefill shape (b=1, S=1024, mamba2-2.7b's
-    widths, bf16): ms per launch beside its plain version's and its bound."""
-    from repro_torch.configs import get_arch
+def ssd_time_fields(arch: str, seed: int) -> dict:
+    """B6 at a serve phase's prefill shape (b=1, S=1024, ``arch``'s widths,
+    bf16): ms per launch beside its plain version's and its bound; emits
+    its times line and returns its fields."""
     from repro_torch.kernels.ssd import ref, ssd
-    cfg = get_arch(MAMBA_ARCH).full
-    h, p, g, n, q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_ngroups,
-                     cfg.ssm_state, cfg.ssm_chunk)
+    h, p, g, n, q = ssd_widths(arch)
     x, dt, a, bb, cc, _ = ssd_operands(1, 1024, h, p, g, n, torch.bfloat16,
-                                       seed=9)
+                                       seed=seed)
     kern = lambda: ssd.ssd_scan(x, dt, a, bb, cc, q)          # noqa: E731
     plain = lambda: ref.ssd_chunked(x, dt, a, bb, cc, q)      # noqa: E731
     ms = time_ms(kern)
@@ -3484,12 +3628,20 @@ def ssd_times(errs: dict, launches: dict) -> dict:
     ms2 = time_ms(kern)
     dev, ahead = queued_ms(kern)
     bnd = ssd_bound(1, 1024, h, p, g, n, q, x.element_size())
-    emit("times", kernel="ssd_scan", dtype="bfloat16",
-         shape=dict(B=1, S=1024, H=h, P=p, G=g, N=n, Q=q), ms=ms,
-         ms_repeat=ms2, plain_ms=plain_ms, library_ms=None, device_ms=dev,
-         queued_ahead=ahead, **bnd)
+    fields = dict(arch=arch, shape=dict(B=1, S=1024, H=h, P=p, G=g, N=n,
+                                        Q=q),
+                  ms=ms, ms_repeat=ms2, plain_ms=plain_ms, library_ms=None,
+                  device_ms=dev, queued_ahead=ahead, **bnd)
+    emit("times", kernel="ssd_scan", dtype="bfloat16", **fields)
     del x, dt, a, bb, cc
     torch.cuda.empty_cache()
+    return fields
+
+
+def ssd_times(errs: dict, launches: dict) -> dict:
+    """B6's row of the kernels line: its times at the mamba serve phase's
+    prefill shape (mamba2-2.7b's widths), with that phase's launches."""
+    f = ssd_time_fields(MAMBA_ARCH, seed=9)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:76",
@@ -3497,9 +3649,10 @@ def ssd_times(errs: dict, launches: dict) -> dict:
             "max_abs_err": errs["max_abs_err"],
             "max_err": errs["max_abs_err"],
             "max_scaled_err": errs["max_scaled_err"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"], "library_ms": None,
-            "device_ms": dev, "library_device_ms": None}
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": None, "device_ms": f["device_ms"],
+            "library_device_ms": None}
 
 
 # ------------------------------------------- MoE and the encoder-decoder
@@ -3626,7 +3779,7 @@ TINY_FIELDS = dict(name="tiny", family="dense", n_layers=2, d_model=64,
                    n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=211,
                    param_dtype="float32")
 TRAIN_SMALL_ARCHS = ("internlm2-1.8b", "mixtral-8x7b", "mamba2-2.7b",
-                     "seamless-m4t-medium")
+                     "seamless-m4t-medium", "jamba-1.5-large-398b")
 TRAIN_SMALL_STEPS = 3
 TRAIN_ARCH = "internlm2-1.8b"
 # train: the train_4k cell's sequence, its global batch of 256 cut to 8
@@ -4121,6 +4274,20 @@ def main() -> int:
             row["moe_encdec_shapes"] = shapes[row["name"]]
     phase_train_small()
     phase_train()
+    jamba_weights = phase_serve_small(JAMBA_ARCH, (64, 50, 37, 64),
+                                      "jamba_serve_small")
+    phase_serve_small(JAMBA_ARCH, (64, 50, 37, 64), "jamba_serve_small_dense",
+                      weights=jamba_weights, dense_max=JAMBA_DENSE_MAX)
+    del jamba_weights
+    torch.cuda.empty_cache()
+    weights, jamba_launches, jamba_lengths = phase_serve(
+        JAMBA_ARCH, 32, "jamba_serve", n_layers=JAMBA_LAYERS)
+    del weights
+    torch.cuda.empty_cache()
+    jamba = jamba_kernel_times(jamba_launches, jamba_lengths)
+    for row in rows:
+        if row["name"] in jamba:
+            row["jamba_shape"] = jamba[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

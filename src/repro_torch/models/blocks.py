@@ -4,10 +4,12 @@ A *block* is one residual layer: (norm → mixer → residual, [norm → cross-
 attention → residual,] norm → FFN → residual).  Its kind comes from
 ``cfg.layer_kind(i)``: the mixer is ``attn`` (full causal), ``swa``
 (sliding window), ``lattn``/``gattn`` (gemma3's local / global layers) or
-``encattn`` (the encoder's unmasked self-attention), and the FFN a gated
-MLP (``_mlp``) or a Mixture-of-Experts (``_moe``, :mod:`.moe`); or the
-kind is ``mamba``, a pure-mixer Mamba-2 layer with no FFN (mamba2's
-blocks), whose cache is its SSM state and which ignores positions.  A
+``encattn`` (the encoder's unmasked self-attention) or ``mamba`` (a
+Mamba-2 mixer, whose cache is its SSM state and which ignores positions),
+and the FFN a gated MLP (``_mlp``) or a Mixture-of-Experts (``_moe``,
+:mod:`.moe`).  A bare ``mamba`` is a pure-mixer layer with no FFN (mamba2's
+blocks); the hybrid family (Jamba) mixes ``mamba_mlp``, ``mamba_moe`` and
+``attn_moe`` layers in one stack.  A
 decoder block of the encoder-decoder family also cross-attends to the
 encoder's output (``cross=True``): its queries against per-layer K/V of
 the encoder memory, unmasked and without RoPE.
@@ -35,19 +37,16 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
-#: ROADMAP items of what later slices port: model families and block parts.
-WAITING = {"hybrid": "A12d (hybrid Jamba)"}
-MIXERS = ("attn", "swa", "lattn", "gattn", "encattn")
+MIXERS = ("attn", "swa", "lattn", "gattn", "encattn", "mamba")
 
 
 def check_kind(kind: str) -> None:
-    """Raise ``NotImplementedError`` for a block kind the port lacks."""
+    """Raise ``NotImplementedError`` for a block kind no config produces:
+    a mixer of :data:`MIXERS` with an FFN (``_mlp`` or ``_moe``), or a bare
+    ``mamba``."""
     mixer, _, ffn = kind.partition("_")
-    if mixer == "mamba" and ffn:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                  f"ROADMAP {WAITING['hybrid']}")
     if kind != "mamba" and not (mixer in MIXERS and ffn in ("mlp", "moe")):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
 def mask_args(cfg: ModelConfig, kind: str) -> tuple[str, int]:
@@ -69,15 +68,17 @@ class Block(nn.Module):
         self.cfg = cfg
         self.kind = kind
         dtype = layers.dtype_of(cfg)
+        self.is_mamba = kind.startswith("mamba")
         self.norm_mixer = layers.RMSNorm(cfg.d_model, dtype, device)
-        if kind == "mamba":
+        if self.is_mamba:
             self.mamba = ssm_mod.Mamba(cfg, device)
-            return
-        self.attn = attn_mod.Attention(cfg, device)
-        self.norm_mlp = layers.RMSNorm(cfg.d_model, dtype, device)
-        if kind.endswith("_moe"):
-            self.moe = moe_mod.Moe(cfg, device)
         else:
+            self.attn = attn_mod.Attention(cfg, device)
+        if kind.endswith("_moe"):
+            self.norm_mlp = layers.RMSNorm(cfg.d_model, dtype, device)
+            self.moe = moe_mod.Moe(cfg, device)
+        elif kind.endswith("_mlp"):
+            self.norm_mlp = layers.RMSNorm(cfg.d_model, dtype, device)
             self.mlp = layers.Mlp(cfg.d_model, cfg.d_ff, dtype, device)
         if cross:
             self.norm_cross = layers.RMSNorm(cfg.d_model, dtype, device)
@@ -88,7 +89,10 @@ class Block(nn.Module):
             m.init_weights(gen)
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        """The FFN's residual step (the MoE or the MLP)."""
+        """The FFN's residual step (the MoE or the MLP; none for a bare
+        ``mamba``)."""
+        if not hasattr(self, "norm_mlp"):
+            return x
         h = self.norm_mlp(x, self.cfg.norm_eps)
         out = self.moe(h) if hasattr(self, "moe") else \
             self.mlp(h, self.cfg.mlp_act)
@@ -117,8 +121,28 @@ class Block(nn.Module):
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = self.norm_mixer(x, cfg.norm_eps)
-        if self.kind == "mamba":
-            return x + self.mamba(h).to(x.dtype), aux
+        mixed = self.mamba(h) if self.is_mamba else self._attend(h, positions)
+        x = x + mixed.to(x.dtype)
+        if memory is not None and hasattr(self, "cross"):
+            h = self.norm_cross(x, cfg.norm_eps)
+            kv = self.cross.project_kv(memory)
+            out = attn_mod.blockwise_attention(self.cross.project_q(h),
+                                               kv["k"], kv["v"],
+                                               mask_mode="full")
+            x = x + self.cross.output(out).to(x.dtype)
+        if not hasattr(self, "norm_mlp"):
+            return x, aux
+        h = self.norm_mlp(x, cfg.norm_eps)
+        if hasattr(self, "moe"):
+            out, aux = self.moe.apply(h)
+        else:
+            out = self.mlp(h, cfg.mlp_act)
+        return x + out.to(x.dtype), aux
+
+    def _attend(self, h: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        """The training attention's output over the normed h (B, S, D)."""
+        cfg = self.cfg
         q, k, v = self.attn.qkv(h, positions)
         mode, window = mask_args(cfg, self.kind)
 
@@ -127,20 +151,7 @@ class Block(nn.Module):
                                                 window=window)
         out = (checkpoint(attend, q, k, v, use_reentrant=False)
                if cfg.remat != "none" else attend(q, k, v))
-        x = x + self.attn.output(out).to(x.dtype)
-        if memory is not None and hasattr(self, "cross"):
-            h = self.norm_cross(x, cfg.norm_eps)
-            kv = self.cross.project_kv(memory)
-            out = attn_mod.blockwise_attention(self.cross.project_q(h),
-                                               kv["k"], kv["v"],
-                                               mask_mode="full")
-            x = x + self.cross.output(out).to(x.dtype)
-        h = self.norm_mlp(x, cfg.norm_eps)
-        if hasattr(self, "moe"):
-            out, aux = self.moe.apply(h)
-        else:
-            out = self.mlp(h, cfg.mlp_act)
-        return x + out.to(x.dtype), aux
+        return self.attn.output(out)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_idx: int, seq_len: int | None,
@@ -153,9 +164,9 @@ class Block(nn.Module):
         (:meth:`attention.Attention.project_kv` of the encoder output)."""
         cfg = self.cfg
         h = self.norm_mixer(x, cfg.norm_eps)
-        if self.kind == "mamba":
+        if self.is_mamba:
             out, cache = self.mamba.prefill(h)
-            return x + out.to(x.dtype), cache
+            return self._ffn(x + out.to(x.dtype)), cache
         q, k, v = self.attn.qkv(h, positions)
         mode, window = mask_args(cfg, self.kind)
         out = ops.attention(q, k, v, causal=mode != "full", window=window)
@@ -176,11 +187,11 @@ class Block(nn.Module):
         slot's position)."""
         cfg = self.cfg
         h = self.norm_mixer(x, cfg.norm_eps)
-        if self.kind == "mamba":
+        if self.is_mamba:
             out, state = self.mamba.decode(h, cache)
             for name, t in state.items():
                 cache[name].copy_(t)
-            return x + out.to(x.dtype)
+            return self._ffn(x + out.to(x.dtype))
         if isinstance(position, torch.Tensor) and position.ndim > 0:
             pos_arr = position.to(x.device).reshape(-1, 1)
         else:

@@ -38,7 +38,7 @@ def parameter(shape: tuple[int, ...], dtype: torch.dtype,
 def fill_normal(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
     """``p <- N(0, 1) * std``, drawn in float32 from ``gen`` on ``p``'s
     device and rounded to ``p``'s type."""
-    p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+    p.copy_(torch.randn(p.shape, generator=gen, device=p.device).mul_(std))
 
 
 class RMSNorm(nn.Module):

@@ -1,5 +1,5 @@
-"""Model assembly: the decoder-only LM (dense, MoE and Mamba-2 families) and
-the encoder-decoder (the port of ``repro/models/model.py``).
+"""Model assembly: the decoder-only LM (dense, MoE, Mamba-2 and hybrid
+families) and the encoder-decoder (the port of ``repro/models/model.py``).
 
 :func:`build_model` returns an ``nn.Module``:
 
@@ -26,10 +26,10 @@ no kernel; ``prefill``/``decode_step`` serve under ``torch.no_grad()``
 through the kernels.  Caches are a list with one dict per layer, updated in place by
 ``decode_step``: ``{"k", "v"}`` for attention (see
 :mod:`repro_torch.models.attention`), ``{"conv_x", "conv_b", "conv_c",
-"ssm"}`` for Mamba (see :mod:`repro_torch.models.ssm`); the
-encoder-decoder's are ``{"self": [...], "cross": [...]}``, the cross caches
-the decoder layers' K/V of the encoder output.  The hybrid family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+"ssm"}`` for Mamba (see :mod:`repro_torch.models.ssm`), side by side in
+the hybrid family's mixed stack; the encoder-decoder's are ``{"self":
+[...], "cross": [...]}``, the cross caches the decoder layers' K/V of the
+encoder output.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.blocks import WAITING, Block
+from repro_torch.models.blocks import Block
 from repro_torch.models.config import ModelConfig
 
 
@@ -51,10 +51,6 @@ class _LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family in WAITING:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet: "
-                f"ROADMAP {WAITING[cfg.family]}")
         self.cfg = cfg
         self.embed = layers.Embedding(cfg, device)
         self.final_norm = layers.RMSNorm(cfg.d_model, layers.dtype_of(cfg),
@@ -94,7 +90,7 @@ class _LM(nn.Module):
         cfg = self.cfg
         dtype = layers.dtype_of(cfg, "compute")
         return [ssm_mod.init_state(cfg, batch_size, dtype, self.device)
-                if blk.kind == "mamba" else
+                if blk.is_mamba else
                 attn_mod.init_cache(cfg, batch_size,
                                     attn_mod.cache_len(cfg, i, seq_len),
                                     dtype, self.device)

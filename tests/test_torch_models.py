@@ -1,16 +1,21 @@
 """The port's decoder-only LM against the reference's, on the five dense
 smoke configs, the two MoE ones (mixtral: top-2 with a window; llama4-scout:
-top-1 with a shared expert) and mamba2's in float32, with the reference's
-parameters carried across by ``repro_torch.models.convert.params_from_numpy``:
+top-1 with a shared expert), mamba2's and jamba's (the hybrid: ``mamba_mlp``,
+``mamba_moe`` and ``attn_moe`` layers in a period of 4) in float32, with the
+reference's parameters carried across by
+``repro_torch.models.convert.params_from_numpy``:
 
 * ``prefill`` logits and every layer's cache (ring caches included; a
-  Mamba layer's conv and SSM states, after a ragged last chunk); the MoE
+  Mamba layer's conv and SSM states, after a ragged last chunk; the
+  hybrid's Mamba states and attention caches side by side); the MoE
   layers at the default capacity factor, where the second layer drops
-  pairs past its capacity;
+  pairs past its capacity, every MoE layer's expert indices equal to the
+  reference's at prefill and at decode;
 * ``decode_step`` at a per-batch position vector, logits and caches;
 * the reference's own contract inside the port: prefill(S) + decode(S)
   equals prefill(S + 1) at the last position (``tests/test_models.py``,
-  at capacity factor 16 as there, so no token is dropped).
+  at capacity factor 16 as there, so no token is dropped);
+* a block kind that no config produces raises ``NotImplementedError``.
 
 Tolerance rtol 1e-4 / atol 1e-5: both sides compute in float32 but sum in
 different orders (XLA dots against PyTorch matmuls), through up to 8
@@ -27,13 +32,14 @@ import torch
 from repro.configs import all_archs as ref_all_archs
 from repro.models import build_model as ref_build_model
 from repro_torch.configs import REGISTRY, all_archs, get_arch
-from repro_torch.models import build_model, convert, moe
-from torch_port_ref import lm_to_port, t2n
+from repro_torch.models import blocks, build_model, convert, moe
+from torch_port_ref import expert_indices, lm_to_port, t2n
 
 DENSE = ["chameleon-34b", "gemma-2b", "gemma3-1b", "internlm2-1.8b",
          "qwen1.5-32b"]
 MOE = ["mixtral-8x7b", "llama4-scout-17b-16e"]
-ARCHS = DENSE + MOE + ["mamba2-2.7b"]
+HYBRID = "jamba-1.5-large-398b"
+ARCHS = DENSE + MOE + ["mamba2-2.7b", HYBRID]
 RTOL, ATOL = 1e-4, 1e-5
 SEQ, MAX_LEN = 24, 32
 
@@ -83,22 +89,28 @@ def test_prefill_and_ragged_decode_match_reference(arch_id, monkeypatch):
     model = convert.model_from_state_dict(cfg, sd, "cpu")
 
     toks = _tokens(cfg, 2, SEQ + 1)
-    lg_ref, c_ref = jax.jit(ref_model.prefill, static_argnames="max_len")(
-        params, {"tokens": jnp.asarray(toks[:, :SEQ])}, max_len=MAX_LEN)
-    lg, caches = model.prefill(torch.from_numpy(toks[:, :SEQ]),
-                               max_len=MAX_LEN)
-    _close(lg, lg_ref, "prefill logits")
-    _caches_close(caches, c_ref, cfg)
-    assert (sum(dropped) > 0) == (arch_id in MOE), dropped
-
-    # continuous batching: each sequence decodes at its own position
     pos = np.array([SEQ, SEQ - 5], np.int32)
-    lg2_ref, c2_ref = jax.jit(ref_model.decode_step)(
-        params, jnp.asarray(toks[:, SEQ:]), c_ref, jnp.asarray(pos))
-    lg2, caches2 = model.decode_step(torch.from_numpy(toks[:, SEQ:]), caches,
-                                     torch.from_numpy(pos))
+    with expert_indices() as (ref_idx, port_idx):
+        lg_ref, c_ref = jax.jit(ref_model.prefill,
+                                static_argnames="max_len")(
+            params, {"tokens": jnp.asarray(toks[:, :SEQ])}, max_len=MAX_LEN)
+        lg, caches = model.prefill(torch.from_numpy(toks[:, :SEQ]),
+                                   max_len=MAX_LEN)
+        _close(lg, lg_ref, "prefill logits")
+        _caches_close(caches, c_ref, cfg)
+        assert (sum(dropped) > 0) == (cfg.n_experts > 0), dropped
+
+        # continuous batching: each sequence decodes at its own position
+        lg2_ref, c2_ref = jax.jit(ref_model.decode_step)(
+            params, jnp.asarray(toks[:, SEQ:]), c_ref, jnp.asarray(pos))
+        lg2, caches2 = model.decode_step(torch.from_numpy(toks[:, SEQ:]),
+                                         caches, torch.from_numpy(pos))
     _close(lg2, lg2_ref, "decode logits")
     _caches_close(caches2, c2_ref, cfg)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert len(ref_idx) == len(port_idx) == 2 * n_moe
+    for i, (r, p) in enumerate(zip(ref_idx, port_idx)):
+        np.testing.assert_array_equal(p, r, err_msg=f"MoE call {i}")
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)
@@ -143,10 +155,36 @@ def test_registry_and_configs_are_the_references():
     assert (full.n_layers, full.d_model, full.head_dim) == (24, 2048, 128)
 
 
-@pytest.mark.parametrize("arch_id,item", [("jamba-1.5-large-398b", "A12d")])
-def test_waiting_families_raise_naming_their_item(arch_id, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(get_arch(arch_id).smoke, "cpu")
+def test_hybrid_stack_holds_each_kind_with_its_leaves():
+    """jamba's smoke stack: layer i attention iff i % 4 == 3, MoE iff i is
+    odd; every hybrid layer keeps its FFN's norm (a bare ``mamba`` has
+    none, as in the reference), and its caches sit side by side."""
+    _, cfg = _cfgs(HYBRID)
+    model = build_model(cfg, "cpu", seed=0)
+    kinds = [blk.kind for blk in model.layers]
+    assert kinds == ["mamba_mlp", "mamba_moe", "mamba_mlp", "attn_moe"] * 2
+    for blk in model.layers:
+        names = {n.split(".")[0] for n, _ in blk.named_parameters()}
+        mixer = "mamba" if blk.kind.startswith("mamba") else "attn"
+        assert names == {"norm_mixer", mixer, "norm_mlp",
+                         blk.kind.split("_")[1]}, blk.kind
+    assert not hasattr(blocks.Block(cfg, "mamba", "meta"), "norm_mlp")
+    caches = model.init_caches(2, 16)
+    assert [sorted(c) for c in caches[:4]] == [
+        ["conv_b", "conv_c", "conv_x", "ssm"]] * 3 + [["k", "v"]]
+
+
+@pytest.mark.parametrize("kind", ["mamba_swa", "ssm_mlp", "attn",
+                                  "gattn_dense", "mamba_moe_mlp"])
+def test_block_kinds_no_config_produces_raise(kind):
+    kinds = {a.full.layer_kind(i) for a in all_archs()
+             for i in range(a.full.n_layers)}
+    assert kind not in kinds
+    with pytest.raises(NotImplementedError, match=kind):
+        blocks.check_kind(kind)
+    _, cfg = _cfgs(HYBRID)
+    with pytest.raises(NotImplementedError):
+        blocks.Block(cfg, kind, "meta")
 
 
 def test_model_from_state_dict_shares_the_tensors():

@@ -5,9 +5,11 @@
   its own direct greedy decode (``tests/test_serving_checkpoint.py``); the
   same for the Mamba-2 smoke model, with prompts right-padded to their
   buckets (whose state then carries the pad tokens, as the reference's
-  does: ROADMAP C, R5), and for the Mixtral smoke model (MoE, prompts past
+  does: ROADMAP C, R5), for the Mixtral smoke model (MoE, prompts past
   its 16-token window, pad tokens and idle lanes routed as in the
-  reference);
+  reference) and for jamba's (the hybrid: Mamba states and attention
+  caches of one slot spliced side by side, padded prompts' Mamba states
+  carrying their pads, MoE layers after both mixers);
 * ``MultiTierServer`` with the port's ``AifRouter`` over the three tiny
   tiers of ``examples/serve_multitier.py``, with the reference router's key
   chain replayed as its noise (``RouterKeyChainNoise``), gives the
@@ -137,6 +139,35 @@ def test_mamba_engine_matches_reference_engine_on_padded_prompts():
     assert got == want
     assert got[1] == _greedy(port, prompts[1], 5)
     assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+
+
+def test_hybrid_engine_matches_reference_engine_on_padded_prompts():
+    """jamba's smoke model in float32 (``mamba_mlp``, ``mamba_moe`` and
+    ``attn_moe`` layers): two slots, four requests of lengths 13, 16, 11
+    and 9, three right-padded to the one bucket, so slots are reused with
+    both cache kinds spliced into them and a decode wave runs with an idle
+    lane."""
+    from repro.serving import Request as RefRequest
+
+    def f32(c):
+        return dataclasses.replace(c, param_dtype="float32",
+                                   compute_dtype="float32")
+    ref_cfg = f32(ref_get_arch("jamba-1.5-large-398b").smoke)
+    params = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(0))
+    ref = RefServingEngine(ref_cfg, params, max_batch=2, max_len=64)
+    cfg = f32(get_arch("jamba-1.5-large-398b").smoke)
+    sd, _ = lm_to_port(cfg, params)
+    port = ServingEngine(cfg, sd, max_batch=2, max_len=64, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (13, 16, 11, 9)]
+    want = _serve(ref, RefRequest, prompts, 6)
+    got = _serve(port, Request, prompts, 6)
+    assert got == want
+    assert got[1] == _greedy(port, prompts[1], 6)
+    assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+    assert [sorted(c) for c in port.caches[2:4]] == [
+        ["conv_b", "conv_c", "conv_x", "ssm"], ["k", "v"]]
 
 
 def test_moe_engine_matches_reference_engine():

@@ -3,9 +3,11 @@
 * ``train_loss`` and the gradient of every parameter (of loss + 0.01 aux,
   the train step's objective) against ``jax.value_and_grad`` of the
   reference's ``train_loss``, with the reference's weights carried across,
-  on every non-hybrid smoke arch in float32: the five dense ones, the two
-  MoE ones (every expert index equal, layer by layer), mamba2 (through the
-  plain ``ssd_chunked``) and the encoder-decoder;
+  on every smoke arch in float32: the five dense ones, the two MoE ones
+  (every expert index equal, layer by layer), mamba2 (through the plain
+  ``ssd_chunked``), the encoder-decoder and jamba's hybrid stack (its
+  ``mamba_mlp``, ``mamba_moe`` and ``attn_moe`` layers, expert indices
+  equal);
 * ``blockwise_attention`` forward and input gradients against the
   reference's in causal, window and full modes, over several query and
   key chunks, with per-batch ``q_offset`` and ``kv_valid_len``;
@@ -22,20 +24,19 @@ import numpy as np
 import pytest
 import torch
 
-import repro.models.moe as ref_moe
 from repro.configs import all_archs as ref_all_archs
 from repro.models import attention as ref_attention
 from repro.models import build_model as ref_build_model
 from repro_torch.configs import get_arch
-from repro_torch.models import build_model, convert, moe
+from repro_torch.models import build_model, convert
 from repro_torch.models.attention import blockwise_attention
 from repro_torch.training.train_step import unfreeze
-from torch_port_ref import lm_to_port, t2n
+from torch_port_ref import expert_indices, lm_to_port, t2n
 
 RTOL, ATOL = 1e-4, 1e-5
 ARCHS = ["chameleon-34b", "gemma-2b", "gemma3-1b", "internlm2-1.8b",
          "qwen1.5-32b", "mixtral-8x7b", "llama4-scout-17b-16e",
-         "mamba2-2.7b", "seamless-m4t-medium"]
+         "mamba2-2.7b", "seamless-m4t-medium", "jamba-1.5-large-398b"]
 AUX_WEIGHT = 0.01
 B, S = 2, 32
 
@@ -58,43 +59,8 @@ def _batch(cfg):
     return batch
 
 
-def _ref_expert_indices(ref_model, params, batch, monkeypatch):
-    """The reference's top-k expert indices of every MoE layer, in layer
-    order, recorded from inside its jitted forward."""
-    seen = []
-    apply = ref_moe.apply_moe
-
-    def recording(p, x, cfg):
-        xf = x.reshape(-1, x.shape[-1])
-        logits = (xf @ p["router"].astype(xf.dtype)).astype(jnp.float32)
-        _, idx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), cfg.top_k)
-        jax.debug.callback(lambda i: seen.append(np.asarray(i)), idx,
-                           ordered=True)
-        return apply(p, x, cfg)
-    monkeypatch.setattr(ref_moe, "apply_moe", recording)
-    jax.block_until_ready(jax.jit(ref_model.train_loss)(params, batch))
-    jax.effects_barrier()
-    monkeypatch.setattr(ref_moe, "apply_moe", apply)
-    return seen
-
-
-def _port_expert_indices(model, batch, monkeypatch):
-    seen = []
-    route = moe.Moe.route
-
-    def recording(self, xf):
-        out = route(self, xf)
-        seen.append(out[2].numpy().copy())
-        return out
-    monkeypatch.setattr(moe.Moe, "route", recording)
-    with torch.no_grad():
-        model.train_loss(batch)
-    monkeypatch.setattr(moe.Moe, "route", route)
-    return seen
-
-
 @pytest.mark.parametrize("arch_id", ARCHS)
-def test_train_loss_and_gradients_match_reference(arch_id, monkeypatch):
+def test_train_loss_and_gradients_match_reference(arch_id):
     ref_cfg, cfg = _cfgs(arch_id)
     ref_model = ref_build_model(ref_cfg)
     # the port's random weights, carried to the reference and back
@@ -130,17 +96,15 @@ def test_train_loss_and_gradients_match_reference(arch_id, monkeypatch):
                                    atol=ATOL, err_msg=name)
 
     if cfg.n_experts:
-        ref_idx = _ref_expert_indices(ref_model, params, jbatch, monkeypatch)
-        port_idx = _port_expert_indices(model, tbatch, monkeypatch)
+        with expert_indices() as (ref_idx, port_idx):
+            jax.block_until_ready(jax.jit(ref_model.train_loss)(params,
+                                                                jbatch))
+            with torch.no_grad():
+                model.train_loss(tbatch)
         n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
         assert len(ref_idx) == len(port_idx) == n_moe
         for i, (r, p) in enumerate(zip(ref_idx, port_idx)):
             np.testing.assert_array_equal(p, r, err_msg=f"MoE layer {i}")
-
-
-def test_hybrid_family_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A12d"):
-        build_model(get_arch("jamba-1.5-large-398b").smoke, "cpu")
 
 
 # ------------------------------------------------------------ attention

@@ -10,7 +10,9 @@
   optimizer state, error-feedback buffers and metrics), for AdamW with
   ``accum_steps`` 1 and 2, compression none / bf16 / int8_ef, and
   Adafactor, also with the stacked norm scales factored (L >=
-  ``factored_min_dim``) and the update-RMS clip active;
+  ``factored_min_dim``) and the update-RMS clip active, and Adafactor on
+  jamba's hybrid smoke model, whose four period positions (``mamba_mlp``,
+  ``mamba_moe``, ``mamba_mlp``, ``attn_moe``) each stack two layers;
 * the data pipeline fed the reference's draws gives the reference's
   batches, and its own draws depend on (seed, step, host) alone;
 * ``chunked_lm_loss`` with ``loss_chunk`` > 0 and its gradient;
@@ -350,6 +352,63 @@ def test_teacher_forced_step_matches_reference(case, ref_tiny_params,
         vc_ = beta2 * np.asarray(st["vc"]) + (1 - beta2) * g2.mean(-2)
         u = np.asarray(g) / np.sqrt(vr[:, None] * vc_[None, :] / vr.mean())
         assert np.sqrt(np.mean(u * u)) > 1.0
+
+
+def test_teacher_forced_hybrid_step_with_stacked_adafactor():
+    """jamba's smoke model in float32 under Adafactor with
+    ``factored_min_dim`` 2: every leaf of the four period stacks (the
+    Mamba mixers, the MLPs, the experts and the attention) is factored
+    over its stacked shape, as the reference stacks it; one port step from
+    a carried reference state equals one reference step, the MoE aux loss
+    included."""
+    from repro.configs import get_arch as ref_get_arch
+    from repro.training import optimizer as ref_opt
+    from repro.training.train_step import TrainState as RefTrainState
+    from repro_torch.configs import get_arch
+
+    def f32(c):
+        return dataclasses.replace(c, param_dtype="float32",
+                                   compute_dtype="float32")
+    cfg = f32(get_arch("jamba-1.5-large-398b").smoke)
+    ref_model = ref_build_model(f32(ref_get_arch("jamba-1.5-large-398b")
+                                    .smoke))
+    tcfg = RefTrainConfig(optimizer=RefOptimizerConfig(
+        **_opt(name="adafactor", factored_min_dim=2)))
+    step = jax.jit(ref_make_step(ref_model, tcfg))
+    params = jax.tree.map(jnp.asarray, convert.params_to_numpy(
+        build_model(cfg, "cpu", seed=0)))
+    pipe = RefPipeline(RefDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                     global_batch=4))
+    state = RefTrainState(params, ref_opt.init(tcfg.optimizer, params),
+                          None)
+    state, _ = step(state, next(pipe))       # a carried, non-zero state
+    batch = next(pipe)
+    want_state, want_m = step(state, batch)
+
+    model, pstate, ptcfg = train_state_to_port(cfg, tcfg, state)
+    got_state, got_m = make_train_step(model, ptcfg)(pstate,
+                                                     batch_to_port(batch))
+    for name in ("loss", "aux_loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(getattr(got_m, name)),
+                                   float(getattr(want_m, name)), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+    assert float(got_m.aux_loss) > 0
+    got = convert.train_state_to_numpy(got_state)
+    want = jax.tree.map(np.asarray, want_state)
+    assert sorted(got["params"]["stack"]) == [f"pos{p}" for p in range(4)]
+    _assert_tree_close(got["params"], want.params, "params")
+    assert int(got["opt"]["step"]) == int(want.opt.step) == 2
+    _assert_tree_close(got["opt"]["inner"], want.opt.inner, "opt")
+    inner = got["opt"]["inner"]["stack"]
+    for pos, leaf, vr in (("pos0", "norm_mlp/scale", (2,)),
+                          ("pos1", "mamba/a_log", (2,)),
+                          ("pos1", "moe/wi", (2, 4, 64)),
+                          ("pos3", "attn/wq", (2, 64, 4))):
+        st = inner[pos]
+        for key in leaf.split("/"):
+            st = st[key]
+        assert sorted(st) == ["vc", "vr"] and st["vr"].shape == vr, \
+            (pos, leaf, st["vr"].shape)
 
 
 def test_optimizer_pieces_match_reference():

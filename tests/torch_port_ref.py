@@ -21,13 +21,15 @@ tick, then ``tick``'s ``k_fast, k_slow = split(k)``): the Gumbel noise of
 The rest converts between the packages: topologies, reference pytrees to
 the dicts of numpy leaves that ``repro_torch``'s ``*_from_numpy`` take
 (:func:`lm_to_port` carries a reference LM's parameter and cache trees
-across, decoder-only or encoder-decoder; :func:`moe_to_port` one MoE
-layer's parameters; :func:`train_state_to_port` a reference train state
-with its optimizer state and error-feedback buffers), and port tensors
-back to numpy.
+across, decoder-only, hybrid or encoder-decoder; :func:`moe_to_port` one
+MoE layer's parameters; :func:`train_state_to_port` a reference train
+state with its optimizer state and error-feedback buffers), and port
+tensors back to numpy; :func:`expert_indices` records both sides' MoE
+routing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
@@ -303,6 +305,39 @@ def lm_to_port(cfg, params=None, caches=None):
     cl = (None if caches is None else
           convert.caches_from_numpy(cfg, jax.tree.map(np.asarray, caches)))
     return sd, cl
+
+
+@contextlib.contextmanager
+def expert_indices():
+    """Record the top-k expert indices of every MoE layer call on both
+    sides, in call order: yields (ref, port), two lists that the
+    reference's ``apply_moe`` (from inside its jitted code, through an
+    ordered debug callback; only in functions traced inside the block) and
+    the port's ``Moe.route`` append one (N, K) array a call to.  The
+    reference's are complete when the block exits."""
+    import repro.models.moe as ref_moe
+    from repro_torch.models import moe
+    ref_seen, port_seen = [], []
+    apply, route = ref_moe.apply_moe, moe.Moe.route
+
+    def ref_recording(p, x, cfg):
+        xf = x.reshape(-1, x.shape[-1])
+        logits = (xf @ p["router"].astype(xf.dtype)).astype(jnp.float32)
+        _, idx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), cfg.top_k)
+        jax.debug.callback(lambda i: ref_seen.append(np.asarray(i)), idx,
+                           ordered=True)
+        return apply(p, x, cfg)
+
+    def port_recording(self, xf):
+        out = route(self, xf)
+        port_seen.append(out[2].detach().cpu().numpy().copy())
+        return out
+    ref_moe.apply_moe, moe.Moe.route = ref_recording, port_recording
+    try:
+        yield ref_seen, port_seen
+        jax.effects_barrier()
+    finally:
+        ref_moe.apply_moe, moe.Moe.route = apply, route
 
 
 def moe_to_port(cfg, params):
