@@ -286,7 +286,30 @@ failure raising (exit code != 0):
    causal; B=8 over 2048 slots at the jamba serve prompts' lengths + 31)
    beside their plain versions and SDPA, and B6 at its Mamba widths
    (b=1, S=1024, H=256) beside its plain version, under ``jamba_shape`` in
-   the B4, B5 and B6 rows of the kernels line with phase 49's launches.
+   the B4, B5 and B6 rows of the kernels line with phase 49's launches;
+51. dryrun — the dry run (``repro_torch.launch.dryrun``) of every (arch x
+   shape x mesh) cell the registry's ``cells()`` yield, on the ``meta``
+   device against the (16, 16) and (2, 16, 16) meshes, 6 records at a
+   time in spawned processes: one line per cell (per-card argument and
+   temporary GB, FLOPs, the compute, memory and collective terms on H100
+   cards and the dominant one); it raises if a cell fails.  In the same
+   pool, phase 52's three runs counted on ``meta`` at mesh (1, 1); phase
+   52's work on the card runs in this process meanwhile;
+52. dryrun card — that accounting held to internlm2-1.8b whole on the card
+   at mesh (1, 1), with the serve phase's weights (seed 0): the argument
+   bytes of the parameters, of the caches of a decode wave (B=8 over 2048
+   slots) and of the AdamW state predicted against the growth of
+   ``torch.cuda.memory_allocated()`` as each is placed (within 1 %); a
+   prefill of 8 x 1024 tokens, that decode wave and phase 46's train step
+   (4 microbatches of 2 x 4096) each run once more under
+   ``op_cost.FlopCount``: the aten FLOPs plus the kernels' launches
+   (equal to the meta count's) times their FLOPs a launch equal the meta
+   count exactly; the predicted temporary bytes against the card's peak
+   less its allocation, and max(compute, memory) against the measured
+   device ms (prefill and decode from a ``torch.profiler`` trace here,
+   the train step's from phase 46's profile), as reported ratios; then every parameter distributed
+   on the one-rank ``make_debug_mesh(1, 1)`` by ``to_placements``, its
+   local shape equal to ``shard_shape``, and the process group destroyed.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -4155,6 +4178,7 @@ def phase_train() -> None:
          profile_read_s=time.perf_counter() - t1)
     del trainer, state, model, batch
     torch.cuda.empty_cache()
+    return {"device_ms": dev, "steady_step_ms": steady}
 
 
 def phase_times(errs: dict, launches: dict, launches_5tier: int) -> list:
@@ -4207,6 +4231,236 @@ def b1_5tier_times(errs: dict, launches: int) -> dict:
          queued_ahead=ahead, **row)
     del d
     return row
+
+
+# the dry run's records in spawned processes; dryrun_card's card work runs
+# meanwhile in this one (its host-bound counted train step on one core)
+DRYRUN_WORKERS = 6
+# dryrun_card: a prefill of 8 x 1024 tokens and a decode wave of 8 over
+# 2048 slots (the serve phase's lanes), and phase 46's train step
+CARD_PREFILL, CARD_DECODE = (8, 1024), (8, 2048)
+CARD_ARG_TOL = 0.01
+
+
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def card_cells() -> dict:
+    """dryrun_card's three runs as dry-run cells of internlm2-1.8b."""
+    from repro_torch.configs.base import ShapeCell
+    return {"prefill": ShapeCell("card_prefill", CARD_PREFILL[1],
+                                 CARD_PREFILL[0], "prefill"),
+            "decode": ShapeCell("card_decode", CARD_DECODE[1],
+                                CARD_DECODE[0], "decode"),
+            "train": ShapeCell("card_train", TRAIN_SEQ, TRAIN_BATCH,
+                               "train")}
+
+
+def phase_dryrun(meanwhile) -> dict:
+    """Every cell's dry run (see the module docstring, phase 51), with
+    ``meanwhile()`` (dryrun_card's card work) run while the records are
+    made; returns dryrun_card's three runs counted on ``meta`` at mesh
+    (1, 1)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    arch = get_arch(TRAIN_ARCH)
+    card = {name: dryrun.cell_jobs(arch, cell, ("one",), accum=TRAIN_ACCUM)
+            for name, cell in card_cells().items()}
+    t0 = time.perf_counter()
+    recs, done = dryrun.sweep(
+        outdir=None, workers=DRYRUN_WORKERS,
+        echo=lambda line: print(line, flush=True),
+        extra_jobs=[j for parts in card.values() for j, _, _ in parts],
+        meanwhile=meanwhile)
+    failed = [f"{r['arch']}|{r['shape']}|{r['mesh']}" for r in recs
+              if r.get("ok") is False]
+    failed += [f"{TRAIN_ARCH}|{j.shape[0]}" for j, r in done.items()
+               if isinstance(r, Exception)]
+    emit("dryrun", cells=len(recs), ok=sum(bool(r.get("ok")) for r in recs),
+         failed=failed, skipped=sum(r.get("ok") is None for r in recs),
+         workers=DRYRUN_WORKERS, wall_s=time.perf_counter() - t0)
+    if failed:
+        bad = next((r for r in recs if r.get("ok") is False), None)
+        raise AssertionError(f"dryrun: {len(failed)} cells failed: "
+                             f"{failed[:5]}; first: "
+                             f"{(bad or {}).get('error', '')[:2000]}")
+    return {name: dryrun.combine([(done[j], w, pw) for j, w, pw in parts],
+                                 "one")
+            for name, parts in card.items()}
+
+
+def card_count(fn) -> dict:
+    """One more call of ``fn`` under ``op_cost.FlopCount`` with every
+    kernel's count read around it: its aten FLOPs, launches and the card's
+    peak less its allocation before the call."""
+    from repro_torch.launch import op_cost
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counter = op_cost.FlopCount()
+    with counter:
+        res, launches = counted(fn)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    del res
+    return {"aten_flops": counter.flops, "temp_bytes": temp,
+            "launches": {k: v for k, v in launches.items() if v},
+            "count_s": time.perf_counter() - t0}
+
+
+def card_runs(train_run: dict) -> dict:
+    """dryrun_card's work on the card: the argument bytes as parameters,
+    caches and optimizer state are placed, each run's aten count and
+    device ms, every parameter laid out on the one-rank (1, 1) mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import group_params
+    from repro_torch.training import OptimizerConfig, TrainConfig
+    from repro_torch.training.optimizer import members, stacked_shape
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    t_start = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH).full
+
+    def placed(fn):
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.memory_allocated() - a0
+
+    torch.cuda.empty_cache()
+    out = {"placed": {}, "runs": {}, "device_ms": {}, "problems": []}
+    # the serve phase's weights: seed 0
+    model, out["placed"]["params"] = placed(
+        lambda: build_model(cfg, DEVICE, seed=0))
+    caches, out["placed"]["caches"] = placed(
+        lambda: model.init_caches(*CARD_DECODE))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, CARD_PREFILL, device=DEVICE,
+                           generator=gen)
+    step_tokens = torch.randint(0, cfg.vocab_size, (CARD_DECODE[0], 1),
+                                device=DEVICE, generator=gen)
+
+    def prefill():
+        return model.prefill(tokens)
+
+    def decode():
+        return model.decode_step(step_tokens, caches, CARD_PREFILL[1])
+
+    for name, fn in (("prefill", prefill), ("decode", decode)):
+        out["device_ms"][name] = device_ms(fn)["all"]
+        out["runs"][name] = card_count(fn)
+    del caches
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        name="adamw", master_fp32=True, moment_dtype="float32"),
+        accum_steps=TRAIN_ACCUM)
+    state, out["placed"]["train_state"] = placed(
+        lambda: init_train_state(model, tcfg))
+    step = make_train_step(model, tcfg)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                              device=DEVICE, generator=gen)
+             for k in ("tokens", "labels")}
+    out["runs"]["train"] = card_count(lambda: step(state, batch))
+    out["device_ms"]["train"] = train_run["device_ms"]
+    del state, batch
+
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(1, 1)
+    checked = 0
+    try:
+        param_specs = model.param_specs()
+        for path, leaf in group_params(model).items():
+            spec = shd.resolve_spec(stacked_shape(leaf), param_specs[path],
+                                    shd.RULE_PROFILES["train"], mesh)
+            row = spec[1:] if isinstance(leaf, list) else spec
+            for p in members(leaf):
+                d = distribute_tensor(p.detach(), mesh,
+                                      shd.to_placements(row, mesh))
+                if tuple(d.to_local().shape) != shd.shard_shape(
+                        tuple(p.shape), row, mesh):
+                    out["problems"].append(f"{path}: local {tuple(d.shape)}")
+                checked += 1
+                del d
+    finally:
+        dist.destroy_process_group()
+    out["dtensor_leaves"], out["dtensor_s"] = checked, time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    out["card_s"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_dryrun_card(card: dict, meta: dict) -> None:
+    """The dry run's accounting against the card (see the module
+    docstring, phase 52): ``card`` from :func:`card_runs`, ``meta`` from
+    :func:`phase_dryrun`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, op_cost, roofline as rl, specs
+    arch = get_arch(TRAIN_ARCH)
+    one = dryrun.named_mesh("one")
+    cells = card_cells()
+    whole = {name: dryrun.build(arch, cell, None, TRAIN_ACCUM)
+             for name, cell in cells.items()}
+
+    def predicted(name: str, role: str) -> float:
+        return op_cost.argument_bytes(
+            [a for a in specs.arguments(whole[name]) if a[2].role == role],
+            one)
+
+    pred = {"params": predicted("prefill", "param"),
+            "caches": predicted("decode", "cache"),
+            "train_state": predicted("train", "state")}
+    arg_rows = {k: {"pred_bytes": p, "card_bytes": card["placed"][k],
+                    "rel_err": abs(card["placed"][k] - p) / p}
+                for k, p in pred.items()}
+    problems = list(card["problems"])
+    problems += [f"{k} bytes: {r}" for k, r in arg_rows.items()
+                 if r["rel_err"] > CARD_ARG_TOL]
+    rows = {}
+    for name, run in card["runs"].items():
+        m = meta[name]
+        meta_launches = {k: int(v) for k, v in m.launches.items() if v}
+        card_flops = run["aten_flops"] + sum(m.kernel_flops.values())
+        roof = rl.analyze(m, whole[name].meta, cells[name].step, 1, 0.0)
+        bound_ms = 1e3 * max(roof.compute_s, roof.memory_s)
+        dev = card["device_ms"][name]
+        rows[name] = {
+            "meta_flops": m.flops, "card_aten_flops": run["aten_flops"],
+            "kernel_flops_per_launch": {
+                k: m.kernel_flops[k] / m.launches[k] for k in m.launches},
+            "launches_card": run["launches"],
+            "launches_meta": meta_launches,
+            "flops_equal": card_flops == m.flops
+            and run["launches"] == meta_launches,
+            "temp_pred_gb": m.peak_bytes / 1e9,
+            "temp_card_gb": run["temp_bytes"] / 1e9,
+            "temp_ratio": m.peak_bytes / max(run["temp_bytes"], 1),
+            "compute_ms": 1e3 * roof.compute_s,
+            "memory_ms": 1e3 * roof.memory_s, "device_ms": dev,
+            "roofline_fraction": bound_ms / dev,
+            "hbm_bytes_pred": m.hbm_bytes, "count_s": run["count_s"]}
+        if not rows[name]["flops_equal"]:
+            problems.append(f"{name}: card {card_flops} (launches "
+                            f"{run['launches']}) != meta {m.flops} "
+                            f"({meta_launches})")
+    emit("dryrun_card", arch=TRAIN_ARCH, nvidia_smi=smi_line(), mesh=[1, 1],
+         arguments=arg_rows, runs=rows,
+         dtensor_leaves=card["dtensor_leaves"],
+         dtensor_s=card["dtensor_s"], card_s=card["card_s"])
+    if problems:
+        raise AssertionError(f"dryrun_card: {problems}")
 
 
 def main() -> int:
@@ -4273,7 +4527,7 @@ def main() -> int:
         if row["name"] in shapes:
             row["moe_encdec_shapes"] = shapes[row["name"]]
     phase_train_small()
-    phase_train()
+    train_run = phase_train()
     jamba_weights = phase_serve_small(JAMBA_ARCH, (64, 50, 37, 64),
                                       "jamba_serve_small")
     phase_serve_small(JAMBA_ARCH, (64, 50, 37, 64), "jamba_serve_small_dense",
@@ -4288,6 +4542,9 @@ def main() -> int:
     for row in rows:
         if row["name"] in jamba:
             row["jamba_shape"] = jamba[row["name"]]
+    card = {}
+    meta = phase_dryrun(lambda: card.update(card_runs(train_run)))
+    phase_dryrun_card(card, meta)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import sharding as sharding_mod
 from repro_torch.device import resolve_device
 
 #: Name of the fleet's cell axis (the reference's mesh-axis name).
@@ -107,6 +108,25 @@ class ShardSpec:
         if dev.type != "cuda":
             return [dev] * n
         return [torch.device("cuda", i) for i in range(n)]
+
+    # ----------------------------------------------------- partition specs
+    def leaf_spec(self, leaf, mesh) -> sharding_mod.P:
+        """The spec of one leaf: its leading cell axis on this spec's mesh
+        axis.  Resolved through :func:`repro_torch.sharding.resolve_spec`
+        with a one-rule profile mapping the logical ``cells`` name onto
+        ``self.axis``, so the divisibility valve applies (a leaf whose
+        leading dim cannot split replicates; scalars replicate).  ``mesh``
+        is a :class:`repro_torch.sharding.Mesh` or a ``DeviceMesh``."""
+        shape = tuple(getattr(leaf, "shape", ()))
+        logical = (CELLS,) + (None,) * (len(shape) - 1) if shape else ()
+        rules = (sharding_mod.RULE_PROFILES["fleet"] if self.axis == CELLS
+                 else {CELLS: self.axis})
+        return sharding_mod.resolve_spec(shape, logical, rules, mesh)
+
+    def tree_specs(self, tree, mesh):
+        """The tree with every tensor leaf replaced by its
+        :meth:`leaf_spec`."""
+        return _map(lambda leaf: self.leaf_spec(leaf, mesh), tree)
 
 
 def resolve(shard) -> ShardSpec | None:

@@ -1,7 +1,26 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions."""
 from __future__ import annotations
 
+import contextvars
+
 import torch
+
+#: The observer of the plain versions that stand in for kernel launches on
+#: the ``meta`` device (the dry run's cost counter,
+#: :mod:`repro_torch.launch.op_cost`), or None.
+STAND_IN: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_stand_in", default=None)
+
+
+def stand_in(name: str, plain, *inputs: torch.Tensor):
+    """On the ``meta`` device, where no kernel launches: ``plain()``, the
+    kernel's plain version, run under the installed observer, which is
+    told the kernel's ``name`` and its ``inputs`` (the wrapper's launch
+    count does not move)."""
+    observer = STAND_IN.get()
+    if observer is None:
+        return plain()
+    return observer(name, plain, inputs)
 
 
 def refuse_grad(op: str, instead: str, *tensors: torch.Tensor) -> None:

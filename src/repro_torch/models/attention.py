@@ -38,6 +38,25 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 
+def attention_specs(cfg: ModelConfig) -> dict:
+    p = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("heads", "head_dim")
+        p["bk"] = ("kv_heads", "head_dim")
+        p["bv"] = ("kv_heads", "head_dim")
+    return p
+
+
+def cache_specs() -> dict:
+    return {"k": ("act_batch", "act_kv", "kv_heads", "head_dim"),
+            "v": ("act_batch", "act_kv", "kv_heads", "head_dim")}
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()

@@ -22,7 +22,11 @@ layer in an ``nn.ModuleList`` and walks it in a Python loop
 :meth:`Block.prefill` and :meth:`Block.decode` serve, through the kernels
 of :mod:`repro_torch.kernels`; :meth:`Block.forward` trains, through the
 plain differentiable functions the reference trains through
-(``blockwise_attention``, ``ssd_chunked``, ``Moe.apply``).
+(``blockwise_attention``, ``ssd_chunked``, ``Moe.apply``).  Both
+constrain their input with :func:`repro_torch.sharding.constrain_act`
+(the identity unless a sharding context is installed), at every block
+where the reference constrains once a period.  :func:`block_specs` gives
+a block's parameters' logical axis names.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import constrain_act
 
 MIXERS = ("attn", "swa", "lattn", "gattn", "encattn", "mamba")
 
@@ -47,6 +52,27 @@ def check_kind(kind: str) -> None:
     mixer, _, ffn = kind.partition("_")
     if kind != "mamba" and not (mixer in MIXERS and ffn in ("mlp", "moe")):
         raise NotImplementedError(f"block kind {kind!r} is not ported")
+
+
+def block_specs(cfg: ModelConfig, kind: str, cross: bool = False) -> dict:
+    """The logical axis names of one block's parameters (the reference's
+    ``block_specs``; a stacked leaf adds a leading "layers")."""
+    p: dict = {"norm_mixer": layers.rmsnorm_specs(),
+               "norm_mlp": layers.rmsnorm_specs()}
+    if "mamba" in kind:
+        p["mamba"] = ssm_mod.mamba_specs(cfg)
+    else:
+        p["attn"] = attn_mod.attention_specs(cfg)
+    if "moe" in kind:
+        p["moe"] = moe_mod.moe_specs(cfg)
+    elif "mlp" in kind:
+        p["mlp"] = layers.mlp_specs()
+    else:
+        del p["norm_mlp"]
+    if cross:
+        p["norm_cross"] = layers.rmsnorm_specs()
+        p["cross"] = attn_mod.attention_specs(cfg)
+    return p
 
 
 def mask_args(cfg: ModelConfig, kind: str) -> tuple[str, int]:
@@ -119,6 +145,7 @@ class Block(nn.Module):
         ``cfg.remat != "none"`` the attention's chunks are recomputed in the
         backward pass instead of kept."""
         cfg = self.cfg
+        x = constrain_act(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = self.norm_mixer(x, cfg.norm_eps)
         mixed = self.mamba(h) if self.is_mamba else self._attend(h, positions)
@@ -163,6 +190,7 @@ class Block(nn.Module):
         state after the S tokens.  ``memory_kv``: a decoder block's cross K/V
         (:meth:`attention.Attention.project_kv` of the encoder output)."""
         cfg = self.cfg
+        x = constrain_act(x)
         h = self.norm_mixer(x, cfg.norm_eps)
         if self.is_mamba:
             out, cache = self.mamba.prefill(h)

@@ -6,7 +6,10 @@ and shapes, so a reference parameter tree converts leaf for leaf
 (:mod:`repro_torch.models.convert`).  Parameters are stored in
 ``cfg.param_dtype`` and cast to the activation's type where they are used,
 as the reference does.  ``init_weights`` draws them from an explicit
-``torch.Generator`` with the reference's scales.
+``torch.Generator`` with the reference's scales.  Each layer has a
+``*_specs`` function giving its parameters' *logical axis names* per
+dimension, as the reference's do; :mod:`repro_torch.sharding` maps them to
+mesh axes.
 """
 from __future__ import annotations
 
@@ -39,6 +42,22 @@ def fill_normal(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
     """``p <- N(0, 1) * std``, drawn in float32 from ``gen`` on ``p``'s
     device and rounded to ``p``'s type."""
     p.copy_(torch.randn(p.shape, generator=gen, device=p.device).mul_(std))
+
+
+def rmsnorm_specs() -> dict:
+    return {"scale": ("embed",)}
+
+
+def mlp_specs() -> dict:
+    return {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
+
+def embedding_specs(cfg: ModelConfig) -> dict:
+    out = {"table": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        out["head"] = ("embed", "vocab")
+    return out
 
 
 class RMSNorm(nn.Module):

@@ -30,6 +30,15 @@ through the kernels.  Caches are a list with one dict per layer, updated in plac
 the hybrid family's mixed stack; the encoder-decoder's are ``{"self":
 [...], "cross": [...]}``, the cross caches the decoder layers' K/V of the
 encoder output.
+
+``param_specs()`` and ``cache_specs(seq_len)`` give the logical axis names
+of the parameters and caches as flat dicts keyed by the reference's leaf
+paths (``"stack/pos0/attn/wq"``, ``"main/pos0/attn/k"``; a stacked leaf's
+names lead with "layers"), in :func:`repro_torch.models.convert.
+group_params`'s order, so they compare leaf for leaf with the reference's
+trees; :mod:`repro_torch.sharding` resolves them.  The embedding is
+constrained by :func:`repro_torch.sharding.constrain_act` (the identity
+unless a sharding context is installed).
 """
 from __future__ import annotations
 
@@ -41,8 +50,30 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.blocks import Block
+from repro_torch.models.blocks import Block, block_specs
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import constrain_act
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _ordered(flat: dict) -> dict:
+    """``flat`` in ``jax.tree_util``'s flatten order (sorted keys at every
+    level), as :func:`repro_torch.models.convert.group_params` orders."""
+    return {k: flat[k] for k in sorted(flat, key=lambda x: x.split("/"))}
+
+
+def _stacked(spec: tuple) -> tuple:
+    return ("layers",) + tuple(spec)
+
 
 
 class _LM(nn.Module):
@@ -59,6 +90,59 @@ class _LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+    def _spec_stacks(self) -> list[tuple[str, list[str], bool]]:
+        """(leaf prefix, the kinds of its period's positions, cross-attends)
+        of each stack, as the reference's period stacks group them."""
+        cfg = self.cfg
+        kinds = [cfg.layer_kind(p) for p in range(cfg.period())]
+        if cfg.is_encoder_decoder:
+            return [("encoder", ["encattn_mlp"], False),
+                    ("decoder", kinds, True)]
+        return [("stack", kinds, False)]
+
+    def param_specs(self) -> dict:
+        """Leaf path -> the logical axis names of that leaf (see the module
+        docstring)."""
+        cfg = self.cfg
+        out = {f"embed/{k}": v
+               for k, v in layers.embedding_specs(cfg).items()}
+        for norm in ("final_norm", "enc_norm"):
+            if hasattr(self, norm):
+                out[f"{norm}/scale"] = layers.rmsnorm_specs()["scale"]
+        for stack, kinds, cross in self._spec_stacks():
+            for pos, kind in enumerate(kinds):
+                for k, v in _flat(block_specs(cfg, kind, cross)).items():
+                    out[f"{stack}/pos{pos}/{k}"] = _stacked(v)
+        return _ordered(out)
+
+    def _self_cache_specs(self, prefix: str = "") -> dict:
+        """The decoder's caches' names as the reference's ``{"main": {pos:
+        stacked}, "tail": {pos: single}}`` paths."""
+        cfg = self.cfg
+        kinds = self._spec_stacks()[-1][1]
+        tail = cfg.n_layers % len(kinds)
+        out = {}
+        for pos, kind in enumerate(kinds):
+            spec = ({"mamba": ssm_mod.mamba_state_specs()}
+                    if "mamba" in kind else
+                    {"attn": attn_mod.cache_specs()})
+            for k, v in _flat(spec).items():
+                out[f"{prefix}main/pos{pos}/{k}"] = _stacked(v)
+                if pos < tail:
+                    out[f"{prefix}tail/pos{pos}/{k}"] = v
+        return out
+
+    def layer_cache_paths(self, i: int) -> tuple[str, int | None]:
+        """Where decoder layer i's cache lives among :meth:`cache_specs`'
+        paths: (the path prefix, e.g. ``"main/pos0/"``, the row of the
+        stacked leaf or None for a tail leaf)."""
+        cfg = self.cfg
+        period = len(self._spec_stacks()[-1][1])
+        n_full = cfg.n_layers // period
+        if i < n_full * period:
+            return f"main/pos{i % period}/", i // period
+        return f"tail/pos{i - n_full * period}/", None
 
     def _stack(self, blocks, x: torch.Tensor,
                memory: torch.Tensor | None = None
@@ -121,7 +205,7 @@ class DecoderOnlyLM(_LM):
                                                                 "compute"))
         else:
             x = self.embed.embed(batch["tokens"].to(self.device))
-        x, aux = self._stack(self.layers, x)
+        x, aux = self._stack(self.layers, constrain_act(x))
         return self._loss(x, batch["labels"]), aux
 
     @torch.no_grad()
@@ -135,7 +219,7 @@ class DecoderOnlyLM(_LM):
         Returns (logits (B, 1, V), caches); the MoE layers' aux loss is
         not computed, as the reference drops it.
         """
-        x = self.embed.embed(tokens.to(self.device))
+        x = constrain_act(self.embed.embed(tokens.to(self.device)))
         s = x.shape[1]
         max_len = max_len or s
         positions = torch.arange(s, device=x.device)
@@ -160,6 +244,11 @@ class DecoderOnlyLM(_LM):
     def init_caches(self, batch_size: int, seq_len: int) -> list:
         """Zero caches shaped for decoding against a seq_len context."""
         return self._decoder_caches(self.layers, batch_size, seq_len)
+
+    def cache_specs(self, seq_len: int) -> dict:
+        """Cache leaf path -> logical axis names (the reference's
+        ``cache_specs``; ``seq_len`` is kept for its signature)."""
+        return _ordered(self._self_cache_specs())
 
 
 class EncoderDecoderLM(_LM):
@@ -254,6 +343,19 @@ class EncoderDecoderLM(_LM):
                                               self.device)
                           for _ in self.decoder]}
 
+    def cache_specs(self, seq_len: int) -> dict:
+        """Cache leaf path -> logical axis names: ``self/...`` as the
+        decoder-only model's, ``cross/...`` the cross K/V's."""
+        out = self._self_cache_specs("self/")
+        cross = attn_mod.cache_specs()
+        tail = self.cfg.n_layers % len(self._spec_stacks()[-1][1])
+        for pos in range(len(self._spec_stacks()[-1][1])):
+            for k, v in cross.items():
+                out[f"cross/main/pos{pos}/{k}"] = _stacked(v)
+                if pos < tail:
+                    out[f"cross/tail/pos{pos}/{k}"] = v
+        return _ordered(out)
+
 
 def model_class(cfg: ModelConfig) -> type:
     return EncoderDecoderLM if cfg.is_encoder_decoder else DecoderOnlyLM
@@ -263,9 +365,13 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda",
                 seed: int = 0) -> DecoderOnlyLM | EncoderDecoderLM:
     """The model of ``cfg`` on ``device`` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (to load given weights, see
-    :func:`repro_torch.models.convert.model_from_state_dict`)."""
+    :func:`repro_torch.models.convert.model_from_state_dict`).  On the
+    ``meta`` device there are no values to draw: the model's parameters
+    are shapes and types only."""
     dev = resolve_device(device)
     model = model_class(cfg)(cfg, dev)
+    if dev.type == "meta":
+        return model
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return model.init_weights(gen)

@@ -24,10 +24,15 @@ Where the reference leans on XLA semantics the port spells them out:
     float atomics.  For k <= 2 (every config of the repo) that is the
     scatter-add's result to the bit, and two launches give the same bits.
 
-The reference's ``REPRO_MOE_PIN`` (a sharding constraint on the dispatch
-buffer) belongs with the sharding module and is not ported here.  The
-expert FFN is XLA in the reference, outside any Pallas kernel, and stays a
-batched matmul here.
+``REPRO_MOE_PIN`` (read at each call) pins the dispatch buffers' layout
+through :func:`repro_torch.sharding.constrain_named`, experts over
+"model" and capacity over "data": ``xd`` pins the gathered (E, C, D)
+buffer, ``both`` the experts' output too, ``off`` neither.  The default
+is ``off``, as the reference's code reads it (its comment names ``xd``
+the default; its code does not).  Without an installed
+:class:`repro_torch.sharding.activation_constraints` the pin is the
+identity.  The expert FFN is XLA in the reference, outside any Pallas
+kernel, and stays a batched matmul here.
 """
 from __future__ import annotations
 
@@ -40,11 +45,28 @@ from torch import nn
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import constrain_named
 
 # Decode-sized batches can skip dispatch entirely (dense mode).  Off by
 # default, as in the reference; ``REPRO_MOE_DENSE_MAX=512`` turns it on for
 # up to 512 tokens.
 DENSE_MODE_MAX_TOKENS = int(os.environ.get("REPRO_MOE_DENSE_MAX", "0"))
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    p = {
+        "router": ("embed", None),
+        "wi": ("experts", "embed", "mlp"),
+        "wg": ("experts", "embed", "mlp"),
+        "wo": ("experts", "mlp", "embed"),
+    }
+    if cfg.shared_expert:
+        p["shared"] = layers.mlp_specs()
+    return p
+
+
+#: The dispatch buffer's logical layout under ``REPRO_MOE_PIN``.
+PIN_LOGICAL = ("experts", "act_capacity", None)
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -175,7 +197,13 @@ class Moe(nn.Module):
         slot_gate[slot] = gates.reshape(-1)
         x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
         xd = x_pad[dispatch_tok[:e * c]].reshape(e, c, d)
-        yd = self._ffn(xd).reshape(e * c, d)
+        pin = os.environ.get("REPRO_MOE_PIN", "off")
+        if pin in ("xd", "both"):
+            xd = constrain_named(xd, PIN_LOGICAL)
+        yd = self._ffn(xd)
+        if pin == "both":
+            yd = constrain_named(yd, PIN_LOGICAL)
+        yd = yd.reshape(e * c, d)
         yw = yd * slot_gate[:e * c, None].to(yd.dtype)
         yw = torch.cat([yw, yw.new_zeros((1, d))], dim=0)
         pairs = yw[slot].reshape(n, k, d)

@@ -63,6 +63,34 @@ def conv_decode_step(x_t: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return F.silu(y + bias)[:, None], xp[:, 1:]
 
 
+def mamba_specs(cfg: ModelConfig) -> dict:
+    return {
+        "in_z": ("embed", "ssm_inner"),
+        "in_x": ("embed", "ssm_inner"),
+        "in_b": ("embed", None),
+        "in_c": ("embed", None),
+        "in_dt": ("embed", None),
+        "conv_x_w": (None, "ssm_inner"),
+        "conv_x_b": ("ssm_inner",),
+        "conv_b_w": (None, None),
+        "conv_b_b": (None,),
+        "conv_c_w": (None, None),
+        "conv_c_b": (None,),
+        "a_log": ("ssm_heads",),
+        "d_skip": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
+def mamba_state_specs() -> dict:
+    return {"conv_x": ("act_batch", None, "ssm_inner"),
+            "conv_b": ("act_batch", None, None),
+            "conv_c": ("act_batch", None, None),
+            "ssm": ("act_batch", "ssm_heads", None, None)}
+
+
 class Mamba(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()

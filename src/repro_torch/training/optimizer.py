@@ -231,6 +231,30 @@ def adafactor_update(cfg: OptimizerConfig, grads: Leaves, state: OptState,
 
 
 # ---------------------------------------------------------------------------
+# Logical-axis specs for the optimizer state (mirrors init's structure)
+# ---------------------------------------------------------------------------
+def state_specs(cfg: OptimizerConfig, params: Leaves,
+                param_specs: dict) -> OptState:
+    """The logical axis names of :func:`init`'s state: each state tensor
+    inherits its parameter's names (``param_specs``, as
+    ``model.param_specs()`` gives them), factored Adafactor statistics the
+    surviving dimensions'; the step is a replicated scalar, ``()``."""
+    inner = {}
+    for path, leaf in params.items():
+        spec = tuple(param_specs[path])
+        if cfg.name == "adafactor":
+            inner[path] = ({"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+                           if _factored(cfg, stacked_shape(leaf))
+                           else {"v": spec})
+            continue
+        st = {"m": spec, "v": spec}
+        if cfg.master_fp32 and members(leaf)[0].dtype != torch.float32:
+            st["master"] = spec
+        inner[path] = st
+    return OptState(step=(), inner=inner)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 def init(cfg: OptimizerConfig, params: Leaves) -> OptState:

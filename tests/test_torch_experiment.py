@@ -160,6 +160,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.baselines, repro_torch.envsim.harness\n"
         "import repro_torch.core.agent, repro_torch.core.spaces\n"
         "import repro_torch.training, repro_torch.data\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.specs, repro_torch.launch.op_cost\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.hillclimb\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
