@@ -11,7 +11,8 @@ failure raising (exit code != 0):
    process per library, started together), with each kernel's registers
    and spills, the flash kernels' dynamic shared memory and their count of
    tensor-core (HMMA) instructions in the SASS (``cuobjdump -sass``): the
-   bf16 prefill kernel must have some, and no spills at D <= 128; the same
+   bf16 prefill kernel must have some, and no spills at D <= 128, nor any
+   flash kernel at the examples' D = 8 and 12 (either dtype); the same
    for B6's kernels (its two bf16 product kernels must have HMMA
    instructions, and none of its bf16 route may spill) and their dynamic
    shared memory;
@@ -45,7 +46,7 @@ failure raising (exit code != 0):
    row's wall and metrics, then the markdown table; then
    ``Experiment(router="aif", fused=False)`` on paper-burst at the same
    size (plain PyTorch: no launch), with its wall; then the device time of
-   one uniform, Thompson, fused and unfused AIF run at R=1024 x T=100
+   one uniform, Thompson, fused and unfused AIF run at R=1024 x T=50
    beside its wall (``torch.profiler``);
 11. hetero — B1 against its plain version at the continuum-5tier widths
    (R=1024, S=128, A=37), then ``hetero_fleet_rollout`` over a paper-3tier
@@ -146,7 +147,11 @@ failure raising (exit code != 0):
    and causal for its decoder (B4 at b=8, 16 x 16; B5 at b=8 over 80
    slots), jamba-1.5-large's (Hq=64, Hkv=8, D=128: B4 at b=1, Sq=Skv=1024
    causal; B5 at B=8 over 2048 slots with positions 0 and S-1 among
-   them), and the other head dims (16, 32, 64) at small shapes; each case
+   them), the other head dims (16, 32, 64) at small shapes, and D = 8 and
+   12 (the multitier example's light and medium tiers, 4/2 heads) in bf16
+   and f32 at that example's shapes (a 16-token prompt in its 16-token
+   bucket; decode waves of 2 and 3 over 64 slots) and at ragged, windowed
+   and q_offset shapes; each case
    launched twice, the two outputs equal to the bit; then each kernel
    against the plain model
    of its algebra (``ref.decode_split_model`` at the wrapper's chunk: f32
@@ -309,7 +314,19 @@ failure raising (exit code != 0):
    device ms (prefill and decode from a ``torch.profiler`` trace here,
    the train step's from phase 46's profile), as reported ratios; then every parameter distributed
    on the one-rank ``make_debug_mesh(1, 1)`` by ``to_placements``, its
-   local shape equal to ``shard_shape``, and the process group destroyed.
+   local shape equal to ``shard_shape``, and the process group destroyed;
+53. examples — the port's nine examples (``examples/*_torch.py``) at
+   their default sizes on the card, one after another in one subprocess
+   with its own temporary directory, each under its own timeout: each
+   one's wall, its headline lines (success, P50,
+   completions, loss, parameter divergence) and every kernel's launches
+   read around its ``main()``, which must include the kernels its path
+   runs (B1 for the four fleet examples, B4 and B5 for serve_multitier, at
+   D = 8, 12 and 16) and no other; a non-zero exit fails the run;
+54. example attention times — B4 and B5 at serve_multitier's D = 8 and 12
+   shapes in float32, beside their plain versions and SDPA, with the
+   launches phase 53 counted at each head dim, under
+   ``serve_multitier_shapes`` in the B4 and B5 rows of the kernels line.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -320,9 +337,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -382,6 +401,68 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # tenth of the float32 bar (kernel and model differ only in the order of
 # their float32 sums, over terms up to ~|y|)
 SSD_MODEL_TOL = 1e-5
+# The port's examples (examples/<name>_torch.py), each run once at its
+# default size, in this order, under a timeout of its own (seconds), and the
+# kernels each one's path must launch
+EXAMPLES = {"quickstart": 240, "fleet_quickstart": 180,
+            "unreliable_telemetry": 180, "hetero_fleet": 180,
+            "networked_fleet": 180, "mega_fleet": 240,
+            "serve_multitier": 180, "train_small_lm": 240,
+            "elastic_failover": 180}
+EXAMPLE_KERNELS = {"fleet_quickstart": ("belief_efe_fleet",),
+                   "unreliable_telemetry": ("belief_efe_fleet",),
+                   "hetero_fleet": ("belief_efe_fleet",),
+                   "networked_fleet": ("belief_efe_fleet",),
+                   "serve_multitier": ("flash_prefill", "flash_decode")}
+# serve_multitier's light and medium tiers: d_model 32 and 48 over 4 heads
+EXAMPLE_HEAD_DIMS = (8, 12)
+# An example's lines that carry its headline numbers
+EXAMPLE_HEADLINE = re.compile(
+    r"success|P50|completed|loss:|divergence|preemptions"
+    r"|^\| |^ring|^no graph")
+# Marks the runner's result lines among the examples' own output
+EXAMPLE_MARK = "@example "
+# Run in one subprocess for all the examples, one after another: each
+# example's main() at its default size under SIGALRM at its timeout, with
+# every kernel's count read around it (chip_smoke.counted) and B4's and
+# B5's launches also tallied by head dim; then one marked JSON line each
+EXAMPLE_RUNNER = """
+import collections, importlib.util, json, os, signal, sys, time
+root, timeouts = sys.argv[1], json.loads(sys.argv[2])
+sys.path[:0] = [root, os.path.join(root, "src")]
+import torch
+import chip_smoke
+from repro_torch.kernels.attention import flash, ops
+by_d = collections.Counter()
+def by_head_dim(name, fn):
+    def call(q, *args, **kwargs):
+        before = fn.launches
+        out = fn(q, *args, **kwargs)
+        by_d[f"{name}_d{q.shape[-1]}"] += fn.launches - before
+        return out
+    return call
+ops.flash_prefill = by_head_dim("flash_prefill", flash.flash_prefill)
+ops.flash_decode = by_head_dim("flash_decode", flash.flash_decode)
+def expired(signum, frame):
+    raise TimeoutError("the example ran past its timeout")
+signal.signal(signal.SIGALRM, expired)
+for name, timeout in timeouts.items():
+    path = os.path.join(root, "examples", f"{name}_torch.py")
+    sys.argv = [path]
+    by_d.clear()
+    signal.alarm(timeout)
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lines, launches = chip_smoke.counted(lambda: mod.main([]))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    signal.alarm(0)
+    print(chip_smoke.EXAMPLE_MARK + json.dumps(
+        {"example": name, "lines": lines, "launches": launches,
+         "by_head_dim": dict(by_d), "main_s": main_s}), flush=True)
+"""
 
 
 T_START = time.perf_counter()
@@ -486,13 +567,15 @@ def phase_build() -> None:
     if len(tc) != len(flash.HEAD_DIMS) or min(tc.values()) == 0:
         raise AssertionError(f"the bf16 prefill kernels do not all run on "
                              f"the tensor cores: HMMA counts {hmma}")
+    head_dim = {k: int(re.search(r"Li(\d+)E", k).group(1))
+                for k in ptxas["flash_attn"]}
     spilled = {k: v for k, v in ptxas["flash_attn"].items()
-               if "prefill_tc_kernel" in k
-               and int(re.search(r"Li(\d+)E", k).group(1)) <= 128
+               if ("prefill_tc_kernel" in k and head_dim[k] <= 128
+                   or head_dim[k] in EXAMPLE_HEAD_DIMS)
                and not v.endswith(" 0 B spill stores, 0 B spill loads")}
     if spilled:
-        raise AssertionError(f"the bf16 prefill kernel spills at D <= 128: "
-                             f"{spilled}")
+        raise AssertionError(f"the bf16 prefill kernel spills at D <= 128, "
+                             f"or a flash kernel at D = 8 or 12: {spilled}")
     # B6's bf16 route: both product kernels on the tensor cores, no spills
     ssd_hmma = sass_hmma(paths["ssd_scan"])
     ssd_tc = {k: n for k, n in ssd_hmma.items() if "_tc_kernel" in k}
@@ -2639,6 +2722,22 @@ def attn_cases():
         cases += [prefill(f"d{d}_window48", 2, 200, 200, 8, 2, d,
                           torch.float32, d, window=48),
                   decode(f"d{d}", 2, 200, 8, 2, d, torch.float32, d)]
+    # serve_multitier's light and medium tiers (d_model 32 and 48 over 4
+    # heads): a 16-token prompt in its 16-token bucket, decode waves of
+    # max_batch 2 and 3 over 64 slots; and ragged, windowed twins
+    for dtype in (torch.bfloat16, torch.float32):
+        for d, b in zip(EXAMPLE_HEAD_DIMS, (2, 3)):
+            cases += [
+                prefill(f"multitier_d{d}_16", 1, 16, 16, 4, 2, d, dtype,
+                        70 + d),
+                decode(f"multitier_d{d}_b{b}_s64", b, 64, 4, 2, d, dtype,
+                       80 + d),
+                prefill(f"d{d}_window48", 2, 200, 200, 8, 2, d, dtype, d,
+                        window=48),
+                prefill(f"d{d}_q_offset_67_sq_133", 1, 133, 200, 8, 2, d,
+                        dtype, d + 1, q_offset=67),
+                decode(f"d{d}_window48", 3, 200, 8, 2, d, dtype, d + 2,
+                       window=48)]
     return cases
 
 
@@ -3264,13 +3363,15 @@ def phase_event_table1() -> None:
 def attn_bound(q, k, out, pairs: int) -> tuple[float, str]:
     """Least time for one attention launch: q, the K/V rows it must read
     and the output, each once, over the HBM rate, against 4·D·Hq FLOP per
-    visible (query, key) pair over the dense bf16 rate."""
+    visible (query, key) pair over the dense bf16 rate (float32 inputs:
+    the float32 rate outside the tensor cores)."""
     d, hq, hkv = q.shape[3], q.shape[2], k.shape[2]
     elt = q.element_size()
     kv_rows = pairs if q.shape[1] == 1 else k.shape[0] * k.shape[1]
     nbytes = (q.numel() + out.numel()) * elt + 2 * kv_rows * hkv * d * elt
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 4 * d * hq * pairs / BF16_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops = 4 * d * hq * pairs / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -3292,13 +3393,15 @@ def decode_blocks(b: int, s: int, hkv: int, pos, window: int = 0) -> dict:
 
 
 def decode_times_row(b: int, s: int, positions, seed: int, hq: int = 16,
-                     hkv: int = 8, d: int = 128, window: int = 0) -> tuple:
+                     hkv: int = 8, d: int = 128, window: int = 0,
+                     dtype: torch.dtype = torch.bfloat16) -> tuple:
     """B5 at (b, s) with ``hq``/``hkv``/``d`` heads (internlm2-1.8b's by
-    default) in bf16 and ``positions``: (kernel call, plain call, SDPA call
-    with a per-slot mask, (bound ms, bound by), fields of its times line)."""
+    default) in ``dtype`` and ``positions``: (kernel call, plain call, SDPA
+    call with a per-slot mask, (bound ms, bound by), fields of its times
+    line)."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import flash, ref
-    q, k, v = attn_operands(b, 1, s, hq, hkv, d, torch.bfloat16, seed=seed)
+    q, k, v = attn_operands(b, 1, s, hq, hkv, d, dtype, seed=seed)
     pos = torch.from_numpy(np.asarray(positions, np.int32)).to(DEVICE)
     mask = ref._mask(pos.long()[:, None], s, True, window)[:, None]
     calls = (lambda: flash.flash_decode(q, k, v, position=pos, window=window),
@@ -3314,13 +3417,13 @@ def decode_times_row(b: int, s: int, positions, seed: int, hq: int = 16,
 
 
 def prefill_times_row(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
-                      seed: int, causal: bool = True,
-                      window: int = 0) -> tuple:
-    """B4 at (b, sq, skv) in bf16, as :func:`decode_times_row`; SDPA is
-    causal with no mask where it can be, else given the mask."""
+                      seed: int, causal: bool = True, window: int = 0,
+                      dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """B4 at (b, sq, skv) in ``dtype``, as :func:`decode_times_row`; SDPA
+    is causal with no mask where it can be, else given the mask."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import flash, ref
-    q, k, v = attn_operands(b, sq, skv, hq, hkv, d, torch.bfloat16, seed)
+    q, k, v = attn_operands(b, sq, skv, hq, hkv, d, dtype, seed)
     kw = dict(causal=causal, window=window)
     mask = ref._mask(torch.arange(sq, device=DEVICE), skv, causal, window)
     plain_causal = causal and window == 0 and sq == skv
@@ -3336,19 +3439,20 @@ def prefill_times_row(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
                  window=window, blocks=hq * b * -(-sq // 64)))
 
 
-def attn_time_fields(name: str, calls, bound, shape: dict) -> dict:
-    """Time one B4/B5 shape (bf16): kernel, plain version and SDPA on the
-    same inputs, ``ms`` one synchronized call (:func:`time_ms`, the host's
-    cost included, as for every kernel), ``device_ms`` the card's time a
-    call when calls queue back to back (:func:`queued_ms`); emits its times
-    line and returns its fields.  Raises where the kernel disagrees with
-    its plain version beyond ``ATTN_TOL``."""
+def attn_time_fields(name: str, calls, bound, shape: dict,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Time one B4/B5 shape (in ``dtype``): kernel, plain version and SDPA
+    on the same inputs, ``ms`` one synchronized call (:func:`time_ms`, the
+    host's cost included, as for every kernel), ``device_ms`` the card's
+    time a call when calls queue back to back (:func:`queued_ms`); emits
+    its times line and returns its fields.  Raises where the kernel
+    disagrees with its plain version beyond ``ATTN_TOL``."""
     kern, plain, lib = calls
     out_k = kern().float()
     plain_err = (out_k - plain().float()).abs().max().item()
     lib_err = (out_k - lib().transpose(1, 2).float()).abs().max().item()
     del out_k
-    if not plain_err <= ATTN_TOL[torch.bfloat16]:
+    if not plain_err <= ATTN_TOL[dtype]:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                              f"plain version, max abs err {plain_err}")
     ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
@@ -3362,7 +3466,7 @@ def attn_time_fields(name: str, calls, bound, shape: dict) -> dict:
                   queued_ahead=[ahead, plain_ahead, lib_ahead],
                   plain_max_abs_err=plain_err, library_max_abs_diff=lib_err, bound_ms=bound[0],
                   bound_by=bound[1])
-    emit("times", kernel=name, dtype="bfloat16", **fields)
+    emit("times", kernel=name, dtype=str(dtype)[6:], **fields)
     return fields
 
 
@@ -3445,6 +3549,84 @@ def moe_encdec_attn_times(moe_launches: dict, moe_lengths,
         out[kernel][shape_name] = attn_time_fields(kernel, calls, bound,
                                                    dict(shape=shape_name,
                                                         **shape))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_examples() -> dict:
+    """The port's examples (:data:`EXAMPLES`) at their default sizes on the
+    card, one after another in one subprocess (so they share its start-up)
+    with its own temporary directory, each under its own timeout: its wall
+    (its module's import and ``main()``), its headline lines and every
+    kernel's launches, which must include the kernels its path runs
+    (:data:`EXAMPLE_KERNELS`) and nothing else.  A non-zero exit fails the
+    run.  Returns serve_multitier's B4 and B5 launches by head dim."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    env = dict(os.environ, TMPDIR=tmp)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER, ROOT, json.dumps(EXAMPLES)],
+            env=env, capture_output=True, text=True,
+            timeout=sum(EXAMPLES.values()) + 60)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    results = [json.loads(x[len(EXAMPLE_MARK):])
+               for x in proc.stdout.splitlines() if x.startswith(EXAMPLE_MARK)]
+    by_d = {}
+    for res in results:
+        name, launches = res["example"], res["launches"]
+        emit("example", example=name, main_wall_s=res["main_s"],
+             launches=launches, by_head_dim=res["by_head_dim"],
+             headline=[x.strip() for line in res["lines"]
+                       for x in line.splitlines()
+                       if EXAMPLE_HEADLINE.search(x)])
+        need = EXAMPLE_KERNELS.get(name, ())
+        missing = [k for k in need if launches[k] == 0]
+        other = {k: n for k, n in launches.items() if n and k not in need}
+        if missing or other:
+            raise AssertionError(f"example {name}: kernels {missing} not "
+                                 f"launched, or others launched: {other}")
+        if name == "serve_multitier":
+            by_d = res["by_head_dim"]
+            want = [f"{k}_d{d}" for k in need
+                    for d in EXAMPLE_HEAD_DIMS + (16,)]
+            if any(by_d.get(k, 0) == 0 for k in want):
+                raise AssertionError(f"serve_multitier: B4/B5 by head dim "
+                                     f"{by_d}, expected {want}")
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
+        failed = list(EXAMPLES)[len(results)]
+        raise AssertionError(f"example {failed} failed: the examples' "
+                             f"process exited with {proc.returncode}")
+    main_s = sum(r["main_s"] for r in results)
+    emit("examples", wall_s=wall, main_wall_s=main_s,
+         start_up_s=wall - main_s)
+    return by_d
+
+
+def example_attn_times(by_d: dict) -> dict:
+    """B4 and B5 at serve_multitier's light and medium tiers' shapes, in
+    the float32 the example runs: a 16-token prompt in its 16-token bucket
+    (b=1, 4/2 heads, causal) and a decode wave of max_batch 2 (D=8) or 3
+    (D=12) over 64 slots at positions 16-19; kernel, plain version and SDPA
+    timed as :func:`attn_time_fields` does, with the launches the example's
+    run counted at that head dim."""
+    rng = np.random.default_rng(12)
+    out = {"flash_prefill": {}, "flash_decode": {}}
+    for d, b in zip(EXAMPLE_HEAD_DIMS, (2, 3)):
+        shapes = (
+            ("flash_prefill", prefill_times_row(
+                1, 16, 16, 4, 2, d, seed=90 + d, dtype=torch.float32)),
+            ("flash_decode", decode_times_row(
+                b, 64, rng.integers(16, 20, b), seed=95 + d, hq=4, hkv=2,
+                d=d, dtype=torch.float32)))
+        for kernel, (calls, bound, shape) in shapes:
+            out[kernel][f"d{d}"] = dict(
+                launches=by_d.get(f"{kernel}_d{d}", 0),
+                **attn_time_fields(kernel, calls, bound, shape,
+                                   torch.float32))
     torch.cuda.empty_cache()
     return out
 
@@ -4545,6 +4727,10 @@ def main() -> int:
     card = {}
     meta = phase_dryrun(lambda: card.update(card_runs(train_run)))
     phase_dryrun_card(card, meta)
+    example = example_attn_times(phase_examples())
+    for row in rows:
+        if row["name"] in example:
+            row["serve_multitier_shapes"] = example[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

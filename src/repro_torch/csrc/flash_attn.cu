@@ -89,8 +89,14 @@
 //    rescales and sums the partials in split order and divides by
 //    max(l, 1e-30).  position is a (B,) device array, so one compiled launch
 //    serves every position of a ragged decode wave.
-// Tiles are copied in 16-byte units, so every operand's base must be
-// 16-byte aligned, which the wrappers check.  Scores live in the log2
+// Head dims 8 and 12 (the multitier example's light and medium tiers, d 32
+// and 48 over 4 heads) take the same kernels: the tensor-core B4 pads them
+// to 16 columns in shared memory (zero columns change no score and no
+// output column), and B5 stages a bfloat16 row of 12 as 16 with 4 zeros.
+// Tiles are copied in 16-byte units where every row is a whole number of
+// them, so every operand's base must be 16-byte aligned, which the wrappers
+// check; rows that are not (bfloat16 at D = 12: 24 bytes) and padded tiles
+// are staged element by element.  Scores live in the log2
 // domain (scaled by log2(e) / sqrt(D)), so every exponential is base 2:
 // one ex2.approx instruction in B4's bf16 loop, exp2f in B5.
 // No atomics: every reduction has a fixed order, so two runs give the same
@@ -345,6 +351,39 @@ __device__ __forceinline__ void load_tile_async(T* __restrict__ dst,
   }
 }
 
+// The same tile element by element with plain loads and stores, columns
+// [D, DK) zero as well: for rows that are not a whole number of 16-byte
+// units (bfloat16 at D = 12: 24 bytes, so row starts fall on 8-byte
+// steps), and for tiles padded past D.
+template <typename T, int D, int DK, int ROWS, int NT, int LD>
+__device__ __forceinline__ void load_tile_elems(T* __restrict__ dst,
+                                                const T* __restrict__ src,
+                                                size_t stride, int valid) {
+  // Not unrolled: unrolled, the bf16 D = 8 tile spilled (ptxas capped the
+  // kernel at 64 registers).
+#pragma unroll 1
+  for (int u = threadIdx.x; u < ROWS * DK; u += NT) {
+    const int r = u / DK, c = u % DK;
+    if (r < valid && c < D)
+      dst[r * LD + c] = src[(size_t)r * stride + c];
+    else
+      store(dst + r * LD + c, 0.f);
+  }
+}
+
+// A (ROWS, D) tile into DK >= D columns of shared memory: by 16-byte
+// asynchronous copies where every row is a whole number of them and no
+// column is padded, else element by element.
+template <typename T, int D, int DK, int ROWS, int NT, int LD>
+__device__ __forceinline__ void load_tile(T* __restrict__ dst,
+                                          const T* __restrict__ src,
+                                          size_t stride, int valid) {
+  if constexpr (D == DK && (D * sizeof(T)) % 16 == 0)
+    load_tile_async<T, D, ROWS, NT, LD>(dst, src, stride, valid);
+  else
+    load_tile_elems<T, D, DK, ROWS, NT, LD>(dst, src, stride, valid);
+}
+
 // ------------------------------------------------------------------ B4
 // float32: the CUDA-core kernel.
 template <int D>
@@ -355,7 +394,7 @@ struct Prefill {
   static constexpr int kNY = kThreads / 16;            // row groups (ty)
   static constexpr int kRows = kBQ / kNY;              // rows a thread
   static constexpr int kCols = kBK / 16;               // score columns a thread
-  static constexpr int kOut = D / 16;                  // output columns a thread
+  static constexpr int kOut = (D + 15) / 16;           // output columns a thread
   static constexpr int kDP = D + 1;                    // padded Q/K row
   static constexpr int kBKP = kBK + 1;                 // padded P row
   static constexpr size_t smem_bytes() {
@@ -474,7 +513,8 @@ __global__ void __launch_bounds__(Prefill<D>::kThreads)
       for (int i = 0; i < P::kRows; ++i)
         pv[i] = ps[(ty + P::kNY * i) * P::kBKP + j];
 #pragma unroll
-      for (int c = 0; c < P::kOut; ++c) vv[c] = vs[j * D + tx + 16 * c];
+      for (int c = 0; c < P::kOut; ++c)
+        vv[c] = D % 16 == 0 || tx + 16 * c < D ? vs[j * D + tx + 16 * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < P::kRows; ++i)
 #pragma unroll
@@ -490,7 +530,8 @@ __global__ void __launch_bounds__(Prefill<D>::kThreads)
       const float den = fmaxf(l[i], 1e-30f);
       float* out = o + (((size_t)b * Sq + row0 + r) * Hq + h) * D;
 #pragma unroll
-      for (int c = 0; c < P::kOut; ++c) out[tx + 16 * c] = acc[i][c] / den;
+      for (int c = 0; c < P::kOut; ++c)
+        if (D % 16 == 0 || tx + 16 * c < D) out[tx + 16 * c] = acc[i][c] / den;
     }
   }
 }
@@ -498,12 +539,15 @@ __global__ void __launch_bounds__(Prefill<D>::kThreads)
 // bfloat16: the tensor-core kernel.
 template <int D>
 struct PrefillTC {
+  // The products take 16 columns a step: D = 8 and 12 run as DK = 16 with
+  // zero columns, which change no score and no output column.
+  static constexpr int kDK = (D + 15) / 16 * 16;
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kBQ = 16 * kWarps;              // query rows a block
   static constexpr int kBK = D >= 256 ? 32 : 64;       // keys a stage
   static constexpr int kStages = 2;
-  static constexpr int kLd = D + 8;                    // row pitch: +16 bytes
+  static constexpr int kLd = kDK + 8;                  // row pitch: +16 bytes
   static constexpr size_t smem_bytes() {
     return sizeof(bf16) * (size_t)kLd * (kBQ + 2 * kStages * kBK);
   }
@@ -516,9 +560,9 @@ __global__ void __launch_bounds__(PrefillTC<D>::kThreads)
                       int Sq, int Skv, int Hq, int Hkv, int causal,
                       int window, int q_offset, float scale_log2) {
   using P = PrefillTC<D>;
-  constexpr int kLd = P::kLd, kBK = P::kBK;
+  constexpr int kLd = P::kLd, kBK = P::kBK, DK = P::kDK;
   constexpr int kN = kBK / 8;        // score fragments (8 keys each) a warp
-  constexpr int kO = D / 8;          // output fragments (8 columns each)
+  constexpr int kO = DK / 8;         // output fragments (8 columns each)
   extern __shared__ float smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);            // [kBQ][kLd]
   bf16* ks = qs + P::kBQ * kLd;                        // [kStages][kBK][kLd]
@@ -552,13 +596,13 @@ __global__ void __launch_bounds__(PrefillTC<D>::kThreads)
   const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
   auto load_kv = [&](int t, int stage) {
     const int k0 = t * kBK;
-    load_tile_async<bf16, D, kBK, P::kThreads, kLd>(
+    load_tile<bf16, D, DK, kBK, P::kThreads, kLd>(
         ks + stage * kBK * kLd, kb + k0 * kv_stride, kv_stride, Skv - k0);
-    load_tile_async<bf16, D, kBK, P::kThreads, kLd>(
+    load_tile<bf16, D, DK, kBK, P::kThreads, kLd>(
         vs + stage * kBK * kLd, vb + k0 * kv_stride, kv_stride, Skv - k0);
   };
 
-  load_tile_async<bf16, D, P::kBQ, P::kThreads, kLd>(
+  load_tile<bf16, D, DK, P::kBQ, P::kThreads, kLd>(
       qs, q + (((size_t)b * Sq + row0) * Hq + h) * D, (size_t)Hq * D, nrows);
   cp_async_commit();
   if (t_begin < t_end) load_kv(t_begin, 0);
@@ -603,7 +647,7 @@ __global__ void __launch_bounds__(PrefillTC<D>::kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       unsigned a[4];
       if constexpr (kQReg) {
 #pragma unroll
@@ -678,7 +722,7 @@ __global__ void __launch_bounds__(PrefillTC<D>::kThreads)
       split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
+      for (int dn = 0; dn < DK / 16; ++dn) {
         unsigned bv[4];
         ldmatrix_x4_trans(bv, vt + v_frag + kk * 16 * kLd + dn * 16);
         mma_16816(acc[2 * dn], ph, bv[0], bv[1]);
@@ -700,8 +744,10 @@ __global__ void __launch_bounds__(PrefillTC<D>::kThreads)
                   2 * (lane & 3);
 #pragma unroll
       for (int n = 0; n < kO; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-            __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+        if (D == DK || 8 * n + 2 * (lane & 3) < D)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+              __floats2bfloat162_rn(acc[n][2 * i] * inv,
+                                    acc[n][2 * i + 1] * inv);
     }
   }
 }
@@ -709,16 +755,22 @@ __global__ void __launch_bounds__(PrefillTC<D>::kThreads)
 // ------------------------------------------------------------------ B5
 template <typename T, int D>
 struct DecodeSplit {
+  static constexpr int kV = 16 / (int)sizeof(T);      // values in 16 bytes
+  // Staged rows are a whole number of 16-byte units: bfloat16 at D = 12
+  // stages 16 columns, the last 4 zero.
+  static constexpr int kDK = (D + kV - 1) / kV * kV;
   static constexpr int kBK = 32;                       // keys a stage
   static constexpr int kThreads = 128;
   static constexpr int kWarps = kThreads / 32;
-  static constexpr int kLd = D + 16 / (int)sizeof(T);  // row pitch: +16 bytes
+  static constexpr int kLd = kDK + kV;                 // row pitch: +16 bytes
   static size_t smem_bytes(int G) {
     return sizeof(T) * 2 * 2 * (size_t)kBK * kLd +
            sizeof(float) * (2 * (size_t)G * D + (size_t)G * kBK + 3 * (size_t)G);
   }
 };
 
+// q_r . k_r over D columns; kr is a staged row (16-byte aligned, read in
+// 16-byte units up to D rounded up to one).
 template <typename T, int D>
 __device__ __forceinline__ float dot_row(const float* __restrict__ qr,
                                          const T* __restrict__ kr) {
@@ -729,7 +781,8 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ qr,
     float f[V];
     widen16(*reinterpret_cast<const uint4*>(kr + d), f);
 #pragma unroll
-    for (int e = 0; e < V; ++e) a = fmaf(qr[d + e], f[e], a);
+    for (int e = 0; e < V; ++e)
+      if (D % V == 0 || d + e < D) a = fmaf(qr[d + e], f[e], a);
   }
   return a;
 }
@@ -741,7 +794,7 @@ __global__ void __launch_bounds__(DecodeSplit<T, D>::kThreads)
                         const int* __restrict__ position, int S, int Hq,
                         int Hkv, int window, int chunk, float scale_log2) {
   using P = DecodeSplit<T, D>;
-  constexpr int kBK = P::kBK, kLd = P::kLd;
+  constexpr int kBK = P::kBK, kLd = P::kLd, DK = P::kDK;
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
   T* ks = reinterpret_cast<T*>(smem);                  // [2][kBK][kLd]
@@ -778,9 +831,9 @@ __global__ void __launch_bounds__(DecodeSplit<T, D>::kThreads)
   const T* kb = k + ((size_t)b * S * Hkv + hk) * D;   // key 0 of head hk
   const T* vb = v + ((size_t)b * S * Hkv + hk) * D;
   auto load_kv = [&](int j0, int stage) {
-    load_tile_async<T, D, kBK, P::kThreads, kLd>(
+    load_tile<T, D, DK, kBK, P::kThreads, kLd>(
         ks + stage * kBK * kLd, kb + j0 * kv_stride, kv_stride, last - j0);
-    load_tile_async<T, D, kBK, P::kThreads, kLd>(
+    load_tile<T, D, DK, kBK, P::kThreads, kLd>(
         vs + stage * kBK * kLd, vb + j0 * kv_stride, kv_stride, last - j0);
   };
   load_kv(first, 0);
@@ -809,6 +862,9 @@ __global__ void __launch_bounds__(DecodeSplit<T, D>::kThreads)
     const T* kt = ks + stage * kBK * kLd;
     const T* vt = vs + stage * kBK * kLd;
 
+    // Not unrolled: a thread takes at most G * kBK / kThreads rows (2 at
+    // G = 8), and unrolled, the float32 D = 8 kernel spilled 12 bytes.
+#pragma unroll 1
     for (int it = tid; it < G * kBK; it += P::kThreads) {
       const int g = it / kBK, j = it % kBK;
       if (j < n) ps[it] = dot_row<T, D>(qs + g * D, kt + j * kLd) * scale_log2;
@@ -960,6 +1016,8 @@ int prefill_d(int D, const void* q, const void* k, const void* v, void* o,
               int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
               int q_offset, void* stream) {
   switch (D) {
+    case 8: return prefill_t<T, 8>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, stream);
+    case 12: return prefill_t<T, 12>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, stream);
     case 16: return prefill_t<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, stream);
     case 32: return prefill_t<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, stream);
     case 64: return prefill_t<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, stream);
@@ -974,6 +1032,8 @@ int decode_d(int D, const void* q, const void* k, const void* v, void* o,
              const int* pos, float* part, int B, int S, int Hq, int Hkv,
              int window, int chunk, void* stream) {
   switch (D) {
+    case 8: return decode_t<T, 8>(q, k, v, o, pos, part, B, S, Hq, Hkv, window, chunk, stream);
+    case 12: return decode_t<T, 12>(q, k, v, o, pos, part, B, S, Hq, Hkv, window, chunk, stream);
     case 16: return decode_t<T, 16>(q, k, v, o, pos, part, B, S, Hq, Hkv, window, chunk, stream);
     case 32: return decode_t<T, 32>(q, k, v, o, pos, part, B, S, Hq, Hkv, window, chunk, stream);
     case 64: return decode_t<T, 64>(q, k, v, o, pos, part, B, S, Hq, Hkv, window, chunk, stream);
@@ -1040,6 +1100,8 @@ int flash_decode_launch(const void* q, const void* k, const void* v, void* o,
 // not take.
 int flash_attn_smem_bytes(int kernel, int D, int G) {
   switch (D) {
+    case 8: return smem_d<8>(kernel, G);
+    case 12: return smem_d<12>(kernel, G);
     case 16: return smem_d<16>(kernel, G);
     case 32: return smem_d<32>(kernel, G);
     case 64: return smem_d<64>(kernel, G);

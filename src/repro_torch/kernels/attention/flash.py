@@ -30,7 +30,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attention import ref
 
 SOURCES = ("flash_attn.cu",)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 12, 16, 32, 64, 128, 256)
 # Streaming multiprocessors of an H100 (SXM5), the one card the port
 # targets.
 H100_SMS = 132

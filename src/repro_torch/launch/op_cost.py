@@ -69,6 +69,11 @@ over on one device.
     its per-device size and freed when its storage dies; the step's
     temporary peak is the highest sum.
 
+The resolved :class:`Stats` also itemize: every collective by kind, the
+rule's op and the parameter leaf behind it, its group and bytes
+(:func:`collective_items`), and FLOPs and HBM bytes by op
+(``tools/debug_bytes_torch.py`` prints the top of each).
+
 FLOPs are matmul-class only, by ``torch.utils.flop_counter``'s formulas
 (2mnk for a product), as the reference counts dots only.  A reduction over
 a split dimension (a softmax over vocab-split logits, the grouped keys of
@@ -121,6 +126,7 @@ class Input:
     row: bool
     profile: str
     role: str
+    name: str = ""              # the leaf's path, for the itemized record
 
 
 @dataclasses.dataclass
@@ -153,6 +159,14 @@ class Stats:
     launches: dict = dataclasses.field(default_factory=dict)
     peak_bytes: float = 0.0
     output_bytes: float = 0.0
+    #: The itemized collectives: (kind, source, group axes, group size,
+    #: per-device bytes) -> how many times a step; the source names the
+    #: rule's op and the parameter leaf behind it (:func:`collective_items`)
+    collectives: dict = dataclasses.field(default_factory=dict)
+    #: FLOPs and HBM bytes by op: the aten op and the parameter leaf it
+    #: reads ("mm: stack/pos0/mlp/wi"), or a kernel's name
+    op_flops: dict = dataclasses.field(default_factory=dict)
+    op_bytes: dict = dataclasses.field(default_factory=dict)
 
     def combine(self, other: "Stats", mult: float = 1.0) -> "Stats":
         """``self + mult * other``, field by field (the peak too)."""
@@ -307,7 +321,8 @@ class _Recorder(TorchDispatchMode):
             for o in flat_out:
                 if o not in self.ids:
                     self.ids[o] = ins[0]
-            ops.append((_INPLACE, flops, ins, packet in _SCATTER))
+            ops.append((_INPLACE, flops, ins, packet in _SCATTER,
+                        packet.__name__))
             return out
         outs = tuple(self.new(o) for o in flat_out)
         if alias == "view":
@@ -325,20 +340,22 @@ class _Recorder(TorchDispatchMode):
         elif packet in _MATMUL:
             ia, ib, ca, cb, bd = _MATMUL[packet]
             ops.append((_MM, flops, ins, outs, self.rec(args[ia]),
-                        self.rec(args[ib]), ca, cb, bd))
+                        self.rec(args[ib]), ca, cb, bd, packet.__name__))
         elif packet == aten.index and isinstance(args[1], (list, tuple)):
             dim = next(k for k, ix in enumerate(args[1]) if ix is not None)
             idx = tuple(self.rec(ix) for ix in args[1] if ix is not None)
-            ops.append((_INDEX, flops, ins, outs, ins[0], idx, dim))
+            ops.append((_INDEX, flops, ins, outs, ins[0], idx, dim,
+                        packet.__name__))
         elif packet in (aten.gather, aten.index_select):
-            ops.append((_GATHER, flops, ins, outs))
+            ops.append((_GATHER, flops, ins, outs, packet.__name__))
         else:
             m = None
             if packet == aten.stack:
                 m = (None,) + tuple(range(flat_in[0].ndim))
             elif len(outs) == 1 and len(flat_in) == 1:
                 m = _view_map(func, args, flat_in[0], flat_out[0])
-            ops.append((_OP, flops, ins, outs, packet in _SCATTER, m))
+            ops.append((_OP, flops, ins, outs, packet in _SCATTER, m,
+                        packet.__name__))
         for o, r in zip(flat_out, outs):
             self.alloc(o, r)
         return out
@@ -471,6 +488,7 @@ class _Resolver:
         n = len(tr.nbytes)
         self.ax: list = [frozenset()] * n
         self.pd: list = [None] * n
+        self.nm: list = [""] * n        # the parameter leaf behind a tensor
         self._size_cache: dict = {}
 
     def size(self, axes: frozenset) -> int:
@@ -484,15 +502,14 @@ class _Resolver:
         return self.tr.nbytes[r] / self.size(self.ax[r])
 
     def collective(self, kind: str, n: float, axes: frozenset,
-                   times: float = 1.0) -> None:
+                   times: float = 1.0, source: str = "") -> None:
         k = self.size(axes)
         if k <= 1 or n <= 0:
             return
-        link = {"all-reduce": 2.0 * n * (k - 1) / k,
-                "all-gather": n * (k - 1) / k,
-                "reduce-scatter": n * (k - 1),
-                "all-to-all": n * (k - 1) / k}[kind] * times
+        link = ring_link_bytes(kind, n, k) * times
         st = self.st
+        key = (kind, source, tuple(sorted(axes)), k, n)
+        st.collectives[key] = st.collectives.get(key, 0) + times
         st.coll_counts[kind] = st.coll_counts.get(kind, 0) + times
         st.coll_bytes[kind] = st.coll_bytes.get(kind, 0.0) + n * times
         st.link_bytes += link
@@ -508,6 +525,7 @@ class _Resolver:
             if desc.role == "param":
                 tp = tuple(d - self.batch for d in dims)
                 pd[r] = tp
+                self.nm[r] = desc.name
                 ax[r] = frozenset().union(*tp)
                 self._fsdp(r, dims)
             else:
@@ -521,6 +539,7 @@ class _Resolver:
                 _, src, outs, m = op
                 for o in outs:
                     ax[o] = ax[src]
+                    self.nm[o] = self.nm[src]
                     if pd[src] is not None and m is not None:
                         pd[o] = tuple(pd[src][k] if k is not None
                                       else frozenset() for k in m)
@@ -567,17 +586,21 @@ class _Resolver:
     def _op(self, op, kernel) -> None:
         st, ax, pd = self.st, self.ax, self.pd
         kind, flops, ins = op[0], op[1], op[2]
+        leaf = next((self.nm[r] for r in ins if self.nm[r]), "")
+        label = kernel or (f"{op[-1]}: {leaf}" if leaf else op[-1])
         if kind == _MM:
-            _, _, _, outs, a, b, ca, cb, bd = op
+            _, _, _, outs, a, b, ca, cb, bd, _ = op
             if bd is not None and pd[b] is not None and pd[a] is None:
                 missing = pd[b][0] - ax[a]
                 if missing:   # rule 5: the expert dispatch
-                    self.collective("all-to-all", self.local(a), missing)
+                    self.collective("all-to-all", self.local(a), missing,
+                                    source=f"bmm dispatch: {self.nm[b]}")
                     ax[a] = ax[a] | missing
         union, param_only = self._union(ins)
         split = self.size(union)
         if flops:
             st.flops += flops / split
+            st.op_flops[label] = st.op_flops.get(label, 0.0) + flops / split
             if kernel is not None:
                 st.kernel_flops[kernel] = (st.kernel_flops.get(kernel, 0.0)
                                            + flops / split)
@@ -585,8 +608,8 @@ class _Resolver:
             if op[3] and kernel is None:
                 self._scatter(ins)
             if kernel is None:
-                st.hbm_bytes += sum(self.local(r) for r in ins) + self.local(
-                    ins[0])
+                self._bytes(label, sum(self.local(r) for r in ins)
+                            + self.local(ins[0]))
             return
         outs = op[3]
         out_ax = union
@@ -603,7 +626,9 @@ class _Resolver:
                 ax[o] = out_ax
             if contracted:    # rule 4: the row-parallel all-reduce
                 self.collective("all-reduce", sum(
-                    self.local(o) for o in outs), contracted)
+                    self.local(o) for o in outs), contracted,
+                    source="matmul, contracted split: "
+                    + (self.nm[a] or self.nm[b]))
         elif kind == _INDEX:
             src, idx, dim = op[4], op[5], op[6]
             idx_ax = frozenset().union(*(ax[r] for r in idx))
@@ -615,14 +640,16 @@ class _Resolver:
                 for o in outs:
                     ax[o] = out_ax
                 self.collective("all-reduce", sum(
-                    self.local(o) for o in outs), split_ax)
+                    self.local(o) for o in outs), split_ax,
+                    source=f"lookup: {self.nm[src]}")
             else:
                 moved = (ax[src] - idx_ax) - self.batch
                 out_ax = (ax[src] | idx_ax) - moved
                 for o in outs:
                     ax[o] = out_ax
                 self.collective("all-to-all", sum(
-                    self.local(o) for o in outs), moved)
+                    self.local(o) for o in outs), moved,
+                    source="lookup into an activation")
         elif kind == _GATHER:
             for o in outs:
                 ax[o] = union
@@ -630,6 +657,8 @@ class _Resolver:
             m = op[5]
             for o in outs:
                 ax[o] = union
+                if param_only and ins:
+                    self.nm[o] = self.nm[ins[0]]
                 if param_only and m is not None and ins and \
                         pd[ins[0]] is not None:
                     pd[o] = tuple(pd[ins[0]][k] if k is not None
@@ -637,8 +666,13 @@ class _Resolver:
             if op[4] and kernel is None:
                 self._scatter(ins)
         if kernel is None:
-            st.hbm_bytes += (sum(self.local(r) for r in ins)
-                             + sum(self.local(o) for o in outs))
+            self._bytes(label, sum(self.local(r) for r in ins)
+                        + sum(self.local(o) for o in outs))
+
+    def _bytes(self, label: str, n: float) -> None:
+        st = self.st
+        st.hbm_bytes += n
+        st.op_bytes[label] = st.op_bytes.get(label, 0.0) + n
 
     def _scatter(self, ins) -> None:
         """Rule 6's scatter: values with tensor-parallel axes the
@@ -647,7 +681,8 @@ class _Resolver:
         for v in ins[1:]:
             moved = (self.ax[v] - self.ax[dest]) - self.batch
             if moved and self.tr.nbytes[v] > 8:
-                self.collective("all-to-all", self.local(v), moved)
+                self.collective("all-to-all", self.local(v), moved,
+                                source="scatter")
 
     def _kernel_end(self, op) -> None:
         _, name, ins, outs = op
@@ -657,11 +692,12 @@ class _Resolver:
         for o in outs:
             ax[o] = first
             self.pd[o] = None
-        self.st.hbm_bytes += (sum(self.local(r) for r in ins)
-                              + sum(self.local(o) for o in outs))
+        self._bytes(name, sum(self.local(r) for r in ins)
+                    + sum(self.local(o) for o in outs))
         if extra:     # rule 7: a sequence-split cache
             self.collective("all-reduce", sum(
-                self.local(o) for o in outs), extra)
+                self.local(o) for o in outs), extra,
+                source=f"{name}: split cache")
 
     def _fsdp(self, r: int, dims: tuple) -> None:
         """Rule 9 for one parameter."""
@@ -669,16 +705,39 @@ class _Resolver:
         bat = frozenset().union(*dims) & self.batch
         tp = frozenset().union(*dims) - self.batch
         gathered = tr.nbytes[r] / self.size(tp)
+        name = self.nm[r]
         if bat:
             gathers = (tr.train_gathers * tr.microbatches if tr.microbatches
                        else 1)
-            self.collective("all-gather", gathered, bat, gathers)
+            self.collective("all-gather", gathered, bat, gathers,
+                            source=f"fsdp gather: {name}")
             if tr.microbatches:
                 self.collective("reduce-scatter", gathered / self.size(bat),
-                                bat, tr.microbatches)
+                                bat, tr.microbatches,
+                                source=f"fsdp gradient: {name}")
         elif tr.microbatches:
             self.collective("all-reduce", gathered, self.batch,
-                            tr.microbatches)
+                            tr.microbatches, source=f"gradient: {name}")
+
+
+def ring_link_bytes(kind: str, n: float, k: int) -> float:
+    """Rule 10: the link bytes a device sends for one collective of
+    ``kind`` over a group of ``k`` with ``n`` bytes a device (the
+    reduce-scatter's ``n`` is its output)."""
+    return {"all-reduce": 2.0 * n * (k - 1) / k,
+            "all-gather": n * (k - 1) / k,
+            "reduce-scatter": n * (k - 1),
+            "all-to-all": n * (k - 1) / k}[kind]
+
+
+def collective_items(st: Stats) -> list[dict]:
+    """The itemized collectives of ``st``, largest link bytes first: kind,
+    source (the rule's op and the parameter leaf behind it), group axes,
+    group size, per-device bytes, times a step and link bytes a step."""
+    items = [dict(kind=kind, source=src, axes=list(axes), group=k, bytes=n,
+                  times=times, link_bytes=ring_link_bytes(kind, n, k) * times)
+             for (kind, src, axes, k, n), times in st.collectives.items()]
+    return sorted(items, key=lambda i: -i["link_bytes"])
 
 
 def resolve(tr: Trace, mesh, act_profile: str = "train") -> Stats:

@@ -117,7 +117,8 @@ def param_inputs(model, profile: str) -> list:
     out = []
     for path, leaf in group_params(model).items():
         row = isinstance(leaf, list)
-        desc = Input(specs[path], stacked_shape(leaf), row, profile, "param")
+        desc = Input(specs[path], stacked_shape(leaf), row, profile, "param",
+                     path)
         out += [(p, desc) for p in members(leaf)]
     return out
 

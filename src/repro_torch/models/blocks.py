@@ -54,7 +54,8 @@ def check_kind(kind: str) -> None:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
-def block_specs(cfg: ModelConfig, kind: str, cross: bool = False) -> dict:
+def block_specs(cfg: ModelConfig, kind: str,
+                cross_attention: bool = False) -> dict:
     """The logical axis names of one block's parameters (the reference's
     ``block_specs``; a stacked leaf adds a leading "layers")."""
     p: dict = {"norm_mixer": layers.rmsnorm_specs(),
@@ -69,7 +70,7 @@ def block_specs(cfg: ModelConfig, kind: str, cross: bool = False) -> dict:
         p["mlp"] = layers.mlp_specs()
     else:
         del p["norm_mlp"]
-    if cross:
+    if cross_attention:
         p["norm_cross"] = layers.rmsnorm_specs()
         p["cross"] = attn_mod.attention_specs(cfg)
     return p

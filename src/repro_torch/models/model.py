@@ -112,7 +112,8 @@ class _LM(nn.Module):
                 out[f"{norm}/scale"] = layers.rmsnorm_specs()["scale"]
         for stack, kinds, cross in self._spec_stacks():
             for pos, kind in enumerate(kinds):
-                for k, v in _flat(block_specs(cfg, kind, cross)).items():
+                specs = block_specs(cfg, kind, cross_attention=cross)
+                for k, v in _flat(specs).items():
                     out[f"{stack}/pos{pos}/{k}"] = _stacked(v)
         return _ordered(out)
 

@@ -58,11 +58,13 @@ class ServingEngine:
     engine's ``model.state_dict()``); its tensors become the model's
     parameters, so engines built from one state dict on one device share
     their weights.  Without it the engine draws random weights from its own
-    ``torch.Generator(seed)``."""
+    ``torch.Generator(seed)``.  ``speed_factor`` is stored as the
+    reference stores it and read by nothing: it has no effect on the port's
+    timing."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
                  max_batch: int = 4, max_len: int = 256, seed: int = 0,
-                 name: str = "engine",
+                 speed_factor: float = 1.0, name: str = "engine",
                  device: str | torch.device = "cuda"):
         cfg = dataclasses.replace(cfg, serve_ring_caches=False)
         self.cfg = cfg
@@ -72,6 +74,7 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.name = name
+        self.speed_factor = speed_factor   # relative tier capacity (sim time)
 
         self.queue: deque[Request] = deque()
         self.active: list[Optional[Request]] = [None] * max_batch

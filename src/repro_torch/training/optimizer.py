@@ -97,9 +97,9 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor | int) -> torch.Tensor:
     return cfg.peak_lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(grads: Leaves) -> torch.Tensor:
+def global_norm(tree: Leaves) -> torch.Tensor:
     sq = [torch.sum(torch.square(g.float()))
-          for leaf in grads.values() for g in members(leaf)]
+          for leaf in tree.values() for g in members(leaf)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 

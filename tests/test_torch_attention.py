@@ -28,12 +28,19 @@ PREFILL = [  # b, sq, skv, hq, hkv, d, causal, window, dtype
     (1, 256, 256, 8, 8, 64, True, 0, "bfloat16"),
     (2, 128, 128, 4, 4, 32, False, 0, "float32"),
     (1, 64, 128, 2, 2, 16, False, 0, "float32"),
+    # the multitier example's light and medium tiers' head dims
+    (1, 64, 64, 4, 2, 8, True, 0, "float32"),
+    (2, 64, 64, 4, 2, 12, True, 24, "float32"),
+    (1, 64, 64, 4, 2, 12, True, 0, "bfloat16"),
 ]
 DECODE = [  # b, s, hq, hkv, d, pos, window, dtype
     (2, 256, 8, 2, 32, 255, 0, "float32"),
     (2, 256, 8, 2, 32, 100, 0, "float32"),
     (2, 256, 4, 1, 64, 200, 64, "bfloat16"),
     (1, 128, 16, 16, 32, 64, 0, "float32"),
+    (2, 64, 4, 2, 8, 17, 0, "float32"),
+    (3, 64, 4, 2, 12, 40, 16, "float32"),
+    (2, 64, 4, 2, 8, 63, 0, "bfloat16"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -156,10 +163,29 @@ def test_wrappers_refuse_other_devices_and_bad_operands():
     kv = torch.zeros((1, 4, 2, 16))
     with pytest.raises(TypeError):
         flash._check_qkv(q, kv.double(), kv.double())
+    odd_q, odd_kv = torch.zeros((1, 4, 4, 20)), torch.zeros((1, 4, 2, 20))
     with pytest.raises(ValueError, match="head dim"):
-        flash._check_qkv(q[..., :12], kv[..., :12], kv[..., :12])
+        flash._check_qkv(odd_q, odd_kv, odd_kv)
     with pytest.raises(ValueError, match="contiguous"):
         flash._check_qkv(q.transpose(1, 2), kv, kv)
     shifted = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     with pytest.raises(ValueError, match="aligned"):
         flash._check_qkv(shifted, kv, kv)
+
+
+@pytest.mark.parametrize("d", [8, 12])
+def test_wrappers_take_head_dims_8_and_12(d):
+    """The multitier example's light and medium tiers (d_model 32 and 48
+    over 4 heads): the kernels take D = 8 and 12, so a tensor off the CPU
+    fails on its device, never on its head dim, and the checks pass."""
+    assert d in flash.HEAD_DIMS
+    meta_q = torch.empty((1, 16, 4, d), device="meta")
+    meta_kv = torch.empty((1, 16, 2, d), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash.flash_prefill(meta_q, meta_kv, meta_kv)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash.flash_decode(meta_q[:, :1], meta_kv, meta_kv, position=3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 16, 4, d), dtype=dtype)
+        kv = torch.zeros((1, 16, 2, d), dtype=dtype)
+        flash._check_qkv(q, kv, kv)

@@ -144,7 +144,7 @@ def test_uniform_router_weights_are_the_balanced_row():
 def test_port_imports_neither_jax_nor_the_reference():
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     code = (
-        "import sys\n"
+        "import os, sys\n"
         f"sys.path.insert(0, {os.path.dirname(src)!r})\n"
         "import chip_smoke\n"
         "import repro_torch, repro_torch.api, repro_torch.noise\n"
@@ -164,6 +164,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.launch.specs, repro_torch.launch.op_cost\n"
         "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
         "import repro_torch.launch.hillclimb\n"
+        "import glob, importlib.util\n"
+        f"root = {os.path.dirname(src)!r}\n"
+        "paths = sorted(glob.glob(root + '/examples/*_torch.py')"
+        " + glob.glob(root + '/tools/*_torch.py'))\n"
+        "assert len(paths) >= 10, paths\n"
+        "for p in paths:\n"
+        "    spec = importlib.util.spec_from_file_location("
+        "'m_' + os.path.basename(p)[:-3], p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -177,11 +186,16 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_port_sources_name_neither_jax_nor_the_reference():
     """Lazy imports inside functions too: no import statement of the port,
-    of chip_smoke.py or of the port's event-protocol script names ``jax``
-    or ``repro``."""
+    of chip_smoke.py, of the port's event-protocol script or of the port's
+    examples and tools (``examples/*_torch.py``, ``tools/*_torch.py``)
+    names ``jax`` or ``repro``."""
     root = os.path.join(os.path.dirname(__file__), "..")
     files = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "tools", "event_table1.py")]
+    for d in ("examples", "tools"):
+        files += [os.path.join(root, d, n)
+                  for n in sorted(os.listdir(os.path.join(root, d)))
+                  if n.endswith("_torch.py")]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

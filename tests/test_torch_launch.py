@@ -15,13 +15,17 @@
   virtual CPU devices), the port's per-device argument bytes equal XLA's
   ``argument_size_in_bytes`` for train, prefill and decode, its
   per-device FLOPs are 1/8 of its one-device count, and prefill's and
-  decode's equal XLA's per-device count;
+  decode's equal XLA's per-device count; its collectives, item by item,
+  per kind and in link bytes, equal XLA's plus :func:`mini_terms`, the
+  named differences (ROADMAP C5);
 * the dry run's per-period shortcut equals a trace of the whole stack,
   and internlm2-1.8b's train_4k cell ends ``ok`` on ``meta``;
 * on ``meta`` the kernels' plain versions stand in for their launches,
   recorded by name, and the wrappers' launch counts do not move.
 """
+import collections
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -148,7 +152,7 @@ def prefill_terms(cfg, b: int, s: int) -> int:
 
 def train_terms(cfg, b: int, s: int) -> int:
     """The port's train-step FLOPs less the reference's at one device
-    (stacks of two or more periods), three products:
+    (stacks of two or more periods), four products:
 
     * ``blockwise_attention``'s score product ``einsum("bqhgd,bkhd->
       bhgqk")`` runs once more per attention call (self and cross): the
@@ -163,9 +167,24 @@ def train_terms(cfg, b: int, s: int) -> int:
       last of its period: the reference's checkpoint spans the period and
       recomputes it for the next layer; the port checkpoints each block,
       whose recompute stops before its last product:
-      - 2 b S d F per such layer (none for a period of one)."""
+      - 2 b S d F per such layer (none for a period of one);
+    * the tail, the n_layers % period layers after the last whole period
+      (gemma3-smoke: 8 layers in periods of 3, a tail of 2): the reference
+      applies it outside its per-period checkpoint, so it recomputes none
+      of its products; the port checkpoints every block, so each tail
+      block's forward runs once more (the two terms above count the tail
+      too: its attention's own recompute, and its recompute stopping
+      before wo): + 2 b S d (Hq + 2 Hkv) hd + 2 x 2 b Hq S S hd
+      + 2 b S Hq hd d + 3 x 2 b S d F per tail layer (attention and MLP
+      layers; no config has another kind in a tail)."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     period = cfg.period()
+    tail = kinds[len(kinds) - len(kinds) % period:]
+    assert all(k.endswith("attn_mlp") for k in tail), tail
+    hd, d = cfg.head_dim, cfg.d_model
+    block = (2 * b * s * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + 2 * 2 * b * cfg.n_heads * s * s * hd
+             + 2 * b * s * cfg.n_heads * hd * d + 3 * 2 * b * s * d * cfg.d_ff)
     calls = sum("mamba" not in k for k in kinds)
     if cfg.is_encoder_decoder:
         calls += cfg.n_layers + cfg.n_enc_layers   # cross + encoder
@@ -174,13 +193,15 @@ def train_terms(cfg, b: int, s: int) -> int:
               for i, k in enumerate(kinds))
     return (calls * 2 * b * cfg.n_heads * s * s * cfg.head_dim
             - mamba * 4 * b * s * cfg.ssm_heads * cfg.ssm_head_dim
-            - mlp * 2 * b * s * cfg.d_model * cfg.d_ff)
+            - mlp * 2 * b * s * cfg.d_model * cfg.d_ff
+            + len(tail) * block)
 
 
 # jamba's MoE and Mamba layers stand for mixtral's and mamba2's (its
-# reference compile is the longest of the file, so theirs are not repeated)
+# reference compile is the longest of the file, so theirs are not
+# repeated); gemma3's stack ends in a tail after its last period
 @pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "jamba-1.5-large-398b",
-                                     "seamless-m4t-medium"])
+                                     "seamless-m4t-medium", "gemma3-1b"])
 def test_train_flops_equal_reference_plus_named_terms(arch_id):
     cfg = ref_get_arch(arch_id).smoke
     model = ref_build_model(cfg)
@@ -204,12 +225,43 @@ MINI_CFG = dict(name="t", family="dense", n_layers=2, d_model=32, n_heads=4,
 _MINI_SCRIPT = textwrap.dedent(f"""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import json, jax, numpy as np
+    import json, re, jax, numpy as np
     from jax.sharding import Mesh
     from repro import sharding as shd
     from repro.configs.base import ArchSpec, ShapeCell
     from repro.launch import hlo_cost, specs
     from repro.models import ModelConfig
+
+    # every collective of the HLO, as hlo_cost counts it: kind, group size
+    # (0 for a collective-permute), per-device bytes, times a step (the
+    # trip counts of the loops around it) and its op_name
+    def items(text):
+        mod, out = hlo_cost.HloModule(text), []
+
+        def walk(comp, mult):
+            for line in mod.comps.get(comp, []):
+                dm = hlo_cost._DEF_RE.match(line)
+                op = mod._operands_of(line)[0] if dm else ""
+                if op == "while":
+                    body = re.search(r"body=(%[\\w\\.\\-]+)", line).group(1)
+                    cond = re.search(r"condition=(%[\\w\\.\\-]+)",
+                                     line).group(1)
+                    walk(body, mult * mod.trip_count(cond))
+                elif op == "call":
+                    walk(re.search(r"to_apply=(%[\\w\\.\\-]+)", line).group(1),
+                         mult)
+                elif op == "conditional":
+                    raise AssertionError("a conditional in the mini HLO")
+                base = op[:-6] if op.endswith("-start") else op
+                if base in hlo_cost._COLLECTIVES:
+                    src = re.search(r'op_name="([^"]*)"', line)
+                    out.append([base, 0 if base == "collective-permute"
+                                else mod._group_size(line),
+                                hlo_cost.shape_bytes(dm.group(2)), mult,
+                                src.group(1) if src else ""])
+        walk(mod.entry, 1)
+        return out
+
     cfg = ModelConfig(**{MINI_CFG!r})
     arch = ArchSpec("mini", cfg, cfg, False)
     mesh = Mesh(np.asarray(jax.devices()).reshape(4, 2), ("data", "model"))
@@ -225,19 +277,28 @@ _MINI_SCRIPT = textwrap.dedent(f"""
         st = hlo_cost.analyze_text(comp.as_text())
         out[step] = {{"args": comp.memory_analysis().argument_size_in_bytes,
                       "flops": st.flops, "counts": st.coll_counts,
-                      "link": st.link_bytes}}
+                      "link": st.link_bytes,
+                      "items": items(comp.as_text())}}
     print("MINI " + json.dumps(out))
 """)
 
 
-def test_mini_mesh_argument_bytes_equal_xla():
+@pytest.fixture(scope="module")
+def mini_xla() -> dict:
+    """XLA's compile of the mini config's three steps on the (4, 2) mesh,
+    in one subprocess of 8 virtual CPU devices: argument bytes, FLOPs,
+    hlo_cost's collective counts and link bytes, and every collective."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", _MINI_SCRIPT], env=env,
                          capture_output=True, text=True, timeout=300)
     line = [x for x in out.stdout.splitlines() if x.startswith("MINI ")]
     assert line, out.stderr[-2000:]
-    xla = json.loads(line[0][5:])
+    return json.loads(line[0][5:])
+
+
+def test_mini_mesh_argument_bytes_equal_xla(mini_xla):
+    xla = mini_xla
     cfg = ModelConfig(**MINI_CFG)
     arch = ArchSpec("mini", cfg, cfg, False)
     for step in ("train", "prefill", "decode"):
@@ -249,6 +310,160 @@ def test_mini_mesh_argument_bytes_equal_xla():
         if step != "train":
             assert eight.flops == xla[step]["flops"], step
     assert xla["train"]["args"] == 34532
+
+
+AR, AG, RS, A2A, CP = ("all-reduce", "all-gather", "reduce-scatter",
+                       "all-to-all", "collective-permute")
+F32, BF16, I32 = 4, 2, 4
+
+
+def mini_terms(step: str, cfg, b: int, s: int, data: int,
+               model: int) -> list:
+    """The port's collectives less XLA's on the mini (data, model) mesh
+    (ROADMAP C5), as named terms: (name, XLA's items, the port's items),
+    an item (kind, group size, per-device bytes, times a step), the group
+    0 for a collective-permute (source-target pairs).  Every other
+    collective of the two programs is the same item on both sides: the
+    FSDP gathers of every leaf (forward, and the backward's), the LM
+    head's table and the row-parallel outputs.
+
+    * XLA:CPU runs bf16 dots in float32, so its activation collectives
+      carry float32; on the card they are bf16, as the port counts.
+    * XLA:CPU all-reduces the gradients over data (each layer's
+      model-shards in one merged all-reduce) and slices them, where FSDP
+      on the card reduce-scatters each leaf: twice the ring's link bytes.
+      Its combiner merges into these (and into the lookup's gradient) the
+      float32 partial sums of the loss and the gradient norm, 19 scalars.
+    * The loss's max, sum and the label's logit over the vocab-split
+      logits: reductions over a split dimension, which ``op_cost`` does
+      not follow (its rule 3's caveat): the port's count is low by these.
+    * The embedding lookup and decode's row-parallel products are
+      programs XLA's partitioner chose otherwise: it gathers the table's
+      vocab shards and the token ids, and in decode moves the small
+      activations instead of gathering the weights.
+    No collective comes from GQA's grouped heads: the all-to-alls and the
+    permute are the lookup's and decode's reshards."""
+    L, d, V, F = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = b * s
+    act = rows // data * d            # a (rows, d) activation, batch-split
+    table = V * d // model            # the table's model-shard
+    out = []
+    if step == "train":
+        out += [
+            ("row-parallel outputs (forward, attention's recompute) and "
+             "the column-parallel inputs' gradients (q/k/v, wi/wg, the LM "
+             "head): float32 on XLA:CPU; XLA merges q/k/v's into one and "
+             "wi/wg's into one",
+             [(AR, model, act * F32, 3 * L), (AR, model, 3 * act * F32, L),
+              (AR, model, 2 * act * F32, L), (AR, model, act * F32, 1)],
+             [(AR, model, act * BF16, 8 * L + 1)]),
+            ("gradients over data: XLA all-reduces each layer's "
+             "model-shards merged, the table's and the final norm's, with "
+             "19 float32 partial sums; the port reduce-scatters each leaf",
+             [(AR, data, ((2 * hq + 2 * hkv) * hd * d + 3 * d * F) // model
+               * F32 + 2 * d * F32, L),
+              (AR, data, table * F32 + 4 * F32, 1),
+              (AR, data, d * F32 + 6 * F32, 1), (AR, data, 2 * F32, 1)],
+             [(RS, data, n * F32 // data, L)
+              for n in (d * hq * hd // model, d * hkv * hd // model,
+                        d * hkv * hd // model, hq * hd * d // model,
+                        d * F // model, d * F // model, F * d // model, d,
+                        d)]
+             + [(RS, data, table * F32 // data, 1),
+                (RS, data, d * F32 // data, 1)]),
+            ("XLA gathers each layer's two RMSNorm scales twice in the "
+             "backward (the recompute's use and the transpose's)",
+             [(AG, data, d * F32, 2 * L)], []),
+            ("the loss's max, sum and label logit over the vocab-split "
+             "logits: reductions over a split dimension, not followed by "
+             "op_cost",
+             [(AR, model, rows // data * F32, 2),
+              (AR, model, rows // data * F32 + F32, 1)], []),
+        ]
+    elif step == "prefill":
+        out.append(("row-parallel outputs: float32 on XLA:CPU",
+                    [(AR, model, act * F32, 2 * L)],
+                    [(AR, model, act * BF16, 2 * L)]))
+    else:
+        out.append((
+            "decode's row-parallel products: XLA keeps wo's and the MLP's "
+            "wo's d split over data and moves the activations; the port "
+            "gathers the weights",
+            [(AG, data, b * hq // model * hd * F32, L),
+             (AR, model, b * d // data * F32, 2 * L),
+             (A2A, data, b * d // data * F32, 2 * L),
+             (AG, data, b * F // model * F32, L)],
+            [(AG, data, hq * hd // model * d * F32, L),
+             (AG, data, F // model * d * F32, L),
+             (AR, model, act * BF16, 2 * L)]))
+    if step == "decode":
+        out.append((
+            "decode's lookup: XLA also moves the token ids and their fill "
+            "mask, and reshards the rows to the batch layout",
+            [(CP, 0, b // data * I32, 1), (AG, data, b, 1),
+             (AG, model, b // data * model * I32, 1), (AG, model, b * I32, 1),
+             (A2A, data, b * d // data * F32, 1)], []))
+    else:
+        xla = [(AG, model, V * d // data * F32, 1),
+               (CP, 0, rows // data * I32, 1),
+               (AG, model, rows // data * model * I32, 1),
+               (AG, model, rows * d // data * F32, 1),
+               (A2A, data, rows * d // data * F32, 1)]
+        if step == "train":
+            xla += [(A2A, data, rows * d // data * F32, 1),
+                    (AR, model, V * d // data * F32 + 7 * F32, 1)]
+        out.append((
+            "the lookup: XLA gathers the table's vocab shards over model "
+            "(and the token ids), looks up with d split over data and "
+            "reshards the rows (the gradient back the same way); the port "
+            "looks up vocab-parallel and all-reduces the rows",
+            xla, [(AR, model, rows // data * d * F32, 1)]))
+    return out
+
+
+def _multiset(items) -> collections.Counter:
+    c = collections.Counter()
+    for kind, group, n, times in items:
+        c[(kind, group, float(n))] += times
+    return c
+
+
+def _link(key, times) -> float:
+    kind, k, n = key
+    return times * (n if kind == CP else op_cost.ring_link_bytes(kind, n, k))
+
+
+@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+def test_mini_mesh_collectives_equal_xla_plus_named_terms(mini_xla, step):
+    """Per kind, the count and the link bytes equal XLA's plus
+    :func:`mini_terms`, and so does every item: taking each term's items
+    away from both sides leaves the same collectives."""
+    cfg = ModelConfig(**MINI_CFG)
+    arch = ArchSpec("mini", cfg, cfg, False)
+    st = _count(specs.build_cell(arch, ShapeCell(step, 16, 8, step)), MINI)
+    port = _multiset((i["kind"], i["group"], i["bytes"], i["times"])
+                     for i in op_cost.collective_items(st))
+    xla = _multiset((k, g, n, t) for k, g, n, t, _ in mini_xla[step]["items"])
+    assert sum(_link(k, t) for k, t in xla.items()) == \
+        mini_xla[step]["link"]
+    terms = mini_terms(step, cfg, 8, 1 if step == "decode" else 16, 4, 2)
+    common_xla, common_port = xla.copy(), port.copy()
+    for _, x_items, p_items in terms:
+        common_xla.subtract(_multiset(x_items))
+        common_port.subtract(_multiset(p_items))
+    assert min(common_xla.values()) >= 0 and min(common_port.values()) >= 0
+    assert +common_xla == +common_port
+    term_x = sum((_multiset(x) for _, x, _ in terms), collections.Counter())
+    term_p = sum((_multiset(p) for _, _, p in terms), collections.Counter())
+    for kind in (AR, AG, RS, A2A, CP):
+        delta = sum(t for k, t in term_p.items() if k[0] == kind) - sum(
+            t for k, t in term_x.items() if k[0] == kind)
+        assert st.coll_counts.get(kind, 0) == \
+            mini_xla[step]["counts"].get(kind, 0) + delta, kind
+    assert st.link_bytes == mini_xla[step]["link"] + sum(
+        _link(k, t) for k, t in term_p.items()) - sum(
+        _link(k, t) for k, t in term_x.items())
 
 
 # ------------------------------------------------------------- the dry run
@@ -296,6 +511,38 @@ def test_full_cell_on_meta_ends_ok():
     assert roof["memory_analysis"]["fits"]
     assert roof["flops_per_chip"] > 0 and roof["dominant"] in (
         "compute", "memory", "collective")
+
+
+def test_debug_bytes_tool_itemizes_a_cell():
+    """``tools/debug_bytes_torch.py`` on a serving cell: its items sum to
+    the cell's totals, and it prints each table's top 12 in order."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "debug_bytes_torch.py")
+    spec = importlib.util.spec_from_file_location("debug_bytes_torch", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    st = tool.contributors("internlm2-1.8b", "prefill_32k", "serve")
+    items = op_cost.collective_items(st)
+    assert sum(st.op_flops.values()) == st.flops > 0
+    assert sum(st.op_bytes.values()) == pytest.approx(st.hbm_bytes, rel=1e-12)
+    assert sum(i["link_bytes"] for i in items) == pytest.approx(
+        st.link_bytes, rel=1e-12)
+    assert st.link_bytes > 0
+    lines = tool.main(["internlm2-1.8b", "prefill_32k", "serve"])
+    assert lines[0].startswith("total FLOPs")
+    heads = [i for i, x in enumerate(lines) if x.startswith("-- top ")]
+    assert [lines[i] for i in heads] == [
+        "-- top FLOPs by op", "-- top HBM bytes by op",
+        "-- top link bytes by collective"]
+    counts = [sum(1 for v in st.op_flops.values() if v),
+              sum(1 for v in st.op_bytes.values() if v),
+              sum(1 for i in items if i["times"])]
+    for a, b, n in zip(heads, heads[1:] + [len(lines)], counts):
+        values = [float(x.split()[0]) for x in lines[a + 1:b]]
+        assert len(values) == min(tool.TOP, n) > 0
+        assert values == sorted(values, reverse=True)
+    assert float(lines[heads[0] + 1].split()[0]) == pytest.approx(
+        max(st.op_flops.values()), rel=1e-3)
 
 
 def test_kernels_stand_in_on_meta_without_counting():

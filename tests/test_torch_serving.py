@@ -255,3 +255,27 @@ def test_multitier_with_aif_router_matches_reference():
     for t, rt in zip(tiers, ref_tiers):
         outs = {r.id: r.output for r in t.engine.completed}
         assert outs == {r.id: r.output for r in rt.engine.completed}
+
+
+def test_reference_keyword_names_speed_factor_and_cross_attention():
+    """The reference's keyword arguments (ROADMAP C7):
+    ``ServingEngine(..., speed_factor=)``, stored as the reference stores
+    it, and ``block_specs(..., cross_attention=)``, whose names equal the
+    reference's."""
+    import inspect
+
+    from repro.models.blocks import block_specs as ref_block_specs
+    from repro_torch.models.blocks import block_specs
+    cfg = ModelConfig(**TINY)
+    assert ServingEngine(cfg, speed_factor=2.0,
+                         device="cpu").speed_factor == 2.0
+    assert ServingEngine(cfg, device="cpu").speed_factor == \
+        inspect.signature(RefServingEngine).parameters[
+            "speed_factor"].default == 1.0
+    seamless = get_arch("seamless-m4t-medium").smoke
+    ref_seamless = ref_get_arch("seamless-m4t-medium").smoke
+    kind = seamless.layer_kind(0)
+    for cross in (False, True):
+        assert block_specs(seamless, kind, cross_attention=cross) == \
+            ref_block_specs(ref_seamless, kind, cross_attention=cross)
+    assert "cross" in block_specs(seamless, kind, cross_attention=True)
