@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -291,3 +292,17 @@ def decode_attend(cache: dict, q: torch.Tensor, *, full_ring: bool,
                                     position=cache["k"].shape[1] - 1)
     return ops.decode_attention(q, cache["k"], cache["v"], position=position,
                                 window=window)
+
+
+def decode_keys(position: np.ndarray, cache_len: int, full_ring: bool,
+                window: int) -> np.ndarray:
+    """The keys :func:`decode_attend` has kernel B5 read for each lane at
+    ``position`` (host integers) against a cache of ``cache_len`` slots:
+    every slot of a warm ring, else keys ``position - window + 1`` (0
+    without a window) to ``position``, of those the cache holds."""
+    if full_ring:
+        return np.full_like(position, cache_len)
+    last = np.minimum(position + 1, cache_len)
+    if window > 0:
+        return last - np.clip(position - window + 1, 0, last)
+    return last

@@ -41,6 +41,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import constrain_act
+from repro_torch.tracing import span
 
 MIXERS = ("attn", "swa", "lattn", "gattn", "encattn", "mamba")
 
@@ -196,12 +197,14 @@ class Block(nn.Module):
         if self.is_mamba:
             out, cache = self.mamba.prefill(h)
             return self._ffn(x + out.to(x.dtype)), cache
-        q, k, v = self.attn.qkv(h, positions)
-        mode, window = mask_args(cfg, self.kind)
-        out = ops.attention(q, k, v, causal=mode != "full", window=window)
-        x = x + self.attn.output(out).to(x.dtype)
-        cache = None if seq_len is None else attn_mod.fill_cache(
-            k, v, attn_mod.cache_len(cfg, layer_idx, seq_len))
+        with span("attn.prefill"):
+            q, k, v = self.attn.qkv(h, positions)
+            mode, window = mask_args(cfg, self.kind)
+            out = ops.attention(q, k, v, causal=mode != "full",
+                                window=window)
+            x = x + self.attn.output(out).to(x.dtype)
+            cache = None if seq_len is None else attn_mod.fill_cache(
+                k, v, attn_mod.cache_len(cfg, layer_idx, seq_len))
         if memory_kv is not None:
             x = self._cross(x, memory_kv, decode=False)
         return self._ffn(x), cache
@@ -225,13 +228,23 @@ class Block(nn.Module):
             pos_arr = position.to(x.device).reshape(-1, 1)
         else:
             pos_arr = torch.full((1, 1), int(position), device=x.device)
-        q, k, v = self.attn.qkv(h, pos_arr)
-        attn_mod.cache_write_decode(cache, k, v, position)
-        _, window = mask_args(cfg, self.kind)
-        full_ring = 0 < cache["k"].shape[1] <= window
-        out = attn_mod.decode_attend(cache, q, full_ring=full_ring,
-                                     position=position, window=window)
-        x = x + self.attn.output(out).to(x.dtype)
+        with span("attn.decode"):
+            q, k, v = self.attn.qkv(h, pos_arr)
+            attn_mod.cache_write_decode(cache, k, v, position)
+            _, full_ring, window = self.decode_reads(cache)
+            out = attn_mod.decode_attend(cache, q, full_ring=full_ring,
+                                         position=position, window=window)
+            x = x + self.attn.output(out).to(x.dtype)
         if memory_kv is not None:
             x = self._cross(x, memory_kv, decode=True)
         return self._ffn(x)
+
+    def decode_reads(self, cache: dict) -> tuple[int, bool, int] | None:
+        """What :meth:`decode` has kernel B5 read against ``cache``:
+        (cache_len, full_ring, window), a cache no longer than the window
+        being a warm ring; None for a Mamba block."""
+        if self.is_mamba:
+            return None
+        _, window = mask_args(self.cfg, self.kind)
+        n = cache["k"].shape[1]
+        return n, 0 < n <= window, window

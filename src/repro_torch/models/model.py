@@ -42,6 +42,9 @@ unless a sharding context is installed).
 """
 from __future__ import annotations
 
+import collections
+
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -241,6 +244,17 @@ class DecoderOnlyLM(_LM):
         for blk, cache in zip(self.layers, caches):
             x = blk.decode(x, cache, position)
         return self._head(x), caches
+
+    def decode_keys(self, caches: list, position: np.ndarray) -> np.ndarray:
+        """The keys a :meth:`decode_step` at ``position`` (host integers,
+        one a sequence) has kernel B5 read for each sequence, summed over
+        the layers (:meth:`Block.decode_reads`; layers that read alike are
+        counted together)."""
+        reads = collections.Counter(blk.decode_reads(cache)
+                                    for blk, cache in zip(self.layers, caches))
+        reads.pop(None, None)
+        return sum((n * attn_mod.decode_keys(position, *r)
+                    for r, n in reads.items()), np.zeros_like(position))
 
     def init_caches(self, batch_size: int, seq_len: int) -> list:
         """Zero caches shaped for decoding against a seq_len context."""

@@ -11,7 +11,11 @@ Flow (token-major priority, drop-on-overflow, Switch/GShard semantics):
 Every routed token counts toward the capacity: a serving engine's right-pad
 tokens at prefill and its idle lanes at decode too, as in the reference.
 Pads come after every real token in token-major order, so they never
-displace one.
+displace one.  A ``Moe`` counts, in a plain host integer, the rows its
+expert GEMMs ran (``rows``, E x C a dispatch, E x N a dense call); the
+spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+(:func:`repro_torch.tracing.span`) mark the four steps while a profiler
+records.
 
 Where the reference leans on XLA semantics the port spells them out:
   * ``jax.lax.top_k`` puts the lower expert first on equal probabilities
@@ -46,6 +50,7 @@ from torch import nn
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import constrain_named
+from repro_torch.tracing import span
 
 # Decode-sized batches can skip dispatch entirely (dense mode).  Off by
 # default, as in the reference; ``REPRO_MOE_DENSE_MAX=512`` turns it on for
@@ -108,6 +113,7 @@ class Moe(nn.Module):
         self.wo = layers.parameter((e, f, d), dtype, device)
         if cfg.shared_expert:
             self.shared = layers.Mlp(d, f, dtype, device)
+        self.rows = 0
 
     def init_weights(self, gen: torch.Generator) -> None:
         d, f = self.cfg.d_model, self.cfg.d_ff
@@ -121,19 +127,23 @@ class Moe(nn.Module):
         """xf (N, D) -> (probs (N, E) f32, gates (N, K) f32, expert_idx
         (N, K)): router logits in xf's type, softmax in float32, top k
         renormalized."""
-        logits = (xf @ self.router.to(xf.dtype)).float()
-        probs = torch.softmax(logits, dim=-1)
-        gates, expert_idx = top_k(probs, self.cfg.top_k)
-        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        with span("moe.route"):
+            logits = (xf @ self.router.to(xf.dtype)).float()
+            probs = torch.softmax(logits, dim=-1)
+            gates, expert_idx = top_k(probs, self.cfg.top_k)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
         return probs, gates, expert_idx
 
     def _ffn(self, xd: torch.Tensor) -> torch.Tensor:
         """The experts' gated MLP on (E, C, D) buffers, one batched matmul a
         weight."""
-        h = torch.bmm(xd, self.wi.to(xd.dtype))
-        g = layers.gate_act(torch.bmm(xd, self.wg.to(xd.dtype)),
-                            self.cfg.mlp_act)
-        return torch.bmm(h * g, self.wo.to(xd.dtype))
+        self.rows += xd.shape[0] * xd.shape[1]
+        with span("moe.experts"):
+            h = torch.bmm(xd, self.wi.to(xd.dtype))
+            g = layers.gate_act(torch.bmm(xd, self.wg.to(xd.dtype)),
+                                self.cfg.mlp_act)
+            return torch.bmm(h * g, self.wo.to(xd.dtype))
 
     def dense(self, xf: torch.Tensor, gates: torch.Tensor,
               expert_idx: torch.Tensor) -> torch.Tensor:
@@ -185,31 +195,33 @@ class Moe(nn.Module):
         e, k = self.cfg.n_experts, self.cfg.top_k
         n, d = xf.shape
         c = capacity(n, self.cfg)
-        slot = self.slots(expert_idx, c)
-        pair_token = torch.arange(n * k, device=xf.device) // k
-        # The dummy slot e*c takes every dropped pair and is sliced off; the
-        # capacity rows no pair fills read the zero row n of x_pad.
-        dispatch_tok = torch.full((e * c + 1,), n, dtype=torch.long,
-                                  device=xf.device)
-        dispatch_tok[slot] = pair_token
-        slot_gate = torch.zeros(e * c + 1, dtype=torch.float32,
-                                device=xf.device)
-        slot_gate[slot] = gates.reshape(-1)
-        x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-        xd = x_pad[dispatch_tok[:e * c]].reshape(e, c, d)
         pin = os.environ.get("REPRO_MOE_PIN", "off")
-        if pin in ("xd", "both"):
-            xd = constrain_named(xd, PIN_LOGICAL)
+        with span("moe.dispatch"):
+            slot = self.slots(expert_idx, c)
+            pair_token = torch.arange(n * k, device=xf.device) // k
+            # The dummy slot e*c takes every dropped pair and is sliced off;
+            # the capacity rows no pair fills read the zero row n of x_pad.
+            dispatch_tok = torch.full((e * c + 1,), n, dtype=torch.long,
+                                      device=xf.device)
+            dispatch_tok[slot] = pair_token
+            slot_gate = torch.zeros(e * c + 1, dtype=torch.float32,
+                                    device=xf.device)
+            slot_gate[slot] = gates.reshape(-1)
+            x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+            xd = x_pad[dispatch_tok[:e * c]].reshape(e, c, d)
+            if pin in ("xd", "both"):
+                xd = constrain_named(xd, PIN_LOGICAL)
         yd = self._ffn(xd)
-        if pin == "both":
-            yd = constrain_named(yd, PIN_LOGICAL)
-        yd = yd.reshape(e * c, d)
-        yw = yd * slot_gate[:e * c, None].to(yd.dtype)
-        yw = torch.cat([yw, yw.new_zeros((1, d))], dim=0)
-        pairs = yw[slot].reshape(n, k, d)
-        y = torch.zeros((n, d), dtype=xf.dtype, device=xf.device)
-        for j in range(k):
-            y = y + pairs[:, j].to(xf.dtype)
+        with span("moe.combine"):
+            if pin == "both":
+                yd = constrain_named(yd, PIN_LOGICAL)
+            yd = yd.reshape(e * c, d)
+            yw = yd * slot_gate[:e * c, None].to(yd.dtype)
+            yw = torch.cat([yw, yw.new_zeros((1, d))], dim=0)
+            pairs = yw[slot].reshape(n, k, d)
+            y = torch.zeros((n, d), dtype=xf.dtype, device=xf.device)
+            for j in range(k):
+                y = y + pairs[:, j].to(xf.dtype)
         return y
 
     def slots(self, expert_idx: torch.Tensor, c: int) -> torch.Tensor:

@@ -14,6 +14,32 @@ One engine wraps a model and maintains ``max_batch`` decode slots:
   * the engine exports queue depth and utilization so an AIF router can sit
     in front of a *fleet* of engines (:mod:`repro_torch.serving.multitier`).
 
+Counters (plain host integers, always on; a caller takes the difference of
+two :meth:`ServingEngine.counters` snapshots): steps, decode waves, the real
+prompt tokens and the bucket tokens prefilled, the lanes each wave computes
+(``max_batch``) and the live ones among them, and the keys kernel B5 is
+asked to read, summed over the layers (the model's ``decode_keys``: a
+lane's causal keys, cut to a windowed layer's window; retired and
+never-used lanes at their last position too), and those of live lanes.
+Requests carry ``submitted_at``, ``admitted_at`` and ``finished_at`` on
+``time.perf_counter()``.
+
+Spans (:func:`repro_torch.tracing.span`, recorded while a profiler is on),
+nested as they run::
+
+    engine.admit                            ServingEngine._admit
+      engine.prefill                        the model's prefill
+        attn.prefill                        each attention block
+        moe.route | moe.dispatch | moe.experts | moe.combine
+      engine.splice                         the b=1 caches into the slot
+      engine.first_token                    argmax + int(): waits for it
+    engine.wave                             the decode half of step()
+      engine.decode                         the model's decode: enqueued
+        attn.decode                         each attention block
+        moe.route | moe.dispatch | moe.experts | moe.combine
+      engine.sample                         argmax + host copy: waits
+      engine.retire                         the per-slot bookkeeping
+
 Ring KV caches are disabled inside the engine (``serve_ring_caches=False``)
 because admission right-pads prompts into full-length caches.  On the card
 every prefill attention is kernel B4, every decode attention kernel B5 and
@@ -36,6 +62,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import model_from_state_dict
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -44,12 +71,9 @@ class Request:
     tokens: list
     max_new_tokens: int = 16
     submitted_at: float = 0.0
+    admitted_at: float = 0.0
     finished_at: float = 0.0
     output: list = dataclasses.field(default_factory=list)
-
-    @property
-    def latency_s(self) -> float:
-        return self.finished_at - self.submitted_at
 
 
 class ServingEngine:
@@ -85,11 +109,17 @@ class ServingEngine:
                                        device=self.device)
         self.completed: list[Request] = []
         self.steps = 0
-        self.busy_steps = 0
+        self.busy_steps = 0        # decode waves
+        self.prompt_tokens = 0
+        self.bucket_tokens = 0
+        self.lanes = 0
+        self.live_lanes = 0
+        self.b5_keys = 0
+        self.live_keys = 0
 
     # ----------------------------------------------------------------- API
     def submit(self, req: Request):
-        req.submitted_at = time.time()
+        req.submitted_at = time.perf_counter()
         self.queue.append(req)
 
     @property
@@ -103,6 +133,14 @@ class ServingEngine:
     def utilization(self) -> float:
         return self.busy_steps / max(self.steps, 1)
 
+    def counters(self) -> dict:
+        """A snapshot of the engine's counters (see the module docstring)."""
+        return {"steps": self.steps, "waves": self.busy_steps,
+                "prompt_tokens": self.prompt_tokens,
+                "bucket_tokens": self.bucket_tokens, "lanes": self.lanes,
+                "live_lanes": self.live_lanes, "b5_keys": self.b5_keys,
+                "live_keys": self.live_keys}
+
     # ------------------------------------------------------------ admission
     def _bucket(self, n: int) -> int:
         b = 16
@@ -111,17 +149,24 @@ class ServingEngine:
         return min(b, self.max_len)
 
     def _admit(self, slot: int, req: Request):
-        n = len(req.tokens)
-        bucket = self._bucket(n)
-        toks = np.zeros((1, bucket), np.int64)
-        toks[0, :n] = req.tokens[:bucket]
-        logits, caches1 = self.model.prefill(
-            torch.from_numpy(toks).to(self.device), max_len=self.max_len,
-            last_index=n - 1)
-        first = torch.argmax(logits[:, -1], dim=-1)
-        _write_slot(self.caches, caches1, slot)
-        self.last_tokens[slot, 0] = first[0]
-        req.output.append(int(first[0]))
+        with span("engine.admit"):
+            req.admitted_at = time.perf_counter()
+            n = len(req.tokens)
+            bucket = self._bucket(n)
+            self.prompt_tokens += n
+            self.bucket_tokens += bucket
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :n] = req.tokens[:bucket]
+            with span("engine.prefill"):
+                logits, caches1 = self.model.prefill(
+                    torch.from_numpy(toks).to(self.device),
+                    max_len=self.max_len, last_index=n - 1)
+            with span("engine.splice"):
+                _write_slot(self.caches, caches1, slot)
+            with span("engine.first_token"):
+                first = torch.argmax(logits[:, -1], dim=-1)
+                self.last_tokens[slot, 0] = first[0]
+                req.output.append(int(first[0]))
         self.active[slot] = req
         self.positions[slot] = n
         self.remaining[slot] = req.max_new_tokens - 1
@@ -136,28 +181,38 @@ class ServingEngine:
 
         if self.active_count == 0:
             return []
-        self.busy_steps += 1
+        with span("engine.wave"):
+            self.busy_steps += 1
+            keys = self.model.decode_keys(self.caches, self.positions)
+            live = np.array([r is not None for r in self.active])
+            self.lanes += self.max_batch
+            self.live_lanes += int(live.sum())
+            self.b5_keys += int(keys.sum())
+            self.live_keys += int(keys[live].sum())
 
-        pos = torch.from_numpy(self.positions.copy()).to(self.device)
-        logits, self.caches = self.model.decode_step(self.last_tokens,
-                                                     self.caches, pos)
-        nxt = torch.argmax(logits[:, 0], dim=-1)
-        self.last_tokens = nxt[:, None]
-        nxt = nxt.cpu().numpy()
-        finished = []
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            req.output.append(int(nxt[slot]))
-            self.positions[slot] += 1
-            self.remaining[slot] -= 1
-            if (self.remaining[slot] <= 0
-                    or self.positions[slot] >= self.max_len - 1):
-                req.finished_at = time.time()
-                self.completed.append(req)
-                finished.append(req)
-                self.active[slot] = None
-        return finished
+            with span("engine.decode"):
+                pos = torch.from_numpy(self.positions.copy()).to(self.device)
+                logits, self.caches = self.model.decode_step(self.last_tokens,
+                                                             self.caches, pos)
+            with span("engine.sample"):
+                nxt = torch.argmax(logits[:, 0], dim=-1)
+                self.last_tokens = nxt[:, None]
+                nxt = nxt.cpu().numpy()
+            finished = []
+            with span("engine.retire"):
+                for slot, req in enumerate(self.active):
+                    if req is None:
+                        continue
+                    req.output.append(int(nxt[slot]))
+                    self.positions[slot] += 1
+                    self.remaining[slot] -= 1
+                    if (self.remaining[slot] <= 0
+                            or self.positions[slot] >= self.max_len - 1):
+                        req.finished_at = time.perf_counter()
+                        self.completed.append(req)
+                        finished.append(req)
+                        self.active[slot] = None
+            return finished
 
 
 def _write_slot(caches: list, caches1: list, slot: int) -> list:
