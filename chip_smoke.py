@@ -326,7 +326,20 @@ failure raising (exit code != 0):
 54. example attention times — B4 and B5 at serve_multitier's D = 8 and 12
    shapes in float32, beside their plain versions and SDPA, with the
    launches phase 53 counted at each head dim, under
-   ``serve_multitier_shapes`` in the B4 and B5 rows of the kernels line.
+   ``serve_multitier_shapes`` in the B4 and B5 rows of the kernels line;
+55. moe dispatch — one mixtral-8x7b MoE layer at its widths in bf16,
+   dropless (capacity factor 4.0 = E / k, as the benchmark's config), at
+   N = 8192, 4096, 64 and 8 tokens: ``Moe.dispatch`` (the kept pairs
+   packed by expert, three grouped products) against the capacity path it
+   replaced (:func:`capacity_dispatch`: (E, C, D) buffers, three ``bmm``)
+   within ``MOE_DISPATCH_TOL`` of max(1, |y|), every output finite; both
+   timed (the whole dispatch and the experts' products alone, queued)
+   beside the bound (the real pairs' operations at 989 TFLOP/s, or the
+   experts' weights read once at 3.35 TB/s, whichever is longer); at a
+   capacity factor of 1.0 a dispatch that drops pairs, its dropped tokens
+   exactly zero; ``grouped_mm`` in float32 against float64 per group, and
+   whether that call waited for the card (PyTorch's float32 route reads
+   the offsets on the host).
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -378,6 +391,13 @@ MOE_ARCH = "mixtral-8x7b"
 # weights in bf16, 0.5 GB of embeddings, 4.3 GB of KV cache at 8 lanes of
 # 8192), serving prompts past its sliding window of 4096
 MOE_LAYERS, MOE_MAX_LEN, MOE_WINDOW = 16, 8192, 4096
+# moe_dispatch: one mixtral-8x7b MoE layer at these token counts (a
+# longdoc prefill's bucket, a code prefill's, the decode waves' lanes); the
+# grouped dispatch against the capacity path within this share of
+# max(1, |y|): both sum in float32 and round each product to bf16, in
+# other orders
+MOE_DISPATCH_TOKENS = (8192, 4096, 64, 8)
+MOE_DISPATCH_TOL = 2e-2
 MOE_PROMPTS = (4200, 5001)     # prompt lengths drawn from [4200, 5001)
 ENCDEC_ARCH = "seamless-m4t-medium"
 JAMBA_ARCH = "jamba-1.5-large-398b"
@@ -4645,6 +4665,139 @@ def phase_dryrun_card(card: dict, meta: dict) -> None:
         raise AssertionError(f"dryrun_card: {problems}")
 
 
+def capacity_dispatch(port, xf: torch.Tensor, gates: torch.Tensor,
+                      expert_idx: torch.Tensor) -> torch.Tensor:
+    """The capacity path that ``Moe.dispatch``'s grouped products replaced:
+    every token gathered into (E, C, D) buffers (the rows no pair fills
+    zero), three ``bmm`` over every row, each slot's gated output gathered
+    back and summed in k order."""
+    from repro_torch.models import layers, moe
+    cfg = port.cfg
+    e, k = cfg.n_experts, cfg.top_k
+    n, d = xf.shape
+    c = moe.capacity(n, cfg)
+    slot = port.slots(expert_idx, c)
+    tok = torch.full((e * c + 1,), n, dtype=torch.long, device=xf.device)
+    tok[slot] = torch.arange(n * k, device=xf.device) // k
+    gate = torch.zeros(e * c + 1, dtype=torch.float32, device=xf.device)
+    gate[slot] = gates.reshape(-1)
+    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    xd = x_pad[tok[:e * c]].reshape(e, c, d)
+    h = torch.bmm(xd, port.wi.to(xd.dtype))
+    g = layers.gate_act(torch.bmm(xd, port.wg.to(xd.dtype)), cfg.mlp_act)
+    yd = torch.bmm(h * g, port.wo.to(xd.dtype)).reshape(e * c, d)
+    yw = torch.cat([yd * gate[:e * c, None].to(yd.dtype),
+                    yd.new_zeros((1, d))], dim=0)
+    pairs = yw[slot].reshape(n, k, d)
+    y = torch.zeros((n, d), dtype=xf.dtype, device=xf.device)
+    for j in range(k):
+        y = y + pairs[:, j].to(xf.dtype)
+    return y
+
+
+def phase_moe_dispatch() -> dict:
+    """The grouped dispatch against the capacity path on one mixtral-8x7b
+    MoE layer (see the module docstring, phase 55)."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).full, n_layers=1,
+                              capacity_factor=4.0, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    e, k, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    port = moe.Moe(cfg, device=DEVICE)
+    port.init_weights(gen)
+    problems, rows = [], {}
+    for n in MOE_DISPATCH_TOKENS:
+        x = torch.randn((n, d), generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        _, gates, idx = port.route(x)
+        got = port.dispatch(x, gates, idx)
+        want = capacity_dispatch(port, x, gates, idx)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        c = moe.capacity(n, cfg)
+        _, _, count = port._positions(idx)
+        offs = torch.cumsum(torch.clamp(count, max=c), 0, dtype=torch.int32)
+        xp = torch.randn((n * k, d), generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        xd = torch.randn((e, c, d), generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        grouped_ms, g_ahead = queued_ms(lambda: port.dispatch(x, gates, idx))
+        capacity_ms, c_ahead = queued_ms(
+            lambda: capacity_dispatch(port, x, gates, idx))
+        experts_ms, e_ahead = queued_ms(lambda: port._ffn(xp, offs))
+        bmm_ms, b_ahead = queued_ms(lambda: port._ffn(xd))
+        rows[n] = {
+            "capacity_rows": e * c, "packed_rows": n * k,
+            "kept_pairs": int(offs[-1]), "max_abs_diff": err,
+            "rel_diff": err / scale, "finite": bool(torch.isfinite(got).all()),
+            "dispatch_ms": {"grouped": grouped_ms, "capacity": capacity_ms},
+            "experts_ms": {"grouped": experts_ms, "capacity": bmm_ms},
+            "queued_ahead": g_ahead and c_ahead and e_ahead and b_ahead,
+            # the real pairs' operations at 989 TFLOP/s, or every expert's
+            # three weights read once at 3.35 TB/s
+            "bound_ms": 1e3 * max(3 * 2 * n * k * d * f / 989e12,
+                                  3 * e * d * f * 2 / 3.35e12)}
+        if err / scale > MOE_DISPATCH_TOL or not rows[n]["finite"]:
+            problems.append(f"N={n}: {rows[n]}")
+        del x, got, want, xp, xd
+        torch.cuda.empty_cache()
+    # a capacity that drops pairs: dropped tokens exactly zero
+    tight = moe.Moe(dataclasses.replace(cfg, capacity_factor=1.0),
+                    device=DEVICE)
+    tight.load_state_dict(port.state_dict())
+    x = torch.randn((4096, d), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    _, gates, idx = tight.route(x)
+    c = moe.capacity(4096, tight.cfg)
+    gone = (tight.slots(idx, c) == e * c).reshape(-1, k).all(-1)
+    got = tight.dispatch(x, gates, idx)
+    want = capacity_dispatch(tight, x, gates, idx)
+    drop = {"capacity": c, "tokens_dropped": int(gone.sum()),
+            "dropped_zero": bool((got[gone] == 0).all()),
+            "finite": bool(torch.isfinite(got).all()),
+            "rel_diff": (got.float() - want.float()).abs().max().item()
+            / max(1.0, want.float().abs().max().item())}
+    if not (drop["tokens_dropped"] and drop["dropped_zero"] and drop["finite"]
+            and drop["rel_diff"] <= MOE_DISPATCH_TOL):
+        problems.append(f"drops: {drop}")
+    del port, tight, x, got, want
+    torch.cuda.empty_cache()
+    # grouped_mm in float32: empty, unaligned and full groups
+    a = torch.randn((48, 64), generator=gen, device=DEVICE)
+    w = torch.randn((4, 64, 96), generator=gen, device=DEVICE)
+    offs = torch.tensor([3, 3, 17, 48], dtype=torch.int32, device=DEVICE)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = F.grouped_mm(a, w, offs=offs)
+        waited = False
+    except RuntimeError as exc:
+        if "synchroniz" not in str(exc):
+            raise
+        waited = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if waited:
+        y = F.grouped_mm(a, w, offs=offs)
+    bounds = [0] + offs.tolist()
+    ref = torch.cat([a[s:t].double() @ w[g].double() for g, (s, t) in
+                     enumerate(zip(bounds[:-1], bounds[1:]))])
+    f32 = {"max_abs_diff": (y.double() - ref).abs().max().item(),
+           "waited_for_card": waited}
+    if f32["max_abs_diff"] > 1e-4:
+        problems.append(f"float32: {f32}")
+    emit("moe_dispatch", nvidia_smi=smi_line(), arch=MOE_ARCH, rows=rows,
+         drops=drop, float32=f32, phase_s=time.perf_counter() - t0)
+    if problems:
+        raise AssertionError(f"moe_dispatch: {problems}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4731,6 +4884,7 @@ def main() -> int:
     for row in rows:
         if row["name"] in example:
             row["serve_multitier_shapes"] = example[row["name"]]
+    phase_moe_dispatch()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

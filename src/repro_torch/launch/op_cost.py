@@ -27,16 +27,16 @@ over on one device.
 3. Any other op: its output's layout is the union of its inputs'.  Its
    FLOPs divide by the union's size; its bytes are each operand's and
    output's bytes divided by that tensor's own layout size.
-4. A matmul (mm, addmm, bmm, baddbmm) whose parameter-derived operand is
-   split over tensor-parallel axes A along a contracted dimension: the
-   output drops A and is all-reduced over A (the row-parallel output, and
-   the column-parallel input's gradient).  Parameter-derived means a
-   parameter or a view or cast of one; its dimensions are followed
-   through those.
-5. A bmm whose parameter-derived operand is split over axes A along its
-   batch (expert) dimension while the other operand is not: that
-   operand is all-to-all'd over A and keeps A from then on (the MoE
-   dispatch).
+4. A matmul (mm, addmm, bmm, baddbmm, _grouped_mm) whose
+   parameter-derived operand is split over tensor-parallel axes A along
+   a contracted dimension: the output drops A and is all-reduced over A
+   (the row-parallel output, and the column-parallel input's gradient).
+   Parameter-derived means a parameter or a view or cast of one; its
+   dimensions are followed through those.
+5. A bmm or a grouped product whose parameter-derived operand is split
+   over axes A along its batch (expert) dimension while the other operand
+   is not: that operand is all-to-all'd over A and keeps A from then on
+   (the MoE dispatch).
 6. A lookup (aten.index) into a parameter split over A along the indexed
    dimension: the output takes the indices' layout and is all-reduced over
    A (the vocab-parallel embedding).  A lookup into an activation whose
@@ -75,7 +75,10 @@ rule's op and the parameter leaf behind it, its group and bytes
 (``tools/debug_bytes_torch.py`` prints the top of each).
 
 FLOPs are matmul-class only, by ``torch.utils.flop_counter``'s formulas
-(2mnk for a product), as the reference counts dots only.  A reduction over
+(2mnk for a product), as the reference counts dots only; a grouped
+product (the MoE's experts over packed rows) counts every row of its
+jagged operand, the rows past its last offset too, since a trace on
+``meta`` has no offsets to read.  A reduction over
 a split dimension (a softmax over vocab-split logits, the grouped keys of
 GQA attention when the KV heads do not divide the axis) is not followed:
 its output keeps the union layout until a rule above or a constraint
@@ -107,6 +110,30 @@ _SCATTER = {aten.index_put_, aten.index_put, aten._index_put_impl_,
             aten.scatter_add, aten.scatter_, aten.scatter}
 #: Nodes with this many cards share NVLink; larger groups cross nodes.
 NODE_CARDS = 8
+
+
+def _grouped_dims(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``_MATMUL``'s entry for a grouped product: b (G, K, N) holds the
+    groups in its batch dimension; with both operands 2-D the groups cut
+    the contracted dimension."""
+    return (0, 1, a.dim() - 1, b.dim() - 2, 0 if b.dim() == 3 else None)
+
+
+def _grouped_mm_flops(a, b, *args, out_val=None, **kwargs) -> int:
+    """2 x the multiply-adds of ``aten._grouped_mm`` over every row of its
+    jagged operand: (M, K) x (G, K, N), (P, T) x (T, Q) cut along T, and
+    (G, M, K) x (G, K, N) take 2 a.numel() N; (G, M, K) x (K, N) cut along
+    N takes 2 M K N."""
+    if a.dim() == 3 and b.dim() == 2:
+        return 2 * a.shape[1] * a.shape[2] * b.shape[1]
+    return 2 * a.numel() * b.shape[-1]
+
+
+def _flop_formula(packet):
+    if packet == aten._grouped_mm:
+        return _grouped_mm_flops
+    return flop_registry.get(packet)
+
 
 # op record kinds
 _OP, _INPLACE, _VIEW, _MM, _INDEX, _GATHER, _FACTORY, _ALLOC, _FREE, \
@@ -311,8 +338,9 @@ class _Recorder(TorchDispatchMode):
                     else _tensors(out, {}) if isinstance(out, (list, tuple))
                     else [])
         packet = func.overloadpacket
-        flops = (float(flop_registry[packet](*args, **kwargs, out_val=out))
-                 if packet in flop_registry else 0.0)
+        formula = _flop_formula(packet)
+        flops = (float(formula(*args, **kwargs, out_val=out))
+                 if formula is not None else 0.0)
         ins = tuple(self.rec(a) for a in flat_in)
         alias = _alias(func)
         ops = self.t.ops
@@ -337,8 +365,9 @@ class _Recorder(TorchDispatchMode):
             lead = bool(flat_out and flat_out[0].ndim
                         and flat_out[0].shape[0] in self.batch_rows)
             ops.append((_FACTORY, outs, lead))
-        elif packet in _MATMUL:
-            ia, ib, ca, cb, bd = _MATMUL[packet]
+        elif packet in _MATMUL or packet == aten._grouped_mm:
+            ia, ib, ca, cb, bd = (_MATMUL[packet] if packet in _MATMUL
+                                  else _grouped_dims(args[0], args[1]))
             ops.append((_MM, flops, ins, outs, self.rec(args[ia]),
                         self.rec(args[ib]), ca, cb, bd, packet.__name__))
         elif packet == aten.index and isinstance(args[1], (list, tuple)):
@@ -408,7 +437,7 @@ class FlopCount(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        formula = flop_registry.get(func.overloadpacket)
+        formula = _flop_formula(func.overloadpacket)
         if formula is not None:
             self.flops += float(formula(*args, **kwargs, out_val=out))
         return out

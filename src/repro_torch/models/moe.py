@@ -5,14 +5,17 @@ Flow (token-major priority, drop-on-overflow, Switch/GShard semantics):
   1. router logits -> softmax -> top-k experts + renormalized gates;
   2. position-in-expert via a cumulative count over the (token, k) pairs;
   3. pairs at a position >= capacity are dropped;
-  4. tokens are gathered into (E, C, D) buffers, the expert FFN runs as one
-     batched matmul, and each token sums its kept pairs' gated outputs.
+  4. the kept pairs are packed by expert into N x K rows (expert e's group
+     ends at ``offs[e]``, the cumulative kept counts), the expert FFN runs
+     as three grouped products over those rows
+     (``torch.nn.functional.grouped_mm``), and each token sums its kept
+     pairs' gated outputs.
 
 Every routed token counts toward the capacity: a serving engine's right-pad
 tokens at prefill and its idle lanes at decode too, as in the reference.
 Pads come after every real token in token-major order, so they never
 displace one.  A ``Moe`` counts, in a plain host integer, the rows its
-expert GEMMs ran (``rows``, E x C a dispatch, E x N a dense call); the
+expert GEMMs ran (``rows``, N x K a dispatch, E x N a dense call); the
 spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
 (:func:`repro_torch.tracing.span`) mark the four steps while a profiler
 records.
@@ -21,25 +24,29 @@ Where the reference leans on XLA semantics the port spells them out:
   * ``jax.lax.top_k`` puts the lower expert first on equal probabilities
     (bf16 router logits tie often); ``torch.topk`` promises no order, so
     the top k come from a stable descending sort.
+  * The reference gathers tokens into (E, C, D) capacity buffers and runs
+    every row, C = N in a dropless config, so three quarters of a top-2 of
+    8 config's rows are zeros.  Here only the kept pairs' rows run: the
+    products give the same values for them, and the empty rows are never
+    made.  The packed rows past ``offs[-1]`` (the dropped pairs' share) are
+    left undefined by ``grouped_mm``; nothing reads them.
   * The reference's scatter ``mode="drop"`` sends dropped pairs out of
-    bounds; here they go to a dummy slot ``E*C`` that is sliced off.
+    bounds; here they go to a dummy row ``N*K`` that is sliced off, and in
+    the combine to a zero row, so a dropped pair adds exactly zero.
   * The reference's combine is a scatter-add in no set order; here each
     token gathers its k pairs and adds them in k order from zero, with no
     float atomics.  For k <= 2 (every config of the repo) that is the
     scatter-add's result to the bit, and two launches give the same bits.
 
-``REPRO_MOE_PIN`` (read at each call) pins the dispatch buffers' layout
-through :func:`repro_torch.sharding.constrain_named`, experts over
-"model" and capacity over "data": ``xd`` pins the gathered (E, C, D)
-buffer, ``both`` the experts' output too, ``off`` neither.  The default
-is ``off``, as the reference's code reads it (its comment names ``xd``
-the default; its code does not).  Without an installed
-:class:`repro_torch.sharding.activation_constraints` the pin is the
-identity.  The expert FFN is XLA in the reference, outside any Pallas
-kernel, and stays a batched matmul here.
+The expert FFN is XLA in the reference, outside any Pallas kernel; here it
+is PyTorch's grouped GEMM over the packed rows (the dense switch keeps a
+batched matmul over every expert).  The reference's ``REPRO_MOE_PIN``
+pins its (E, C, D) buffers' layout; the packed rows have no expert axis
+to pin, so the port has no such switch.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -49,7 +56,6 @@ from torch import nn
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding import constrain_named
 from repro_torch.tracing import span
 
 # Decode-sized batches can skip dispatch entirely (dense mode).  Off by
@@ -68,10 +74,6 @@ def moe_specs(cfg: ModelConfig) -> dict:
     if cfg.shared_expert:
         p["shared"] = layers.mlp_specs()
     return p
-
-
-#: The dispatch buffer's logical layout under ``REPRO_MOE_PIN``.
-PIN_LOGICAL = ("experts", "act_capacity", None)
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -135,15 +137,22 @@ class Moe(nn.Module):
                                         min=1e-9)
         return probs, gates, expert_idx
 
-    def _ffn(self, xd: torch.Tensor) -> torch.Tensor:
-        """The experts' gated MLP on (E, C, D) buffers, one batched matmul a
-        weight."""
-        self.rows += xd.shape[0] * xd.shape[1]
+    def _ffn(self, xd: torch.Tensor,
+             offs: torch.Tensor | None = None) -> torch.Tensor:
+        """The experts' gated MLP: on (E, R, D) buffers, one batched matmul
+        a weight; given ``offs``, on (R, D) rows packed by expert (group e
+        ends at ``offs[e]``), one grouped product a weight."""
+        if offs is None:
+            self.rows += xd.shape[0] * xd.shape[1]
+            mm = torch.bmm
+        else:
+            self.rows += xd.shape[0]
+            mm = functools.partial(F.grouped_mm, offs=offs)
         with span("moe.experts"):
-            h = torch.bmm(xd, self.wi.to(xd.dtype))
-            g = layers.gate_act(torch.bmm(xd, self.wg.to(xd.dtype)),
+            h = mm(xd, self.wi.to(xd.dtype))
+            g = layers.gate_act(mm(xd, self.wg.to(xd.dtype)),
                                 self.cfg.mlp_act)
-            return torch.bmm(h * g, self.wo.to(xd.dtype))
+            return mm(h * g, self.wo.to(xd.dtype))
 
     def dense(self, xf: torch.Tensor, gates: torch.Tensor,
               expert_idx: torch.Tensor) -> torch.Tensor:
@@ -191,46 +200,52 @@ class Moe(nn.Module):
     def dispatch(self, xf: torch.Tensor, gates: torch.Tensor,
                  expert_idx: torch.Tensor) -> torch.Tensor:
         """The capacity path: (N, D) tokens -> (N, D) gated expert outputs,
-        dropped pairs contributing zero."""
-        e, k = self.cfg.n_experts, self.cfg.top_k
+        dropped pairs contributing zero.  The pairs :meth:`slots` keeps are
+        packed by expert into N*K rows; nothing waits for the counts on the
+        host."""
+        k = self.cfg.top_k
         n, d = xf.shape
         c = capacity(n, self.cfg)
-        pin = os.environ.get("REPRO_MOE_PIN", "off")
         with span("moe.dispatch"):
-            slot = self.slots(expert_idx, c)
-            pair_token = torch.arange(n * k, device=xf.device) // k
-            # The dummy slot e*c takes every dropped pair and is sliced off;
-            # the capacity rows no pair fills read the zero row n of x_pad.
-            dispatch_tok = torch.full((e * c + 1,), n, dtype=torch.long,
-                                      device=xf.device)
-            dispatch_tok[slot] = pair_token
-            slot_gate = torch.zeros(e * c + 1, dtype=torch.float32,
-                                    device=xf.device)
-            slot_gate[slot] = gates.reshape(-1)
+            e_flat, pos, count = self._positions(expert_idx)
+            kept = torch.clamp(count, max=c)
+            offs = torch.cumsum(kept, 0, dtype=torch.int32)
+            # a kept pair's row is its expert's start plus its position; the
+            # dummy row n*k takes every dropped pair and is sliced off
+            row = torch.where(pos < c, (offs - kept)[e_flat] + pos, n * k)
+            pack_tok = torch.full((n * k + 1,), n, dtype=torch.long,
+                                  device=xf.device)
+            pack_tok[row] = torch.arange(n * k, device=xf.device) // k
+            # the rows past offs[-1] read the zero row n of x_pad, so their
+            # undefined gradients land on it and are dropped
             x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-            xd = x_pad[dispatch_tok[:e * c]].reshape(e, c, d)
-            if pin in ("xd", "both"):
-                xd = constrain_named(xd, PIN_LOGICAL)
-        yd = self._ffn(xd)
+            xp = x_pad[pack_tok[:n * k]]
+        yp = self._ffn(xp, offs)
         with span("moe.combine"):
-            if pin == "both":
-                yd = constrain_named(yd, PIN_LOGICAL)
-            yd = yd.reshape(e * c, d)
-            yw = yd * slot_gate[:e * c, None].to(yd.dtype)
-            yw = torch.cat([yw, yw.new_zeros((1, d))], dim=0)
-            pairs = yw[slot].reshape(n, k, d)
+            # a dropped pair selects the zero row n*k, never a row past
+            # offs[-1], whose values grouped_mm leaves undefined
+            yp = torch.cat([yp, yp.new_zeros((1, d))], dim=0)
+            pairs = yp[row].reshape(n, k, d) * gates.to(yp.dtype)[..., None]
             y = torch.zeros((n, d), dtype=xf.dtype, device=xf.device)
             for j in range(k):
                 y = y + pairs[:, j].to(xf.dtype)
         return y
 
-    def slots(self, expert_idx: torch.Tensor, c: int) -> torch.Tensor:
-        """Each (token, k) pair's buffer slot ``expert * c + position``,
-        positions counted in token-major order; ``E * c`` (dropped) where
-        the position reaches ``c``."""
+    def _positions(self, expert_idx: torch.Tensor):
+        """Each (token, k) pair's expert and its position among the
+        expert's pairs, counted in token-major order, and each expert's
+        count of pairs."""
         e = self.cfg.n_experts
         e_flat = expert_idx.reshape(-1)
         # (E, N*K), so the running count is a scan along contiguous rows
         onehot = (e_flat == torch.arange(e, device=e_flat.device)[:, None])
-        pos = (torch.cumsum(onehot, dim=1) - 1).gather(0, e_flat[None])[0]
-        return torch.where(pos < c, e_flat * c + pos, e * c)
+        run = torch.cumsum(onehot, dim=1)
+        pos = (run - 1).gather(0, e_flat[None])[0]
+        return e_flat, pos, run[:, -1]
+
+    def slots(self, expert_idx: torch.Tensor, c: int) -> torch.Tensor:
+        """Each (token, k) pair's buffer slot ``expert * c + position``,
+        positions counted in token-major order; ``E * c`` (dropped) where
+        the position reaches ``c``."""
+        e_flat, pos, _ = self._positions(expert_idx)
+        return torch.where(pos < c, e_flat * c + pos, self.cfg.n_experts * c)

@@ -333,9 +333,9 @@ def _constrain(x, logical: tuple):
 
 def constrain_named(x, logical: tuple):
     """Constrain a tensor by explicit logical axis names (the identity
-    without a context).  The MoE dispatch path uses it under
-    ``REPRO_MOE_PIN``: (experts, capacity, embed) buffers with capacity
-    over "data"."""
+    without a context).  The reference's MoE dispatch uses it under
+    ``REPRO_MOE_PIN`` on its (experts, capacity, embed) buffers; the port's
+    dispatch packs its rows with no expert axis and pins nothing."""
     return _constrain(x, tuple(logical))
 
 

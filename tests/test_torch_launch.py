@@ -47,6 +47,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.kernels.attention import flash
 from repro_torch.launch import dryrun, op_cost, specs
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import Mesh
 from repro_torch.training.train_step import TrainConfig
@@ -124,9 +125,11 @@ def test_serving_flops_equal_reference(arch_id):
     arch = _smoke(arch_id)
     got_pre = _count(specs.build_cell(arch, ShapeCell("p", S, B, "prefill")))
     got_dec = _count(specs.build_cell(arch, ShapeCell("d", S, B, "decode")))
+    smoke = get_arch(arch_id).smoke
     assert got_pre.flops == analyze_text(pre.as_text()).flops + \
-        prefill_terms(get_arch(arch_id).smoke, B, S)
-    assert got_dec.flops == analyze_text(dec.as_text()).flops
+        prefill_terms(smoke, B, S) + moe_terms(smoke, B * S)
+    assert got_dec.flops == analyze_text(dec.as_text()).flops + \
+        moe_terms(smoke, B)
     # the kernels' plain versions stood in, once a layer of their kind
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     n_attn = sum("mamba" not in k for k in kinds) * (
@@ -148,6 +151,22 @@ def prefill_terms(cfg, b: int, s: int) -> int:
         return 0
     return -cfg.n_layers * 2 * 2 * b * s * cfg.d_model * (
         cfg.n_kv_heads * cfg.head_dim)
+
+
+def moe_terms(cfg, n: int, passes: int = 3) -> int:
+    """The port's FLOPs less the reference's in the MoE layers at one
+    device, for calls over n tokens.  The reference's experts run every
+    row of their (E, C, D) capacity buffers, the port's grouped products
+    the N K rows the pairs are packed into (``models/moe.py``; ROADMAP
+    C9), in each of ``passes`` products a layer (the three of the FFN at
+    prefill and decode; in training also their recompute and two
+    gradients each: 12):
+    - passes x 2 (E C(n) - n K) d F per MoE layer."""
+    if not cfg.n_experts:
+        return 0
+    layers = sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
+    rows = cfg.n_experts * moe.capacity(n, cfg) - n * cfg.top_k
+    return -layers * passes * 2 * rows * cfg.d_model * cfg.d_ff
 
 
 def train_terms(cfg, b: int, s: int) -> int:
@@ -214,7 +233,9 @@ def test_train_flops_equal_reference_plus_named_terms(arch_id):
     cell = specs.build_train_cell(_smoke(arch_id), ShapeCell(
         "t", S, B, "train"), tcfg=TrainConfig())
     got = _count(cell)
-    assert got.flops == ref + train_terms(get_arch(arch_id).smoke, B, S)
+    smoke = get_arch(arch_id).smoke
+    assert got.flops == ref + train_terms(smoke, B, S) + moe_terms(
+        smoke, B * S, passes=12)
     assert got.launches == {}          # training launches no kernel
 
 

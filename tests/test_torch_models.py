@@ -76,13 +76,14 @@ def _caches_close(port, ref_tree, cfg):
 def test_prefill_and_ragged_decode_match_reference(arch_id, monkeypatch):
     ref_cfg, cfg = _cfgs(arch_id)
     dropped = []          # pairs each MoE layer drops past its capacity
-    slots = moe.Moe.slots
+    dispatch = moe.Moe.dispatch
 
-    def counting_slots(self, expert_idx, c):
-        out = slots(self, expert_idx, c)
-        dropped.append(int((out == cfg.n_experts * c).sum()))
-        return out
-    monkeypatch.setattr(moe.Moe, "slots", counting_slots)
+    def counting_dispatch(self, xf, gates, expert_idx):
+        c = moe.capacity(xf.shape[0], self.cfg)
+        slot = self.slots(expert_idx, c)
+        dropped.append(int((slot == cfg.n_experts * c).sum()))
+        return dispatch(self, xf, gates, expert_idx)
+    monkeypatch.setattr(moe.Moe, "dispatch", counting_dispatch)
     ref_model = ref_build_model(ref_cfg)
     params = jax.jit(ref_model.init)(jax.random.key(1))
     sd, _ = lm_to_port(cfg, params)

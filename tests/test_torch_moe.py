@@ -8,9 +8,21 @@ the reference's ``apply_moe``, with the reference's weights carried across
   top-2 with drops and on top-1 with a shared expert;
 * the dense switch (``_dense_moe``) against the reference's;
 * a forced tie in the router: the lower expert first, as ``jax.lax.top_k``;
-* the combine: each token's k pairs summed in k order equal a scatter-add
-  to the bit, and two calls give the same bits.
+* the grouped dispatch (the kept pairs packed by expert, three grouped
+  products) against the capacity formulation it replaced ((E, C, D)
+  buffers, three ``bmm``, the k-order combine), kept here as its plain
+  version: within rtol 1e-4 / atol 1e-5 on every case above, a dropless
+  one and one where an expert gets no pair, dropped tokens exactly zero,
+  every output finite (the packed rows past the last group, which
+  ``grouped_mm`` leaves undefined, made NaN) and the gradients of every
+  input and weight alike;
+* the combine over the packed rows: each token's k pairs summed in k order
+  equal a scatter-add to the bit, and two calls give the same bits;
+* the host's cost: one ``Moe.forward`` issues no more aten ops than the
+  capacity path did, at a decode and a prefill shape.
 """
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +31,9 @@ import torch
 
 from repro.models import moe as ref_moe
 from repro.models.config import ModelConfig as RefModelConfig
-from repro_torch.models import moe
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 from torch_port_ref import moe_to_port, t2n
 
@@ -143,23 +157,143 @@ def test_forced_tie_takes_the_lower_expert_first():
                                   np.all(np.asarray(y_ref) == 0, -1))
 
 
-def test_combine_equals_scatter_add_to_the_bit():
-    kw, shape = CASES["top2_drops"]
-    _, cfg, _, port, x = _setup(kw, shape, 2)
-    xf = torch.from_numpy(x).reshape(-1, cfg.d_model)
-    _, gates, idx = port.route(xf)
-    got = port.dispatch(xf, gates, idx)
-    assert torch.equal(got, port.dispatch(xf, gates, idx))
-    # the reference's combine, a scatter-add of every slot's gated output
-    n, e, k = xf.shape[0], cfg.n_experts, cfg.top_k
+def _capacity_dispatch(port, xf, gates, idx):
+    """The capacity formulation, as ``Moe.dispatch`` ran before its
+    grouped products: every token gathered into (E, C, D) buffers (empty
+    rows zero), three ``bmm`` over every row, the gated outputs gathered
+    back and summed in k order."""
+    cfg = port.cfg
+    n, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
     c = moe.capacity(n, cfg)
     slot = port.slots(idx, c)
     tok = torch.full((e * c + 1,), n, dtype=torch.long)
     tok[slot] = torch.arange(n * k) // k
     gate = torch.zeros(e * c + 1)
     gate[slot] = gates.reshape(-1)
-    x_pad = torch.cat([xf, xf.new_zeros((1, cfg.d_model))])
-    yd = port._ffn(x_pad[tok[:e * c]].reshape(e, c, -1)).reshape(e * c, -1)
-    want = torch.zeros((n + 1, cfg.d_model)).index_add_(
-        0, tok[:e * c], yd * gate[:e * c, None])[:n]
+    xd = torch.cat([xf, xf.new_zeros((1, d))])[tok[:e * c]].reshape(e, c, d)
+    h = torch.bmm(xd, port.wi)
+    g = layers.gate_act(torch.bmm(xd, port.wg), cfg.mlp_act)
+    yd = torch.bmm(h * g, port.wo).reshape(e * c, d)
+    yw = torch.cat([yd * gate[:e * c, None], yd.new_zeros((1, d))])
+    pairs = yw[slot].reshape(n, k, d)
+    y = torch.zeros((n, d))
+    for j in range(k):
+        y = y + pairs[:, j]
+    return y, slot == e * c
+
+
+DISPATCH_CASES = dict(
+    {name: (kw, shape, False) for name, (kw, shape) in CASES.items()},
+    dropless=(dict(d_model=32, d_ff=48, n_experts=4, top_k=2,
+                   capacity_factor=2.0), (2, 40), False),
+    empty_expert=(dict(d_model=32, d_ff=48, n_experts=4, top_k=2,
+                       capacity_factor=0.75), (2, 40), True))
+
+
+def _nan_past_last_group(grouped_mm):
+    """``grouped_mm`` with the rows past ``offs[-1]``, which it leaves
+    undefined, set to NaN: a dispatch that reads one, even gated by zero,
+    turns non-finite."""
+    def wrapped(a, b, *, offs=None, **kw):
+        out = grouped_mm(a, b, offs=offs, **kw)
+        out[int(offs[-1]):] = float("nan")
+        return out
+    return wrapped
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_grouped_dispatch_matches_capacity_path(case, monkeypatch):
+    monkeypatch.setattr(torch.nn.functional, "grouped_mm",
+                        _nan_past_last_group(torch.nn.functional.grouped_mm))
+    kw, shape, no_expert_0 = DISPATCH_CASES[case]
+    _, cfg, _, port, x = _setup(kw, shape, 4)
+    xf = torch.from_numpy(x).reshape(-1, cfg.d_model)
+    _, gates, idx = port.route(xf)
+    if no_expert_0:      # route every pair to experts 1..E-1: expert 0 idle
+        rng = np.random.default_rng(4)
+        idx = torch.from_numpy(np.stack([
+            rng.choice(np.arange(1, cfg.n_experts), cfg.top_k, replace=False)
+            for _ in range(xf.shape[0])]))
+    leaves = [t.requires_grad_() for t in (xf, gates, port.wi, port.wg,
+                                           port.wo)]
+    got = port.dispatch(xf, gates, idx)
+    want, dropped = _capacity_dispatch(port, xf, gates, idx)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(t2n(got), t2n(want), rtol=RTOL, atol=ATOL)
+    # the training path's gradients (Moe.apply), every leaf
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(got.shape)).astype(np.float32))
+    for a, b in zip(torch.autograd.grad(got, leaves, v),
+                    torch.autograd.grad(want, leaves, v)):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(t2n(a), t2n(b), rtol=RTOL, atol=ATOL)
+    got = got.detach()
+    gone = dropped.reshape(-1, cfg.top_k).all(-1)
+    assert (got[gone] == 0).all()
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    if case == "dropless":
+        assert not dropped.any()
+    elif case in ("drop_semantics", "top2_drops", "empty_expert"):
+        assert gone.any()             # tight capacity drops whole tokens
+    if no_expert_0:
+        assert counts[0] == 0
+
+
+def test_combine_equals_scatter_add_to_the_bit():
+    """Over the packed rows: each kept pair's gated output added into its
+    token by a scatter-add, from the same grouped products, equals the
+    k-order combine to the bit."""
+    kw, shape = CASES["top2_drops"]
+    _, cfg, _, port, x = _setup(kw, shape, 2)
+    xf = torch.from_numpy(x).reshape(-1, cfg.d_model)
+    _, gates, idx = port.route(xf)
+    got = port.dispatch(xf, gates, idx)
+    assert torch.equal(got, port.dispatch(xf, gates, idx))
+    # packed rows: the kept pairs in order of their capacity slot, that is
+    # by expert and then by position
+    n, e, k = xf.shape[0], cfg.n_experts, cfg.top_k
+    c = moe.capacity(n, cfg)
+    slot = port.slots(idx, c)
+    kept = torch.nonzero(slot < e * c)[:, 0]
+    kept = kept[torch.argsort(slot[kept])]
+    tok = kept // k
+    offs = torch.cumsum(torch.bincount(idx.reshape(-1)[kept], minlength=e),
+                        0).to(torch.int32)
+    xp = torch.cat([xf[tok], xf.new_zeros((n * k - len(kept), cfg.d_model))])
+    yp = port._ffn(xp, offs)[:len(kept)]
+    want = torch.zeros((n, cfg.d_model)).index_add_(
+        0, tok, yp * gates.reshape(-1)[kept, None])
+    assert len(kept) < n * k          # the case drops pairs
     assert torch.equal(got, want)
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[func.overloadpacket.__name__] += 1
+        return func(*args, **(kwargs or {}))
+
+
+# The aten ops one Moe.forward issued on the capacity path (three bmm over
+# (E, C, D) buffers; the parent commit of the grouped dispatch), counted
+# with this test's counter and config: 58 at both shapes.  A decode wave is
+# bound by the host's enqueue, so the dispatch may not issue more.
+CAPACITY_PATH_OPS = 58
+
+
+@pytest.mark.parametrize("n", [8, 512])
+def test_forward_issues_no_more_ops_than_the_capacity_path(n):
+    cfg = ModelConfig(name="m", family="moe", n_layers=1, n_heads=2,
+                      n_kv_heads=2, vocab_size=64, d_model=64, d_ff=96,
+                      n_experts=4, top_k=2, capacity_factor=2.0)
+    port = moe.Moe(cfg)
+    port.init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(1, n, cfg.d_model).to(torch.bfloat16)
+    with torch.no_grad(), _CountOps() as count:
+        port(x)
+    assert count.ops["_grouped_mm"] == 3 and count.ops["bmm"] == 0
+    assert sum(count.ops.values()) <= CAPACITY_PATH_OPS, count.ops

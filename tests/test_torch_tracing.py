@@ -9,7 +9,8 @@
 * the engine's counters equal the values worked out by hand from a scripted
   run's prompts, buckets and positions (retired and never-used lanes' keys
   included; full causal, windowed and warm-ring layers), and the MoE's rows
-  equal E x capacity(N) a call;
+  equal the N x top_k packed rows its grouped products run a call (E x N
+  on the dense switch);
 * two identical scripted runs count the same.
 """
 import dataclasses
@@ -168,10 +169,10 @@ def test_engine_counters_follow_prompts_buckets_and_positions(attn):
     assert [len(r.output) for r in (a, b, d)] == [3, 2, 4]
     for r in (a, b, d):
         assert t0 <= r.submitted_at <= r.admitted_at <= r.finished_at <= t1
-    # each prefill routes its bucket, each wave all 3 lanes, in each layer
+    # each prefill routes its bucket, each wave all 3 lanes, in each layer:
+    # top_k packed rows a token
     cfg = engine.cfg
-    rows = sum(cfg.n_experts * moe_mod.capacity(n, cfg)
-               for n in (16, 32, 16, 3, 3, 3, 3))
+    rows = sum(cfg.top_k * n for n in (16, 32, 16, 3, 3, 3, 3))
     moes = _moes(engine)
     assert len(moes) == cfg.n_layers
     assert sum(m.rows for m in moes) == cfg.n_layers * rows
@@ -193,13 +194,16 @@ def test_decode_keys_skip_mamba_layers_and_sum_the_others():
 
 @pytest.mark.parametrize("n", [1, 7, 40])
 def test_moe_rows_are_experts_times_capacity_a_call(n, monkeypatch):
+    """The rows the experts' products run: a dispatch's N x top_k packed
+    rows (no longer E x capacity(N): the grouped products skip the empty
+    capacity rows), E x N on the dense switch."""
     cfg = ModelConfig(**TINY_MOE)
     m = moe_mod.Moe(cfg)
     m.init_weights(torch.Generator().manual_seed(0))
     x = torch.randn(1, n, cfg.d_model)
     m(x)
     m(x)
-    assert m.rows == 2 * cfg.n_experts * moe_mod.capacity(n, cfg)
+    assert m.rows == 2 * n * cfg.top_k
     # the dense path runs every expert over every token
     monkeypatch.setattr(moe_mod, "DENSE_MODE_MAX_TOKENS", n)
     m.rows = 0
