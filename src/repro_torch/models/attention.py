@@ -94,7 +94,9 @@ class Attention(nn.Module):
     def qkv(self, x: torch.Tensor, positions: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hkv, hd), RoPE
-        applied at ``positions`` ((S,) or (B, S))."""
+        applied at ``positions`` ((S,) or (B, S)) unless the model has no
+        positional encoding.  A softmax scale ``cfg.attn_scale`` other than
+        the kernels' 1 / sqrt(hd) is folded into q here."""
         cfg = self.cfg
         q = self._project(x, self.wq)
         k = self._project(x, self.wk)
@@ -103,8 +105,11 @@ class Attention(nn.Module):
             q = q + self.bq.to(x.dtype)
             k = k + self.bk.to(x.dtype)
             v = v + self.bv.to(x.dtype)
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.position_embedding == "rope":
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.attn_scale:
+            q = q * (cfg.attn_scale * math.sqrt(cfg.head_dim))
         return q, k, v
 
     def project_q(self, x: torch.Tensor) -> torch.Tensor:

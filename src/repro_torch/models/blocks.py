@@ -8,8 +8,10 @@ attention → residual,] norm → FFN → residual).  Its kind comes from
 Mamba-2 mixer, whose cache is its SSM state and which ignores positions),
 and the FFN a gated MLP (``_mlp``) or a Mixture-of-Experts (``_moe``,
 :mod:`.moe`).  A bare ``mamba`` is a pure-mixer layer with no FFN (mamba2's
-blocks); the hybrid family (Jamba) mixes ``mamba_mlp``, ``mamba_moe`` and
-``attn_moe`` layers in one stack.  A
+blocks); the hybrid family (Jamba; Granite-4.0-H, whose every layer is
+``mamba_moe`` or ``attn_moe``) mixes ``mamba_mlp``, ``mamba_moe`` and
+``attn_moe`` layers in one stack.  Both residual branches scale their
+output by ``cfg.residual_scale`` where that is not 1 (Granite's 0.22).  A
 decoder block of the encoder-decoder family also cross-attends to the
 encoder's output (``cross=True``): its queries against per-layer K/V of
 the encoder memory, unmasked and without RoPE.
@@ -116,6 +118,13 @@ class Block(nn.Module):
         for m in self.children():
             m.init_weights(gen)
 
+    def _residual(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """x plus a branch's output, scaled by ``cfg.residual_scale`` where
+        that is not 1, in x's type."""
+        if self.cfg.residual_scale != 1.0:
+            out = out * self.cfg.residual_scale
+        return x + out.to(x.dtype)
+
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         """The FFN's residual step (the MoE or the MLP; none for a bare
         ``mamba``)."""
@@ -124,7 +133,7 @@ class Block(nn.Module):
         h = self.norm_mlp(x, self.cfg.norm_eps)
         out = self.moe(h) if hasattr(self, "moe") else \
             self.mlp(h, self.cfg.mlp_act)
-        return x + out.to(x.dtype)
+        return self._residual(x, out)
 
     def _cross(self, x: torch.Tensor, memory_kv: dict,
                decode: bool) -> torch.Tensor:
@@ -151,7 +160,7 @@ class Block(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = self.norm_mixer(x, cfg.norm_eps)
         mixed = self.mamba(h) if self.is_mamba else self._attend(h, positions)
-        x = x + mixed.to(x.dtype)
+        x = self._residual(x, mixed)
         if memory is not None and hasattr(self, "cross"):
             h = self.norm_cross(x, cfg.norm_eps)
             kv = self.cross.project_kv(memory)
@@ -166,7 +175,7 @@ class Block(nn.Module):
             out, aux = self.moe.apply(h)
         else:
             out = self.mlp(h, cfg.mlp_act)
-        return x + out.to(x.dtype), aux
+        return self._residual(x, out), aux
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
@@ -184,25 +193,30 @@ class Block(nn.Module):
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_idx: int, seq_len: int | None,
-                memory_kv: dict | None = None):
+                memory_kv: dict | None = None, length: int | None = None):
         """One block over a full sequence x (B, S, D).  Returns (x,
         cache): the cache at capacity ``seq_len`` (>= S; ring-bounded for
         windowed layers, see :func:`attention.fill_cache`; None when
         ``seq_len`` is None, as for the encoder), a Mamba layer's cache its
-        state after the S tokens.  ``memory_kv``: a decoder block's cross K/V
-        (:meth:`attention.Attention.project_kv` of the encoder output)."""
+        state after the first ``length`` tokens (all S where it is None:
+        the rest are right pads, which leave the state as it was; see
+        :meth:`ssm.Mamba.prefill`).  ``memory_kv``: a decoder block's cross
+        K/V (:meth:`attention.Attention.project_kv` of the encoder
+        output)."""
         cfg = self.cfg
         x = constrain_act(x)
         h = self.norm_mixer(x, cfg.norm_eps)
         if self.is_mamba:
-            out, cache = self.mamba.prefill(h)
-            return self._ffn(x + out.to(x.dtype)), cache
+            with span("ssm.prefill"):
+                out, cache = self.mamba.prefill(h, length)
+                x = self._residual(x, out)
+            return self._ffn(x), cache
         with span("attn.prefill"):
             q, k, v = self.attn.qkv(h, positions)
             mode, window = mask_args(cfg, self.kind)
             out = ops.attention(q, k, v, causal=mode != "full",
                                 window=window)
-            x = x + self.attn.output(out).to(x.dtype)
+            x = self._residual(x, self.attn.output(out))
             cache = None if seq_len is None else attn_mod.fill_cache(
                 k, v, attn_mod.cache_len(cfg, layer_idx, seq_len))
         if memory_kv is not None:
@@ -220,10 +234,12 @@ class Block(nn.Module):
         cfg = self.cfg
         h = self.norm_mixer(x, cfg.norm_eps)
         if self.is_mamba:
-            out, state = self.mamba.decode(h, cache)
-            for name, t in state.items():
-                cache[name].copy_(t)
-            return self._ffn(x + out.to(x.dtype))
+            with span("ssm.decode"):
+                out, state = self.mamba.decode(h, cache)
+                for name, t in state.items():
+                    cache[name].copy_(t)
+                x = self._residual(x, out)
+            return self._ffn(x)
         if isinstance(position, torch.Tensor) and position.ndim > 0:
             pos_arr = position.to(x.device).reshape(-1, 1)
         else:
@@ -234,7 +250,7 @@ class Block(nn.Module):
             _, full_ring, window = self.decode_reads(cache)
             out = attn_mod.decode_attend(cache, q, full_ring=full_ring,
                                          position=position, window=window)
-            x = x + self.attn.output(out).to(x.dtype)
+            x = self._residual(x, self.attn.output(out))
         if memory_kv is not None:
             x = self._cross(x, memory_kv, decode=True)
         return self._ffn(x)

@@ -1,9 +1,14 @@
-"""Model configuration shared by the 10 assigned architectures (a copy of
-the reference's ``repro/models/config.py``).
+"""Model configuration shared by the architectures (a copy of the
+reference's ``repro/models/config.py`` plus the port's own fields).
 
 One frozen dataclass describes every family (dense / MoE / SSM / hybrid /
 enc-dec); per-arch config files in :mod:`repro_torch.configs` instantiate it with
 the exact published numbers and a reduced smoke variant.
+
+The port's own fields (``position_embedding``, ``attn_scale``,
+``shared_d_ff``, ``attn_offset``, ``embed_scale``, ``residual_scale``,
+``logit_divisor``) serve Granite-4.0-H; at their defaults each one is the
+reference's behaviour and adds no operation to the model.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ class ModelConfig:
                                       # (i+1) % global_every == 0
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    position_embedding: str = "rope"  # rope | nope (no positional encoding)
+    attn_scale: float = 0.0           # softmax scale; 0 -> 1 / sqrt(head_dim)
 
     # MLP.
     mlp_act: str = "silu"             # silu (SwiGLU) | gelu (GeGLU)
@@ -37,6 +44,7 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     shared_expert: bool = False
+    shared_d_ff: int = 0              # the shared expert's width; 0 -> d_ff
     moe_every: int = 1                # layer i is MoE iff (i % moe_every)==moe_offset
     moe_offset: int = 0
     capacity_factor: float = 1.25
@@ -49,8 +57,10 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_chunk: int = 256
 
-    # Hybrid (Jamba): layer i is attention iff (i % attn_every)==attn_every-1.
+    # Hybrid: layer i is attention iff i % attn_every == attn_offset %
+    # attn_every (-1: the period's last layer, Jamba's; Granite-4.0-H: 5).
     attn_every: int = 0               # 0 -> no interleave (pure family)
+    attn_offset: int = -1
 
     # Encoder-decoder.
     is_encoder_decoder: bool = False
@@ -59,6 +69,9 @@ class ModelConfig:
     # Embeddings / IO.
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
+    embed_scale: float = 0.0          # embedding multiplier; 0 -> sqrt(d_model)
+    residual_scale: float = 1.0       # on both residual branches of a block
+    logit_divisor: float = 1.0        # the LM head's logits are divided by it
     input_mode: str = "tokens"        # tokens | embeddings (audio stub)
 
     # Serving policy: ring (window-bounded) KV caches for SWA/local layers.
@@ -94,7 +107,7 @@ class ModelConfig:
         if self.family == "ssm":
             return False
         if self.family == "hybrid" and self.attn_every > 0:
-            return (i % self.attn_every) == self.attn_every - 1
+            return (i % self.attn_every) == self.attn_offset % self.attn_every
         return True
 
     def is_moe_layer(self, i: int) -> bool:
@@ -151,8 +164,8 @@ def _attn_params(cfg: ModelConfig) -> int:
     return q + kv + o + bias
 
 
-def _ffn_params(cfg: ModelConfig) -> int:
-    return 3 * cfg.d_model * cfg.d_ff     # gated MLP: up, gate, down
+def _ffn_params(cfg: ModelConfig, d_ff: int = 0) -> int:
+    return 3 * cfg.d_model * (d_ff or cfg.d_ff)   # gated MLP: up, gate, down
 
 
 def _mamba_params(cfg: ModelConfig) -> int:
@@ -180,7 +193,7 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
             total += n_live * _ffn_params(cfg)
             total += cfg.d_model * cfg.n_experts     # router
             if cfg.shared_expert:
-                total += _ffn_params(cfg)
+                total += _ffn_params(cfg, cfg.shared_d_ff)
         else:
             total += _ffn_params(cfg)
         total += 2 * cfg.d_model                      # norms

@@ -135,8 +135,9 @@ def gate_act(g: torch.Tensor, act: str) -> torch.Tensor:
 
 
 class Embedding(nn.Module):
-    """Token table (scaled by sqrt(d_model) on the way in) and LM head
-    (the transposed table when tied)."""
+    """Token table (scaled on the way in by ``cfg.embed_scale``, sqrt(d_model)
+    where it is 0) and LM head (the transposed table when tied; its logits
+    divided by ``cfg.logit_divisor`` where that is not 1)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -154,13 +155,17 @@ class Embedding(nn.Module):
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.table[tokens.long()]
-        return (x * math.sqrt(self.cfg.d_model)).to(
-            dtype_of(self.cfg, "compute"))
+        scale = self.cfg.embed_scale or math.sqrt(self.cfg.d_model)
+        return (x * scale).to(dtype_of(self.cfg, "compute"))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            return x @ self.table.to(x.dtype).T
-        return x @ self.head.to(x.dtype)
+            out = x @ self.table.to(x.dtype).T
+        else:
+            out = x @ self.head.to(x.dtype)
+        if self.cfg.logit_divisor != 1.0:
+            out = out / self.cfg.logit_divisor
+        return out
 
 
 # ---------------------------------------------------------------------------

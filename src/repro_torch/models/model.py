@@ -219,19 +219,20 @@ class DecoderOnlyLM(_LM):
         """Prefill; caches get capacity ``max_len`` (>= prompt length).
 
         ``last_index``: position whose logits to return (defaults to the
-        final position; right-padded prompts pass their true last index).
-        Returns (logits (B, 1, V), caches); the MoE layers' aux loss is
-        not computed, as the reference drops it.
+        final position; right-padded prompts pass their true last index,
+        and the Mamba layers' states are those after it: the pads past it
+        leave them as they were).  Returns (logits (B, 1, V), caches); the
+        MoE layers' aux loss is not computed, as the reference drops it.
         """
         x = constrain_act(self.embed.embed(tokens.to(self.device)))
         s = x.shape[1]
         max_len = max_len or s
+        idx = s - 1 if last_index is None else int(last_index)
         positions = torch.arange(s, device=x.device)
         caches = []
         for i, blk in enumerate(self.layers):
-            x, cache = blk.prefill(x, positions, i, max_len)
+            x, cache = blk.prefill(x, positions, i, max_len, length=idx + 1)
             caches.append(cache)
-        idx = s - 1 if last_index is None else int(last_index)
         return self._head(x[:, idx:idx + 1]), caches
 
     @torch.no_grad()

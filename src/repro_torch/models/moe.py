@@ -34,9 +34,12 @@ Where the reference leans on XLA semantics the port spells them out:
     bounds; here they go to a dummy row ``N*K`` that is sliced off, and in
     the combine to a zero row, so a dropped pair adds exactly zero.
   * The reference's combine is a scatter-add in no set order; here each
-    token gathers its k pairs and adds them in k order from zero, with no
-    float atomics.  For k <= 2 (every config of the repo) that is the
-    scatter-add's result to the bit, and two launches give the same bits.
+    token gathers its k gated pairs (each rounded to x's type) and sums
+    them in float32, cast once to x's type, with no float atomics, so two
+    launches give the same bits.  For k <= 2 that is the reference's
+    result to the bit (a sum of two values of x's type is exact in float32
+    and rounded once, as x's type's own addition rounds it); at Granite's
+    k = 10 a sum in x's type would round nine times, the float32 sum once.
 
 The expert FFN is XLA in the reference, outside any Pallas kernel; here it
 is PyTorch's grouped GEMM over the packed rows (the dense switch keeps a
@@ -102,7 +105,8 @@ def aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
 class Moe(nn.Module):
     """Parameters as the reference's leaves: ``router`` (D, E), ``wi``/``wg``
     (E, D, F), ``wo`` (E, F, D) and, with ``cfg.shared_expert``, a gated
-    MLP ``shared``."""
+    MLP ``shared`` of width ``cfg.shared_d_ff`` (F where that is 0), added
+    to every token."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -114,7 +118,7 @@ class Moe(nn.Module):
         self.wg = layers.parameter((e, d, f), dtype, device)
         self.wo = layers.parameter((e, f, d), dtype, device)
         if cfg.shared_expert:
-            self.shared = layers.Mlp(d, f, dtype, device)
+            self.shared = layers.Mlp(d, cfg.shared_d_ff or f, dtype, device)
         self.rows = 0
 
     def init_weights(self, gen: torch.Generator) -> None:
@@ -226,9 +230,7 @@ class Moe(nn.Module):
             # offs[-1], whose values grouped_mm leaves undefined
             yp = torch.cat([yp, yp.new_zeros((1, d))], dim=0)
             pairs = yp[row].reshape(n, k, d) * gates.to(yp.dtype)[..., None]
-            y = torch.zeros((n, d), dtype=xf.dtype, device=xf.device)
-            for j in range(k):
-                y = y + pairs[:, j].to(xf.dtype)
+            y = pairs.sum(dim=1, dtype=torch.float32).to(xf.dtype)
         return y
 
     def _positions(self, expert_idx: torch.Tensor):

@@ -14,6 +14,19 @@ Parameters keep the reference's names (``in_z in_x in_b in_c in_dt
 conv_{x,b,c}_{w,b} a_log d_skip dt_bias norm out_proj``), so a reference
 parameter tree converts leaf for leaf.  The cache of a Mamba layer is
 ``{"conv_x", "conv_b", "conv_c", "ssm"}``, every leaf in the compute type.
+
+A serving prefill over a right-padded bucket is given the real length
+(:meth:`Mamba.prefill`): the pads' steps ``dt`` are set to 0, so the scan
+leaves the state exactly as the last real token left it (decay exp(0) = 1,
+input 0), and the conv state is taken from the last W-1 real inputs.  The
+state handed to decode is that of the real prompt, where the reference's
+has seen the pads.
+
+A ``Mamba`` counts in plain host integers, as ``Moe.rows`` does:
+``scan_tokens``, the tokens its prefills ran through the scan (pads
+included), and ``state_steps``, the lanes its decode steps advanced.  The
+span ``ssm.scan`` (:func:`repro_torch.tracing.span`) marks the prefill's
+scan while a profiler records.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ from repro_torch.kernels.ssd import ops
 from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_decode_step
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.tracing import span
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -36,11 +50,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                init_state: torch.Tensor | None = None
+                init_state: torch.Tensor | None = None,
+                length: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv1d: x (B, S, C), w (W, C).  Returns (silu(y +
-    bias), the last W-1 inputs).  The W products are summed in x's type in
-    a Python loop, as the reference does."""
+    bias), the last W-1 inputs, or the W-1 inputs up to ``length`` where
+    the rest are pads).  The W products are summed in x's type in a Python
+    loop, as the reference does."""
     width = w.shape[0]
     pad = (init_state if init_state is not None
            else torch.zeros((x.shape[0], width - 1, x.shape[2]),
@@ -50,7 +66,8 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     y = xp[:, 0:s] * w[0][None, None]
     for i in range(1, width):
         y = y + xp[:, i:i + s] * w[i][None, None]
-    new_state = xp[:, -(width - 1):] if width > 1 else pad
+    end = xp.shape[1] if length is None else length + width - 1
+    new_state = xp[:, end - (width - 1):end] if width > 1 else pad
     return F.silu(y + bias), new_state
 
 
@@ -112,6 +129,8 @@ class Mamba(nn.Module):
         self.dt_bias = par((h,), f32)
         self.norm = par((di,))
         self.out_proj = par((di, d))
+        self.scan_tokens = 0
+        self.state_steps = 0
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -143,34 +162,45 @@ class Mamba(nn.Module):
         y = layers.rms_norm(y, self.norm, self.cfg.norm_eps)
         return y @ self.out_proj.to(y.dtype)
 
-    def prefill(self, x_in: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    def prefill(self, x_in: torch.Tensor, length: int | None = None
+                ) -> tuple[torch.Tensor, dict]:
         """The mixer over a full sequence x_in (B, S, D) from a zero state:
-        (out (B, S, D), cache)."""
-        return self._mix(x_in, ops.ssd)
+        (out (B, S, D), cache).  With ``length`` < S the tokens past it are
+        right pads: the cache is the state after the first ``length``
+        tokens, and the pads' outputs are not the model's."""
+        self.scan_tokens += x_in.shape[0] * x_in.shape[1]
+        return self._mix(x_in, ops.ssd, length)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
         """The training mixer over x_in (B, S, D) from a zero state, through
         the differentiable ``ssd_chunked``: out (B, S, D)."""
         return self._mix(x_in, ssd_chunked)[0]
 
-    def _mix(self, x_in: torch.Tensor, scan) -> tuple[torch.Tensor, dict]:
+    def _mix(self, x_in: torch.Tensor, scan, length: int | None = None
+             ) -> tuple[torch.Tensor, dict]:
         cfg = self.cfg
         h, p = cfg.ssm_heads, cfg.ssm_head_dim
         g, n = cfg.ssm_ngroups, cfg.ssm_state
         dt_c = x_in.dtype
+        bsz, s, _ = x_in.shape
+        if length is not None and length >= s:
+            length = None
         z, xr, bb, cc, dt = self._project(x_in)
         xr, conv_x = causal_conv(xr, self.conv_x_w.to(dt_c),
-                                 self.conv_x_b.to(dt_c))
+                                 self.conv_x_b.to(dt_c), length=length)
         bb, conv_b = causal_conv(bb, self.conv_b_w.to(dt_c),
-                                 self.conv_b_b.to(dt_c))
+                                 self.conv_b_b.to(dt_c), length=length)
         cc, conv_c = causal_conv(cc, self.conv_c_w.to(dt_c),
-                                 self.conv_c_b.to(dt_c))
-        bsz, s, _ = xr.shape
+                                 self.conv_c_b.to(dt_c), length=length)
         xh = xr.reshape(bsz, s, h, p)
         dt_pos = softplus(dt.float() + self.dt_bias[None, None, :])
+        if length is not None:
+            # a step of 0 leaves the state exactly as it was
+            dt_pos[:, length:] = 0.0
         a = -torch.exp(self.a_log)
-        y, ssm = scan(xh, dt_pos, a, bb.reshape(bsz, s, g, n),
-                      cc.reshape(bsz, s, g, n), cfg.ssm_chunk)
+        with span("ssm.scan"):
+            y, ssm = scan(xh, dt_pos, a, bb.reshape(bsz, s, g, n),
+                          cc.reshape(bsz, s, g, n), cfg.ssm_chunk)
         y = y + xh * self.d_skip[None, None, :, None].to(xh.dtype)
         out = self._output(y.reshape(bsz, s, cfg.d_inner), z)
         return out, {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c,
@@ -180,6 +210,7 @@ class Mamba(nn.Module):
                ) -> tuple[torch.Tensor, dict]:
         """One token x_in (B, 1, D) from ``state``: (out (B, 1, D), new
         state)."""
+        self.state_steps += x_in.shape[0]
         cfg = self.cfg
         h, p = cfg.ssm_heads, cfg.ssm_head_dim
         g, n = cfg.ssm_ngroups, cfg.ssm_state

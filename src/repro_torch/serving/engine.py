@@ -22,7 +22,9 @@ asked to read, summed over the layers (the model's ``decode_keys``: a
 lane's causal keys, cut to a windowed layer's window; retired and
 never-used lanes at their last position too), and those of live lanes.
 Requests carry ``submitted_at``, ``admitted_at`` and ``finished_at`` on
-``time.perf_counter()``.
+``time.perf_counter()``.  The model's layers count too: each ``Moe``'s
+``rows``, each ``Mamba``'s ``scan_tokens`` (bucket tokens its prefills
+scanned) and ``state_steps`` (lanes its decode steps advanced).
 
 Spans (:func:`repro_torch.tracing.span`, recorded while a profiler is on),
 nested as they run::
@@ -30,12 +32,15 @@ nested as they run::
     engine.admit                            ServingEngine._admit
       engine.prefill                        the model's prefill
         attn.prefill                        each attention block
+        ssm.prefill                         each Mamba block's mixer
+          ssm.scan                          its SSD scan (kernel B6)
         moe.route | moe.dispatch | moe.experts | moe.combine
       engine.splice                         the b=1 caches into the slot
       engine.first_token                    argmax + int(): waits for it
     engine.wave                             the decode half of step()
       engine.decode                         the model's decode: enqueued
         attn.decode                         each attention block
+        ssm.decode                          each Mamba block's mixer
         moe.route | moe.dispatch | moe.experts | moe.combine
       engine.sample                         argmax + host copy: waits
       engine.retire                         the per-slot bookkeeping
@@ -44,9 +49,11 @@ Ring KV caches are disabled inside the engine (``serve_ring_caches=False``)
 because admission right-pads prompts into full-length caches.  On the card
 every prefill attention is kernel B4, every decode attention kernel B5 and
 every Mamba-2 prefill scan kernel B6; on the CPU their plain versions.  A
-Mamba layer's prefill runs over the whole padded bucket, so the state it
-hands to decode has seen the pad tokens, as in the reference (ROADMAP C,
-R5).
+Mamba layer's prefill runs over the whole padded bucket but is given the
+prompt's real length: the pads' steps are 0 and its conv state is taken
+from the last real inputs, so the state it hands to decode is that of the
+real prompt (ROADMAP R5, repaired in the port; the reference's state still
+sees the pads).
 """
 from __future__ import annotations
 

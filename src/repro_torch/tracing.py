@@ -16,7 +16,7 @@ a traced run holds the same operations with the spans as without them.
 2.11 (CUDA 12.8) and 2.13 (CPU); ``tests/test_torch_tracing.py`` fails if
 its import or its constructor changes.
 
-The names (``engine.*``, ``attn.*``, ``moe.*``) and their nesting are
+The names (``engine.*``, ``attn.*``, ``ssm.*``, ``moe.*``) and their nesting are
 listed in :mod:`repro_torch.serving.engine`.
 """
 from __future__ import annotations

@@ -98,8 +98,19 @@ def recorder_class(calls: list, stop_on: str | None = None):
 
 
 def fields(obj) -> dict:
-    """A config dataclass as a dict (nested dataclasses too)."""
-    return dataclasses.asdict(obj)
+    """A config dataclass as a dict (nested dataclasses too), without the
+    port's own model-config fields that hold their defaults (the
+    reference's ``ModelConfig`` has no such field; one set otherwise stays
+    and shows)."""
+    from repro.models import ModelConfig as RefModelConfig
+    from repro_torch.models import ModelConfig
+    out = dataclasses.asdict(obj)
+    if isinstance(obj, ModelConfig):
+        ref = {f.name for f in dataclasses.fields(RefModelConfig)}
+        for f in dataclasses.fields(ModelConfig):
+            if f.name not in ref and out[f.name] == f.default:
+                del out[f.name]
+    return out
 
 
 def same_experiments(ref: list, port: list) -> None:

@@ -30,9 +30,10 @@ import pytest
 import torch
 
 from repro.configs import all_archs as ref_all_archs
+from repro.models import ModelConfig as RefModelConfig
 from repro.models import build_model as ref_build_model
-from repro_torch.configs import REGISTRY, all_archs, get_arch
-from repro_torch.models import blocks, build_model, convert, moe
+from repro_torch.configs import PORT_ONLY, REGISTRY, all_archs, get_arch
+from repro_torch.models import ModelConfig, blocks, build_model, convert, moe
 from torch_port_ref import expert_indices, lm_to_port, t2n
 
 DENSE = ["chameleon-34b", "gemma-2b", "gemma3-1b", "internlm2-1.8b",
@@ -144,12 +145,27 @@ def test_prefill_last_index_picks_the_true_last_token():
 
 
 def test_registry_and_configs_are_the_references():
+    """The reference's ten archs, field for field over the reference's
+    fields, with the port's own fields at their defaults; Granite-4.0-H is
+    the one arch of the port alone."""
     ref_archs = {a.arch_id: a for a in ref_all_archs()}
-    assert sorted(REGISTRY) == sorted(ref_archs)
+    assert sorted(REGISTRY) == sorted([*ref_archs, *PORT_ONLY])
+    assert PORT_ONLY == ("granite-4.0-h-small",)
+    ref_fields = {f.name for f in dataclasses.fields(RefModelConfig)}
+    own = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+           if f.name not in ref_fields}
+    assert sorted(own) == sorted(["position_embedding", "attn_scale",
+                                  "shared_d_ff", "attn_offset", "embed_scale",
+                                  "residual_scale", "logit_divisor"])
     for a in all_archs():
+        if a.arch_id in PORT_ONLY:
+            continue
         r = ref_archs[a.arch_id]
-        assert dataclasses.asdict(a.full) == dataclasses.asdict(r.full)
-        assert dataclasses.asdict(a.smoke) == dataclasses.asdict(r.smoke)
+        for size in ("full", "smoke"):
+            got = dataclasses.asdict(getattr(a, size))
+            assert {k: got[k] for k in ref_fields} == dataclasses.asdict(
+                getattr(r, size))
+            assert {k: got[k] for k in own} == own
         assert a.full.param_count() == r.full.param_count()
         assert a.full.active_param_count() == r.full.active_param_count()
     full = get_arch("internlm2-1.8b").full

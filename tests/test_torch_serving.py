@@ -3,13 +3,14 @@
 * ``ServingEngine`` emits the reference engine's tokens (one request, and
   concurrent requests in ragged lanes) with the same parameters, and equals
   its own direct greedy decode (``tests/test_serving_checkpoint.py``); the
-  same for the Mamba-2 smoke model, with prompts right-padded to their
-  buckets (whose state then carries the pad tokens, as the reference's
-  does: ROADMAP C, R5), for the Mixtral smoke model (MoE, prompts past
-  its 16-token window, pad tokens and idle lanes routed as in the
-  reference) and for jamba's (the hybrid: Mamba states and attention
-  caches of one slot spliced side by side, padded prompts' Mamba states
-  carrying their pads, MoE layers after both mixers);
+  same for the Mixtral smoke model (MoE, prompts past its 16-token window,
+  pad tokens and idle lanes routed as in the reference); for the Mamba-2
+  smoke model and jamba's (the hybrid: Mamba states and attention caches
+  of one slot spliced side by side, MoE layers after both mixers), with
+  prompts right-padded to their buckets, each request's tokens are the
+  reference model's after a prefill of its unpadded prompt: the port's
+  Mamba state is the real prompt's (ROADMAP R5), the reference engine's
+  carries the pads;
 * ``MultiTierServer`` with the port's ``AifRouter`` over the three tiny
   tiers of ``examples/serve_multitier.py``, with the reference router's key
   chain replayed as its noise (``RouterKeyChainNoise``), gives the
@@ -115,30 +116,46 @@ def test_engine_matches_reference_engine_concurrent_ragged():
     assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
 
 
+def _ref_greedy(ref_cfg, params, prompt, n_new, max_len=64):
+    """The reference model's greedy decode after its prefill of the
+    unpadded ``prompt`` (ground truth for a padded admission: the
+    reference's own engine pads the prompt into its Mamba state)."""
+    import jax.numpy as jnp
+    model = ref_build_model(ref_cfg)
+    logits, caches = model.prefill(params, {"tokens": jnp.asarray([prompt])},
+                                   max_len=max_len)
+    out = [int(jnp.argmax(logits[0, -1]))]
+    for pos in range(len(prompt), len(prompt) + n_new - 1):
+        logits, caches = model.decode_step(params, jnp.asarray([[out[-1]]]),
+                                           caches, pos)
+        out.append(int(jnp.argmax(logits[0, 0])))
+    return out
+
+
+def _f32(c):
+    return dataclasses.replace(c, param_dtype="float32",
+                               compute_dtype="float32")
+
+
 def test_mamba_engine_matches_reference_engine_on_padded_prompts():
     """mamba2's smoke model in float32: two slots, four requests (so slots
     are reused) of lengths 11, 16, 20 and 5, all but one right-padded to
-    their buckets; the padded prompts decode from a state that has seen
-    the pad tokens in both engines, the unpadded one equals greedy."""
-    from repro.serving import Request as RefRequest
-
-    def f32(c):
-        return dataclasses.replace(c, param_dtype="float32",
-                                   compute_dtype="float32")
-    ref_cfg = f32(ref_get_arch("mamba2-2.7b").smoke)
+    their buckets; the port's engine hands decode the state of the real
+    prompt (ROADMAP R5), so each request's tokens are the reference
+    model's greedy decode after a prefill of its unpadded prompt, and the
+    port's own."""
+    ref_cfg = _f32(ref_get_arch("mamba2-2.7b").smoke)
     params = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(0))
-    ref = RefServingEngine(ref_cfg, params, max_batch=2, max_len=64)
-    cfg = f32(get_arch("mamba2-2.7b").smoke)
+    cfg = _f32(get_arch("mamba2-2.7b").smoke)
     sd, _ = lm_to_port(cfg, params)
     port = ServingEngine(cfg, sd, max_batch=2, max_len=64, device="cpu")
     rng = np.random.default_rng(5)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in (11, 16, 20, 5)]
-    want = _serve(ref, RefRequest, prompts, 5)
     got = _serve(port, Request, prompts, 5)
-    assert got == want
-    assert got[1] == _greedy(port, prompts[1], 5)
-    assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+    assert got == [_ref_greedy(ref_cfg, params, p, 5) for p in prompts]
+    assert got == [_greedy(port, p, 5) for p in prompts]
+    assert (port.steps, port.busy_steps) == (8, 8)
 
 
 def test_hybrid_engine_matches_reference_engine_on_padded_prompts():
@@ -146,26 +163,20 @@ def test_hybrid_engine_matches_reference_engine_on_padded_prompts():
     ``attn_moe`` layers): two slots, four requests of lengths 13, 16, 11
     and 9, three right-padded to the one bucket, so slots are reused with
     both cache kinds spliced into them and a decode wave runs with an idle
-    lane."""
-    from repro.serving import Request as RefRequest
-
-    def f32(c):
-        return dataclasses.replace(c, param_dtype="float32",
-                                   compute_dtype="float32")
-    ref_cfg = f32(ref_get_arch("jamba-1.5-large-398b").smoke)
+    lane; each request's tokens are the reference model's greedy decode
+    after a prefill of its unpadded prompt."""
+    ref_cfg = _f32(ref_get_arch("jamba-1.5-large-398b").smoke)
     params = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(0))
-    ref = RefServingEngine(ref_cfg, params, max_batch=2, max_len=64)
-    cfg = f32(get_arch("jamba-1.5-large-398b").smoke)
+    cfg = _f32(get_arch("jamba-1.5-large-398b").smoke)
     sd, _ = lm_to_port(cfg, params)
     port = ServingEngine(cfg, sd, max_batch=2, max_len=64, device="cpu")
     rng = np.random.default_rng(7)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in (13, 16, 11, 9)]
-    want = _serve(ref, RefRequest, prompts, 6)
     got = _serve(port, Request, prompts, 6)
-    assert got == want
+    assert got == [_ref_greedy(ref_cfg, params, p, 6) for p in prompts]
     assert got[1] == _greedy(port, prompts[1], 6)
-    assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
+    assert (port.steps, port.busy_steps) == (10, 10)
     assert [sorted(c) for c in port.caches[2:4]] == [
         ["conv_b", "conv_c", "conv_x", "ssm"], ["k", "v"]]
 
