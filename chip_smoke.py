@@ -342,6 +342,13 @@ failure raising (exit code != 0):
    the offsets on the host).
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
+
+A kernel's count is its wrapper's ``launches``, except B4's and B5's in
+the phases that serve through ``ServingEngine`` (30, 31, 32, 37, 38, 40,
+41, 47-49 and serve_multitier in 53): there they are read from a device
+trace of the run by kernel name (:func:`device_counted`), since the
+engine records its decode wave once as a CUDA graph and replays it, and a
+replay calls no wrapper.  Those runs' walls are taken under the trace.
 """
 from __future__ import annotations
 
@@ -434,6 +441,9 @@ EXAMPLE_KERNELS = {"fleet_quickstart": ("belief_efe_fleet",),
                    "hetero_fleet": ("belief_efe_fleet",),
                    "networked_fleet": ("belief_efe_fleet",),
                    "serve_multitier": ("flash_prefill", "flash_decode")}
+# The examples that serve through ServingEngine: B4's and B5's launches
+# read from a device trace (device_counted)
+EXAMPLES_TRACED = ("serve_multitier",)
 # serve_multitier's light and medium tiers: d_model 32 and 48 over 4 heads
 EXAMPLE_HEAD_DIMS = (8, 12)
 # An example's lines that carry its headline numbers
@@ -444,44 +454,38 @@ EXAMPLE_HEADLINE = re.compile(
 EXAMPLE_MARK = "@example "
 # Run in one subprocess for all the examples, one after another: each
 # example's main() at its default size under SIGALRM at its timeout, with
-# every kernel's count read around it (chip_smoke.counted) and B4's and
-# B5's launches also tallied by head dim; then one marked JSON line each
+# every kernel's count read around it (chip_smoke.counted; for
+# EXAMPLES_TRACED chip_smoke.device_counted, which also tallies B4's and
+# B5's launches by head dim); then one marked JSON line each
 EXAMPLE_RUNNER = """
-import collections, importlib.util, json, os, signal, sys, time
+import importlib.util, json, os, signal, sys, time
 root, timeouts = sys.argv[1], json.loads(sys.argv[2])
 sys.path[:0] = [root, os.path.join(root, "src")]
 import torch
 import chip_smoke
-from repro_torch.kernels.attention import flash, ops
-by_d = collections.Counter()
-def by_head_dim(name, fn):
-    def call(q, *args, **kwargs):
-        before = fn.launches
-        out = fn(q, *args, **kwargs)
-        by_d[f"{name}_d{q.shape[-1]}"] += fn.launches - before
-        return out
-    return call
-ops.flash_prefill = by_head_dim("flash_prefill", flash.flash_prefill)
-ops.flash_decode = by_head_dim("flash_decode", flash.flash_decode)
 def expired(signum, frame):
     raise TimeoutError("the example ran past its timeout")
 signal.signal(signal.SIGALRM, expired)
 for name, timeout in timeouts.items():
     path = os.path.join(root, "examples", f"{name}_torch.py")
     sys.argv = [path]
-    by_d.clear()
+    by_d = {}
     signal.alarm(timeout)
     t0 = time.perf_counter()
     spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    lines, launches = chip_smoke.counted(lambda: mod.main([]))
+    if name in chip_smoke.EXAMPLES_TRACED:
+        lines, launches, by_d, _ = chip_smoke.device_counted(
+            lambda: mod.main([]))
+    else:
+        lines, launches = chip_smoke.counted(lambda: mod.main([]))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     signal.alarm(0)
     print(chip_smoke.EXAMPLE_MARK + json.dumps(
         {"example": name, "lines": lines, "launches": launches,
-         "by_head_dim": dict(by_d), "main_s": main_s}), flush=True)
+         "by_head_dim": by_d, "main_s": main_s}), flush=True)
 """
 
 
@@ -816,6 +820,52 @@ def counted(fn):
         k.launches = 0
     res = fn()
     return res, {name: k.launches for name, k in kernels.items()}
+
+
+def flash_kernels(prof) -> dict:
+    """B4's and B5's launches in a ``torch.profiler`` trace, by kernel
+    name and head dim: ``flash_prefill_d<D>`` (``prefill_kernel<D>``,
+    ``prefill_tc_kernel<D>``) and ``flash_decode_d<D>``
+    (``decode_split_kernel<T, D>``, one a launch, beside its merge)."""
+    import collections
+    by_d = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        for kernel, name in (("flash_prefill", r"prefill_(?:tc_)?kernel"),
+                             ("flash_decode", r"decode_split_kernel")):
+            if not re.search(name, e.key):
+                continue
+            d = re.search(name + r"<(?:[^<>,]+,\s*)?(?:\(int\))?(\d+)>",
+                          e.key)
+            if d is None:
+                raise AssertionError(f"no head dim in the kernel name "
+                                     f"{e.key!r}")
+            by_d[f"{kernel}_d{d.group(1)}"] += e.count
+    return dict(by_d)
+
+
+def device_counted(fn):
+    """:func:`counted` under a device trace: (result, launches by kernel,
+    B4's and B5's launches by head dim, B5's wrapper calls).  B4's and
+    B5's launches are the trace's (:func:`flash_kernels`): a wrapper counts
+    its calls, which for a serving engine's decode wave are its eager wave
+    and the recording of its CUDA graph, never a replay.  B4 is never
+    recorded, so its wrapper's count must equal the trace's."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, launches = counted(fn)
+        torch.cuda.synchronize()
+    by_d = flash_kernels(prof)
+    traced = {k: sum(n for name, n in by_d.items()
+                     if name.startswith(k + "_d"))
+              for k in ("flash_prefill", "flash_decode")}
+    if traced["flash_prefill"] != launches["flash_prefill"]:
+        raise AssertionError(f"B4: {launches['flash_prefill']} wrapper calls "
+                             f"but {traced['flash_prefill']} launches traced")
+    b5_calls = launches["flash_decode"]
+    return res, dict(launches, **traced), by_d, b5_calls
 
 
 def run_counted(e):
@@ -2943,14 +2993,19 @@ def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
                 lg[:, -1].argmax(-1, keepdim=True), caches, lengths[0])
             logits[dev] = torch.cat([lg, lg2], 1).cpu()
             del caches
-            (reqs, _), launches = counted(
+            (reqs, _), launches, _, b5_calls = device_counted(
                 lambda: serve_requests(eng, prompts, 8))
         outs[dev] = [r.output for r in reqs]
         dense_calls[dev] = dense.calls
-        want_dense[dev] = n_moe * (eng.busy_steps + 1) if dense_max else 0
+        # Moe.dense's Python runs at the decode step above, at each eager
+        # wave and at the recording of the wave's graph, never at a replay
+        python_waves = (eng.busy_steps - eng.graph_waves
+                        + (eng._graph is not None))
+        want_dense[dev] = n_moe * (python_waves + 1) if dense_max else 0
         if dev == DEVICE:
             want = serve_launches(cfg, len(prompts), eng.busy_steps)
-            card_launches = launches
+            card_launches, card_b5_calls = launches, b5_calls
+            graph_waves = eng.graph_waves
         del eng
     rel = ((logits[DEVICE] - logits["cpu"]).abs().max()
            / logits["cpu"].abs().max()).item()
@@ -2959,6 +3014,7 @@ def phase_serve_small(arch: str = SERVE_ARCH, lengths=(64, 64, 64, 64),
          prompt_lengths=list(lengths),
          tokens_equal=outs[DEVICE] == outs["cpu"], logits_rel_err=rel,
          launches=card_launches, expected_launches=want,
+         b5_wrapper_calls=card_b5_calls, graph_waves=graph_waves,
          moe_dense_max_tokens=dense_max, moe_dense_calls=dense_calls,
          expected_moe_dense_calls=want_dense,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2995,7 +3051,7 @@ def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
     rng = np.random.default_rng(1)
     lengths = rng.integers(*prompt_range, 8)
     prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in lengths]
-    (reqs, wall), launches = counted(
+    (reqs, wall), launches, _, b5_calls = device_counted(
         lambda: serve_requests(eng, prompts, n_new))
     waves = eng.busy_steps
     want = serve_launches(cfg, len(prompts), waves)
@@ -3013,7 +3069,8 @@ def phase_serve(arch: str = SERVE_ARCH, n_new: int = 64,
          tokens_per_s=tokens / wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches=launches, expected_launches=want, outputs_ok=ok,
-         first_tokens=reqs[0].output[:8])
+         b5_wrapper_calls=b5_calls, graph_waves=eng.graph_waves,
+         wall_under_device_trace=True, first_tokens=reqs[0].output[:8])
     if launches != want or waves != n_new - 1 or not ok:
         raise AssertionError(f"{phase} launched {launches} over {waves} "
                              f"waves, expected {want}; outputs ok: {ok}")
@@ -3073,9 +3130,12 @@ def device_ms(fn) -> dict:
 
 def serve_breakdown(eng, prompt, lengths, arch: str) -> None:
     """Where the serve phase's time goes: one admission prefill of the
-    first prompt at its bucket and one 8-slot decode wave (each slot at its
-    prompt length + 31), host wall (synchronized) beside the device time a
-    profiler trace shows."""
+    first prompt at its bucket, one 8-slot decode wave run eagerly
+    (``decode_wave_eager``: the model's ``decode_step``, each slot at its
+    prompt length + 31) and, where the engine recorded its wave, one replay
+    of that graph (``decode_wave_replay``: the decode step and the argmax
+    at the engine's last positions, as its waves ran), host wall
+    (synchronized) beside the device time a profiler trace shows."""
     model = eng.model
     bucket = eng._bucket(len(prompt))
     toks = torch.tensor([list(prompt) + [0] * (bucket - len(prompt))],
@@ -3090,8 +3150,10 @@ def serve_breakdown(eng, prompt, lengths, arch: str) -> None:
     def wave():
         return model.decode_step(last, eng.caches, pos)
 
-    emit("serve_breakdown", arch=arch, bucket=bucket,
-         **breakdown((("prefill", prefill), ("decode_wave", wave))))
+    calls = [("prefill", prefill), ("decode_wave_eager", wave)]
+    if eng._graph is not None:
+        calls.append(("decode_wave_replay", eng._graph.replay))
+    emit("serve_breakdown", arch=arch, bucket=bucket, **breakdown(calls))
 
 
 def breakdown(calls) -> dict:
@@ -3130,7 +3192,7 @@ def phase_multitier(weights) -> dict:
     srv = MultiTierServer(tiers, router, slo_ticks=8, seed=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, launches = counted(lambda: srv.run(
+    out, launches, _, b5_calls = device_counted(lambda: srv.run(
         n_ticks=60, arrival_rate=4.0, prompt_len=128, max_new_tokens=16))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3149,7 +3211,9 @@ def phase_multitier(weights) -> dict:
          mean_weights=[float(x) for x in out["mean_weights"]],
          late_weights=[float(x) for x in out["late_weights"]],
          wall_s=wall, admitted=admitted, decode_waves=waves,
-         launches=launches, expected_launches=want)
+         graph_waves=sum(t.engine.graph_waves for t in tiers),
+         b5_wrapper_calls=b5_calls, launches=launches,
+         expected_launches=want)
     if launches != want or out["completed"] <= 0 or not weights_ok:
         raise AssertionError(f"multitier: launches {launches} (expected "
                              f"{want}), completed {out['completed']}, "

@@ -17,7 +17,10 @@ For tensors on the CPU each wrapper runs its plain version
 (:mod:`repro_torch.kernels.attention.ref`).  For CUDA tensors it checks
 device, dtype (float32 or bfloat16), shapes, contiguity and 16-byte
 alignment, launches the kernel on the current stream and raises if the
-launch reports an error — there is no fallback.  Each wrapper counts its launches in ``launches``.
+launch reports an error — there is no fallback.  Each wrapper counts its launches in ``launches``:
+its calls, so a call recorded into a CUDA graph counts once, when it is
+recorded, and the graph's replays, which run no wrapper, not at all (a
+device trace counts their kernels by name).
 The library is built with ``nvcc`` at the first CUDA call.
 """
 from __future__ import annotations

@@ -8,6 +8,7 @@ families) and the encoder-decoder (the port of ``repro/models/model.py``).
     train_loss(batch) -> (loss, aux)                differentiable
     prefill(tokens, max_len, last_index) -> (last_logits, caches)
     decode_step(tokens, caches, position) -> (logits, caches)
+    decode_capturable(batch_size) -> whether a CUDA graph can record it
     init_caches(batch_size, seq_len) -> zero caches
 * :class:`EncoderDecoderLM` (seamless-m4t: stub frontend embeddings ->
   encoder -> decoder that cross-attends)
@@ -55,6 +56,7 @@ from repro_torch.models import layers
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import Block, block_specs
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import Moe
 from repro_torch.sharding import constrain_act
 
 
@@ -245,6 +247,14 @@ class DecoderOnlyLM(_LM):
         for blk, cache in zip(self.layers, caches):
             x = blk.decode(x, cache, position)
         return self._head(x), caches
+
+    def decode_capturable(self, batch_size: int) -> bool:
+        """Whether a :meth:`decode_step` of ``batch_size`` sequences at a
+        (B,) position tensor can be recorded in a CUDA graph: whether no
+        layer of it waits on the host.  Only an MoE layer can
+        (:meth:`Moe.capturable`)."""
+        return all(m.capturable(batch_size) for m in self.modules()
+                   if isinstance(m, Moe))
 
     def decode_keys(self, caches: list, position: np.ndarray) -> np.ndarray:
         """The keys a :meth:`decode_step` at ``position`` (host integers,

@@ -15,7 +15,8 @@ Every routed token counts toward the capacity: a serving engine's right-pad
 tokens at prefill and its idle lanes at decode too, as in the reference.
 Pads come after every real token in token-major order, so they never
 displace one.  A ``Moe`` counts, in a plain host integer, the rows its
-expert GEMMs ran (``rows``, N x K a dispatch, E x N a dense call); the
+expert GEMMs ran (``rows``, N x K a dispatch, E x N a dense call;
+:func:`repro_torch.tracing.count`); the
 spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
 (:func:`repro_torch.tracing.span`) mark the four steps while a profiler
 records.
@@ -59,7 +60,7 @@ from torch import nn
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.tracing import span
+from repro_torch.tracing import count, span
 
 # Decode-sized batches can skip dispatch entirely (dense mode).  Off by
 # default, as in the reference; ``REPRO_MOE_DENSE_MAX=512`` turns it on for
@@ -147,10 +148,10 @@ class Moe(nn.Module):
         a weight; given ``offs``, on (R, D) rows packed by expert (group e
         ends at ``offs[e]``), one grouped product a weight."""
         if offs is None:
-            self.rows += xd.shape[0] * xd.shape[1]
+            count(self, "rows", xd.shape[0] * xd.shape[1])
             mm = torch.bmm
         else:
-            self.rows += xd.shape[0]
+            count(self, "rows", xd.shape[0])
             mm = functools.partial(F.grouped_mm, offs=offs)
         with span("moe.experts"):
             h = mm(xd, self.wi.to(xd.dtype))
@@ -167,6 +168,15 @@ class Moe(nn.Module):
         w.scatter_add_(1, expert_idx, gates)
         y = self._ffn(xf.unsqueeze(0).expand(self.cfg.n_experts, -1, -1))
         return torch.einsum("end,ne->nd", y, w.to(y.dtype))
+
+    def capturable(self, n_tokens: int) -> bool:
+        """Whether a call on ``n_tokens`` tokens can be recorded in a CUDA
+        graph: nothing in it waits on the host.  The dense switch's batched
+        matmuls and the dispatch's bfloat16 grouped products keep their
+        offsets on the card; in another type ``grouped_mm`` (PyTorch's
+        fallback) copies them to the host."""
+        return (n_tokens <= DENSE_MODE_MAX_TOKENS
+                or layers.dtype_of(self.cfg, "compute") == torch.bfloat16)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, S, D) -> y (B, S, D) in x's type.  The serving path drops

@@ -22,7 +22,8 @@ input 0), and the conv state is taken from the last W-1 real inputs.  The
 state handed to decode is that of the real prompt, where the reference's
 has seen the pads.
 
-A ``Mamba`` counts in plain host integers, as ``Moe.rows`` does:
+A ``Mamba`` counts in plain host integers, as ``Moe.rows`` does
+(:func:`repro_torch.tracing.count`):
 ``scan_tokens``, the tokens its prefills ran through the scan (pads
 included), and ``state_steps``, the lanes its decode steps advanced.  The
 span ``ssm.scan`` (:func:`repro_torch.tracing.span`) marks the prefill's
@@ -40,7 +41,7 @@ from repro_torch.kernels.ssd import ops
 from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_decode_step
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.tracing import span
+from repro_torch.tracing import count, span
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -168,7 +169,7 @@ class Mamba(nn.Module):
         (out (B, S, D), cache).  With ``length`` < S the tokens past it are
         right pads: the cache is the state after the first ``length``
         tokens, and the pads' outputs are not the model's."""
-        self.scan_tokens += x_in.shape[0] * x_in.shape[1]
+        count(self, "scan_tokens", x_in.shape[0] * x_in.shape[1])
         return self._mix(x_in, ops.ssd, length)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
@@ -210,7 +211,7 @@ class Mamba(nn.Module):
                ) -> tuple[torch.Tensor, dict]:
         """One token x_in (B, 1, D) from ``state``: (out (B, 1, D), new
         state)."""
-        self.state_steps += x_in.shape[0]
+        count(self, "state_steps", x_in.shape[0])
         cfg = self.cfg
         h, p = cfg.ssm_heads, cfg.ssm_head_dim
         g, n = cfg.ssm_ngroups, cfg.ssm_state

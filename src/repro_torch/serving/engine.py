@@ -11,6 +11,16 @@ One engine wraps a model and maintains ``max_batch`` decode slots:
     positions (a (B,) position tensor: kernel B5 masks each sequence at its
     own length), greedy-samples, and retires slots that hit
     ``max_new_tokens`` or the cache's end;
+  * on the card the engine runs its first wave eagerly, then records that
+    wave (the model's decode step and the argmax that feeds the next) as
+    one CUDA graph and replays it for every later wave: the wave always has
+    ``max_batch`` lanes, the caches are written in place, and its inputs
+    (the tokens, the positions) and its output (the next tokens) live in
+    buffers the engine owns.  Recording runs nothing, so no cache moves
+    twice.  A model whose decode step waits on the host keeps the eager
+    wave, as the model reports (``decode_capturable``: an MoE layer whose
+    grouped products run in float32 copies their offsets to the host).  On
+    the CPU every wave is eager;
   * the engine exports queue depth and utilization so an AIF router can sit
     in front of a *fleet* of engines (:mod:`repro_torch.serving.multitier`).
 
@@ -20,11 +30,16 @@ prompt tokens and the bucket tokens prefilled, the lanes each wave computes
 (``max_batch``) and the live ones among them, and the keys kernel B5 is
 asked to read, summed over the layers (the model's ``decode_keys``: a
 lane's causal keys, cut to a windowed layer's window; retired and
-never-used lanes at their last position too), and those of live lanes.
-Requests carry ``submitted_at``, ``admitted_at`` and ``finished_at`` on
+never-used lanes at their last position too), and those of live lanes,
+and the waves served by replaying the graph (``graph_waves``).  Requests
+carry ``submitted_at``, ``admitted_at`` and ``finished_at`` on
 ``time.perf_counter()``.  The model's layers count too: each ``Moe``'s
 ``rows``, each ``Mamba``'s ``scan_tokens`` (bucket tokens its prefills
-scanned) and ``state_steps`` (lanes its decode steps advanced).
+scanned) and ``state_steps`` (lanes its decode steps advanced).  A
+replayed wave runs no Python of the model: whatever the recorded wave
+counted through :func:`repro_torch.tracing.count` is added again at each
+replay.  Kernel B5's ``launches`` counts its wrapper's calls, so the
+recording once and no replay: a device trace counts the replays' kernels.
 
 Spans (:func:`repro_torch.tracing.span`, recorded while a profiler is on),
 nested as they run::
@@ -38,12 +53,17 @@ nested as they run::
       engine.splice                         the b=1 caches into the slot
       engine.first_token                    argmax + int(): waits for it
     engine.wave                             the decode half of step()
-      engine.decode                         the model's decode: enqueued
+      engine.decode                         the model's decode + argmax:
+                                            enqueued (a graph's replay)
         attn.decode                         each attention block
         ssm.decode                          each Mamba block's mixer
         moe.route | moe.dispatch | moe.experts | moe.combine
-      engine.sample                         argmax + host copy: waits
+      engine.sample                         host copy of the tokens: waits
       engine.retire                         the per-slot bookkeeping
+
+A replayed wave has ``engine.decode`` around the replay and no
+``attn.decode``, ``ssm.decode`` or ``moe.*`` inside it: those spans mark
+the eager first wave only.
 
 Ring KV caches are disabled inside the engine (``serve_ring_caches=False``)
 because admission right-pads prompts into full-length caches.  On the card
@@ -65,6 +85,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
@@ -109,11 +130,21 @@ class ServingEngine:
 
         self.queue: deque[Request] = deque()
         self.active: list[Optional[Request]] = [None] * max_batch
-        self.positions = np.zeros(max_batch, dtype=np.int32)
+        # the lanes' positions are host integers in (on the card, pinned)
+        # memory that each wave copies to the device buffer it reads
+        on_card = self.device.type == "cuda"
+        self._pos_host = torch.zeros(max_batch, dtype=torch.int32,
+                                     pin_memory=on_card)
+        self.positions = self._pos_host.numpy()
+        self._pos = torch.zeros(max_batch, dtype=torch.int32,
+                                device=self.device)
         self.remaining = np.zeros(max_batch, dtype=np.int32)
         self.caches = self.model.init_caches(max_batch, max_len)
         self.last_tokens = torch.zeros((max_batch, 1), dtype=torch.int64,
                                        device=self.device)
+        self._graphed: Optional[bool] = None   # decided at the first wave
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_counts: list = []     # what the recorded wave counted
         self.completed: list[Request] = []
         self.steps = 0
         self.busy_steps = 0        # decode waves
@@ -123,6 +154,7 @@ class ServingEngine:
         self.live_lanes = 0
         self.b5_keys = 0
         self.live_keys = 0
+        self.graph_waves = 0
 
     # ----------------------------------------------------------------- API
     def submit(self, req: Request):
@@ -146,7 +178,7 @@ class ServingEngine:
                 "prompt_tokens": self.prompt_tokens,
                 "bucket_tokens": self.bucket_tokens, "lanes": self.lanes,
                 "live_lanes": self.live_lanes, "b5_keys": self.b5_keys,
-                "live_keys": self.live_keys}
+                "live_keys": self.live_keys, "graph_waves": self.graph_waves}
 
     # ------------------------------------------------------------ admission
     def _bucket(self, n: int) -> int:
@@ -198,13 +230,21 @@ class ServingEngine:
             self.live_keys += int(keys[live].sum())
 
             with span("engine.decode"):
-                pos = torch.from_numpy(self.positions.copy()).to(self.device)
-                logits, self.caches = self.model.decode_step(self.last_tokens,
-                                                             self.caches, pos)
+                # no wait: the wave's host copy of its tokens waits for this
+                # copy too, before the host writes the positions again
+                self._pos.copy_(self._pos_host, non_blocking=True)
+                if self._graph is not None:
+                    self._replay()
+                else:
+                    self._decode()
+                    if self._graphed is None:
+                        self._graphed = (
+                            self.device.type == "cuda"
+                            and self.model.decode_capturable(self.max_batch))
+                    if self._graphed:
+                        self._capture()
             with span("engine.sample"):
-                nxt = torch.argmax(logits[:, 0], dim=-1)
-                self.last_tokens = nxt[:, None]
-                nxt = nxt.cpu().numpy()
+                nxt = self.last_tokens[:, 0].cpu().numpy()
             finished = []
             with span("engine.retire"):
                 for slot, req in enumerate(self.active):
@@ -220,6 +260,32 @@ class ServingEngine:
                         finished.append(req)
                         self.active[slot] = None
             return finished
+
+    # --------------------------------------------------------- decode wave
+    def _decode(self) -> None:
+        """One decode step of every lane at its position; the greedy next
+        tokens are written into ``last_tokens``."""
+        logits, _ = self.model.decode_step(self.last_tokens, self.caches,
+                                           self._pos)
+        torch.argmax(logits[:, 0], dim=-1, keepdim=True, out=self.last_tokens)
+
+    def _capture(self) -> None:
+        """Record :meth:`_decode` as a CUDA graph, and what it counted.
+        Recording runs nothing, so the caches stay as the eager wave left
+        them."""
+        graph = torch.cuda.CUDAGraph()
+        with tracing.counts_made() as counts, torch.cuda.graph(graph):
+            self._decode()
+        # the recording ran the wave's Python, not the wave: what it counted
+        # is what each replay adds, and is taken back here
+        tracing.add_counts(counts, -1)
+        self._graph, self._graph_counts = graph, counts
+
+    def _replay(self) -> None:
+        """One wave by the recorded graph, its counts added."""
+        self._graph.replay()
+        tracing.add_counts(self._graph_counts)
+        self.graph_waves += 1
 
 
 def _write_slot(caches: list, caches1: list, slot: int) -> list:

@@ -18,6 +18,15 @@ its import or its constructor changes.
 
 The names (``engine.*``, ``attn.*``, ``ssm.*``, ``moe.*``) and their nesting are
 listed in :mod:`repro_torch.serving.engine`.
+
+The layers' host counters of the work a call puts on the device
+(``Moe.rows``, ``Mamba.scan_tokens`` and ``state_steps``) are plain
+integer attributes advanced through :func:`count`.  A call recorded into a
+CUDA graph runs its Python once, at the recording, and never at a replay:
+:func:`counts_made` collects what a recording counted, and
+:func:`add_counts` takes it back or adds it again, so a replayer keeps the
+counters true without naming any of them.  A kernel wrapper's
+``launches`` is not such a counter: it counts the wrapper's calls.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 
 _OFF = contextlib.nullcontext()
+_made: list | None = None      # the counts made inside counts_made()
 
 
 def span(name: str):
@@ -35,3 +45,29 @@ def span(name: str):
     if not torch.autograd._profiler_enabled():
         return _OFF
     return _RecordFunctionFast(name)
+
+
+def count(owner, name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``owner.<name>``."""
+    setattr(owner, name, getattr(owner, name) + n)
+    if _made is not None:
+        _made.append((owner, name, n))
+
+
+@contextlib.contextmanager
+def counts_made():
+    """Within the block, every :func:`count` is also kept in the list this
+    yields, as ``(owner, name, n)``."""
+    global _made
+    _made = made = []
+    try:
+        yield made
+    finally:
+        _made = None
+
+
+def add_counts(counts: list, times: int = 1) -> None:
+    """Add each of ``counts`` (as :func:`counts_made` kept them) ``times``
+    over to its counter: -1 takes them back."""
+    for owner, name, n in counts:
+        setattr(owner, name, getattr(owner, name) + times * n)

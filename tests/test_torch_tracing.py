@@ -8,7 +8,8 @@
   docstring lists;
 * the engine's counters equal the values worked out by hand from a scripted
   run's prompts, buckets and positions (retired and never-used lanes' keys
-  included; full causal, windowed and warm-ring layers), and the MoE's rows
+  included; full causal, windowed and warm-ring layers; no wave replayed
+  from a CUDA graph on the CPU), and the MoE's rows
   equal the N x top_k packed rows its grouped products run a call (E x N
   on the dense switch);
 * two identical scripted runs count the same.
@@ -165,7 +166,8 @@ def test_engine_counters_follow_prompts_buckets_and_positions(attn):
                    "bucket_tokens": 16 + 32 + 16, "lanes": 4 * 3,
                    "live_lanes": 2 + 2 + 1 + 1,
                    "b5_keys": layers * keys,
-                   "live_keys": layers * live_keys}
+                   "live_keys": layers * live_keys,
+                   "graph_waves": 0}     # the CPU's waves are eager
     assert [len(r.output) for r in (a, b, d)] == [3, 2, 4]
     for r in (a, b, d):
         assert t0 <= r.submitted_at <= r.admitted_at <= r.finished_at <= t1
