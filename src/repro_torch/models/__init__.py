@@ -1,6 +1,5 @@
-"""Model zoo of the port: the dense, MoE and Mamba-2 decoder-only families
-and the encoder-decoder on PyTorch (the hybrid family raises
-``NotImplementedError`` naming its ROADMAP item)."""
+"""Model zoo of the port: the dense, MoE, Mamba-2 and hybrid decoder-only
+families and the encoder-decoder on PyTorch."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (DecoderOnlyLM, EncoderDecoderLM,
                                       build_model)

@@ -11,13 +11,13 @@ through its Pallas kernels; the kernels' entry points refuse inputs that
 need gradients).
 
 KV caches, one ``{"k", "v"}`` dict of (B, L, n_kv, head_dim) tensors per
-layer:
-  * full-attention layers keep L = the serving capacity;
-  * sliding-window / local layers keep a **ring buffer** of L =
-    ``min(S, window)`` slots — softmax is permutation-invariant over KV
-    entries and RoPE is applied at absolute positions before caching, so a
-    rotated ring needs no unrotation.  A warm ring holds exactly the window,
-    so its decode attends every slot: B5 at position L - 1 with no window.
+layer, laid out as the :class:`KVLayout` its block decides once:
+  * a linear cache holds L = the serving capacity, slot p position p; B5
+    reads it at each token's position, cut to the layer's window;
+  * a windowed layer's **ring** (``cfg.serve_ring_caches``) holds L =
+    ``min(S, window)`` slots, slot p % L position p — RoPE is applied before
+    caching and softmax ignores the keys' order, so a rotated ring needs no
+    unrotation; B5 reads it at min(position, L - 1), with no window.
 Decode writes each new token's K/V into its slot **in place**.
 
 Cross-attention (the encoder-decoder's decoder blocks) projects its queries
@@ -29,6 +29,7 @@ B5 at position S_enc - 1, which sees every slot.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -228,16 +229,34 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
-def cache_len(cfg: ModelConfig, layer_idx: int, seq_len: int) -> int:
-    """Per-layer cache length: ring-bounded for windowed/local layers."""
-    if not cfg.serve_ring_caches:
-        return seq_len
-    if cfg.attn_type == "swa":
-        return min(seq_len, cfg.sliding_window)
-    if cfg.attn_type == "local_global" and not cfg.is_global_attn_layer(
-            layer_idx):
-        return min(seq_len, cfg.sliding_window)
-    return seq_len
+class KVLayout(NamedTuple):
+    """One attention layer's KV-cache layout: ``window``, the keys a query
+    sees, itself included (0: no window), and whether the cache is a
+    ``ring`` of at most ``window`` slots."""
+    window: int
+    ring: bool
+
+    def slots(self, seq_len: int) -> int:
+        """The cache's length for a ``seq_len`` context."""
+        return min(seq_len, self.window) if self.ring else seq_len
+
+    def reads(self, length: int, position):
+        """The (position, window) kernel B5 is given at ``position`` (an
+        int, a (B,) tensor or host integers) against ``length`` slots: a
+        linear cache's own, a ring's min(position, length - 1) and none."""
+        if not self.ring:
+            return position, self.window
+        if isinstance(position, int):
+            return min(position, length - 1), 0
+        return position.clip(max=length - 1), 0
+
+    def keys(self, length: int, position: np.ndarray) -> np.ndarray:
+        """The keys B5 reads for each lane at ``position`` (host integers):
+        p - w + 1 (0 without a window) to p of the cache's, for the (p, w)
+        of :meth:`reads`."""
+        p, w = self.reads(length, position)
+        last = np.minimum(p + 1, length)
+        return last - np.clip(p - w + 1, 0, last) if w else last
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int,
@@ -283,31 +302,10 @@ def cache_write_decode(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
-def decode_attend(cache: dict, q: torch.Tensor, *, full_ring: bool,
-                  position: int | torch.Tensor, window: int) -> torch.Tensor:
-    """Single-token attention against a (possibly ring) cache.
-
-    A warm ring cache holds only positions inside the window, so every slot
-    is attended (``full_ring=True``: B5 at position L - 1, no window).  A
-    full-length cache masks slots beyond ``position`` causally (and outside
-    the window, if any) by absolute position.
-    """
-    if full_ring:
-        return ops.decode_attention(q, cache["k"], cache["v"],
-                                    position=cache["k"].shape[1] - 1)
+def decode_attend(cache: dict, q: torch.Tensor, layout: KVLayout,
+                  position: int | torch.Tensor) -> torch.Tensor:
+    """Single-token attention against a cache of ``layout``, at
+    :meth:`KVLayout.reads`' position and window."""
+    position, window = layout.reads(cache["k"].shape[1], position)
     return ops.decode_attention(q, cache["k"], cache["v"], position=position,
                                 window=window)
-
-
-def decode_keys(position: np.ndarray, cache_len: int, full_ring: bool,
-                window: int) -> np.ndarray:
-    """The keys :func:`decode_attend` has kernel B5 read for each lane at
-    ``position`` (host integers) against a cache of ``cache_len`` slots:
-    every slot of a warm ring, else keys ``position - window + 1`` (0
-    without a window) to ``position``, of those the cache holds."""
-    if full_ring:
-        return np.full_like(position, cache_len)
-    last = np.minimum(position + 1, cache_len)
-    if window > 0:
-        return last - np.clip(position - window + 1, 0, last)
-    return last

@@ -104,6 +104,9 @@ class Block(nn.Module):
             self.mamba = ssm_mod.Mamba(cfg, device)
         else:
             self.attn = attn_mod.Attention(cfg, device)
+            _, window = mask_args(cfg, kind)
+            self.kv = attn_mod.KVLayout(window,
+                                        cfg.serve_ring_caches and window > 0)
         if kind.endswith("_moe"):
             self.norm_mlp = layers.RMSNorm(cfg.d_model, dtype, device)
             self.moe = moe_mod.Moe(cfg, device)
@@ -192,11 +195,11 @@ class Block(nn.Module):
         return self.attn.output(out)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
-                layer_idx: int, seq_len: int | None,
-                memory_kv: dict | None = None, length: int | None = None):
+                seq_len: int | None, memory_kv: dict | None = None,
+                length: int | None = None):
         """One block over a full sequence x (B, S, D).  Returns (x,
-        cache): the cache at capacity ``seq_len`` (>= S; ring-bounded for
-        windowed layers, see :func:`attention.fill_cache`; None when
+        cache): the cache for a ``seq_len`` context (>= S; as long as the
+        layer's :class:`attention.KVLayout` says; None when
         ``seq_len`` is None, as for the encoder), a Mamba layer's cache its
         state after the first ``length`` tokens (all S where it is None:
         the rest are right pads, which leave the state as it was; see
@@ -218,7 +221,7 @@ class Block(nn.Module):
                                 window=window)
             x = self._residual(x, self.attn.output(out))
             cache = None if seq_len is None else attn_mod.fill_cache(
-                k, v, attn_mod.cache_len(cfg, layer_idx, seq_len))
+                k, v, self.kv.slots(seq_len))
         if memory_kv is not None:
             x = self._cross(x, memory_kv, decode=False)
         return self._ffn(x), cache
@@ -247,20 +250,16 @@ class Block(nn.Module):
         with span("attn.decode"):
             q, k, v = self.attn.qkv(h, pos_arr)
             attn_mod.cache_write_decode(cache, k, v, position)
-            _, full_ring, window = self.decode_reads(cache)
-            out = attn_mod.decode_attend(cache, q, full_ring=full_ring,
-                                         position=position, window=window)
+            out = attn_mod.decode_attend(cache, q, self.kv, position)
             x = self._residual(x, self.attn.output(out))
         if memory_kv is not None:
             x = self._cross(x, memory_kv, decode=True)
         return self._ffn(x)
 
-    def decode_reads(self, cache: dict) -> tuple[int, bool, int] | None:
-        """What :meth:`decode` has kernel B5 read against ``cache``:
-        (cache_len, full_ring, window), a cache no longer than the window
-        being a warm ring; None for a Mamba block."""
+    def decode_reads(self, cache: dict
+                     ) -> tuple[attn_mod.KVLayout, int] | None:
+        """What :meth:`decode` has kernel B5 read against ``cache``: (the
+        layer's layout, the cache's length); None for a Mamba block."""
         if self.is_mamba:
             return None
-        _, window = mask_args(self.cfg, self.kind)
-        n = cache["k"].shape[1]
-        return n, 0 < n <= window, window
+        return self.kv, cache["k"].shape[1]

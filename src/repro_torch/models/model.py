@@ -181,10 +181,9 @@ class _LM(nn.Module):
         dtype = layers.dtype_of(cfg, "compute")
         return [ssm_mod.init_state(cfg, batch_size, dtype, self.device)
                 if blk.is_mamba else
-                attn_mod.init_cache(cfg, batch_size,
-                                    attn_mod.cache_len(cfg, i, seq_len),
+                attn_mod.init_cache(cfg, batch_size, blk.kv.slots(seq_len),
                                     dtype, self.device)
-                for i, blk in enumerate(blocks)]
+                for blk in blocks]
 
 
 class DecoderOnlyLM(_LM):
@@ -232,8 +231,8 @@ class DecoderOnlyLM(_LM):
         idx = s - 1 if last_index is None else int(last_index)
         positions = torch.arange(s, device=x.device)
         caches = []
-        for i, blk in enumerate(self.layers):
-            x, cache = blk.prefill(x, positions, i, max_len, length=idx + 1)
+        for blk in self.layers:
+            x, cache = blk.prefill(x, positions, max_len, length=idx + 1)
             caches.append(cache)
         return self._head(x[:, idx:idx + 1]), caches
 
@@ -264,8 +263,9 @@ class DecoderOnlyLM(_LM):
         reads = collections.Counter(blk.decode_reads(cache)
                                     for blk, cache in zip(self.layers, caches))
         reads.pop(None, None)
-        return sum((n * attn_mod.decode_keys(position, *r)
-                    for r, n in reads.items()), np.zeros_like(position))
+        return sum((n * layout.keys(length, position)
+                    for (layout, length), n in reads.items()),
+                   np.zeros_like(position))
 
     def init_caches(self, batch_size: int, seq_len: int) -> list:
         """Zero caches shaped for decoding against a seq_len context."""
@@ -321,8 +321,8 @@ class EncoderDecoderLM(_LM):
         """Frame embeddings (B, S_enc, D) -> the encoder memory, normed."""
         x = embeds.to(self.device, layers.dtype_of(self.cfg, "compute"))
         positions = torch.arange(x.shape[1], device=x.device)
-        for i, blk in enumerate(self.encoder):
-            x, _ = blk.prefill(x, positions, i, None)
+        for blk in self.encoder:
+            x, _ = blk.prefill(x, positions, None)
         return self.enc_norm(x, self.cfg.norm_eps)
 
     @torch.no_grad()
@@ -339,8 +339,8 @@ class EncoderDecoderLM(_LM):
         max_len = max_len or s
         positions = torch.arange(s, device=x.device)
         caches = []
-        for i, (blk, kv) in enumerate(zip(self.decoder, cross)):
-            x, cache = blk.prefill(x, positions, i, max_len, memory_kv=kv)
+        for blk, kv in zip(self.decoder, cross):
+            x, cache = blk.prefill(x, positions, max_len, memory_kv=kv)
             caches.append(cache)
         return self._head(x[:, -1:]), {"self": caches, "cross": cross}
 

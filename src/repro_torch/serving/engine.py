@@ -28,52 +28,45 @@ Counters (plain host integers, always on; a caller takes the difference of
 two :meth:`ServingEngine.counters` snapshots): steps, decode waves, the real
 prompt tokens and the bucket tokens prefilled, the lanes each wave computes
 (``max_batch``) and the live ones among them, and the keys kernel B5 is
-asked to read, summed over the layers (the model's ``decode_keys``: a
-lane's causal keys, cut to a windowed layer's window; retired and
+asked to read, summed over the layers (the model's ``decode_keys``, from
+each layer's :class:`repro_torch.models.attention.KVLayout`; retired and
 never-used lanes at their last position too), and those of live lanes,
 and the waves served by replaying the graph (``graph_waves``).  Requests
 carry ``submitted_at``, ``admitted_at`` and ``finished_at`` on
-``time.perf_counter()``.  The model's layers count too: each ``Moe``'s
-``rows``, each ``Mamba``'s ``scan_tokens`` (bucket tokens its prefills
-scanned) and ``state_steps`` (lanes its decode steps advanced).  A
-replayed wave runs no Python of the model: whatever the recorded wave
-counted through :func:`repro_torch.tracing.count` is added again at each
-replay.  Kernel B5's ``launches`` counts its wrapper's calls, so the
-recording once and no replay: a device trace counts the replays' kernels.
+``time.perf_counter()``.  The model's layers keep counters of their own
+(:mod:`repro_torch.tracing`).  A replayed wave runs no Python of the model:
+whatever the recorded wave counted through :func:`repro_torch.tracing.count`
+is added again at each replay.  Kernel B5's ``launches`` counts its
+wrapper's calls, so the recording once and no replay: a device trace
+counts the replays' kernels.
 
 Spans (:func:`repro_torch.tracing.span`, recorded while a profiler is on),
-nested as they run::
+nested as they run; the model's own, inside ``engine.prefill`` and
+``engine.decode``, are listed in :mod:`repro_torch.tracing`::
 
     engine.admit                            ServingEngine._admit
       engine.prefill                        the model's prefill
-        attn.prefill                        each attention block
-        ssm.prefill                         each Mamba block's mixer
-          ssm.scan                          its SSD scan (kernel B6)
-        moe.route | moe.dispatch | moe.experts | moe.combine
       engine.splice                         the b=1 caches into the slot
       engine.first_token                    argmax + int(): waits for it
     engine.wave                             the decode half of step()
       engine.decode                         the model's decode + argmax:
                                             enqueued (a graph's replay)
-        attn.decode                         each attention block
-        ssm.decode                          each Mamba block's mixer
-        moe.route | moe.dispatch | moe.experts | moe.combine
       engine.sample                         host copy of the tokens: waits
       engine.retire                         the per-slot bookkeeping
 
-A replayed wave has ``engine.decode`` around the replay and no
-``attn.decode``, ``ssm.decode`` or ``moe.*`` inside it: those spans mark
-the eager first wave only.
+A replayed wave has ``engine.decode`` around the replay and none of the
+model's spans inside it: those mark the eager first wave only.
 
-Ring KV caches are disabled inside the engine (``serve_ring_caches=False``)
-because admission right-pads prompts into full-length caches.  On the card
-every prefill attention is kernel B4, every decode attention kernel B5 and
-every Mamba-2 prefill scan kernel B6; on the CPU their plain versions.  A
-Mamba layer's prefill runs over the whole padded bucket but is given the
-prompt's real length: the pads' steps are 0 and its conv state is taken
-from the last real inputs, so the state it hands to decode is that of the
-real prompt (ROADMAP R5, repaired in the port; the reference's state still
-sees the pads).
+Attention caches are linear in the engine (``serve_ring_caches=False``):
+admission right-pads prompts into its buckets, whose pads a ring would
+keep in place of the prompt's last keys.  On the card every prefill
+attention is kernel B4, every decode attention kernel B5 and every Mamba-2
+prefill scan kernel B6; on the CPU their plain versions.  A Mamba layer's
+prefill runs over the whole padded bucket but is given the prompt's real
+length: the pads' steps are 0 and its conv state is taken from the last
+real inputs, so the state it hands to decode is that of the real prompt
+(ROADMAP R5, repaired in the port; the reference's state still sees the
+pads).
 """
 from __future__ import annotations
 

@@ -16,17 +16,24 @@ a traced run holds the same operations with the spans as without them.
 2.11 (CUDA 12.8) and 2.13 (CPU); ``tests/test_torch_tracing.py`` fails if
 its import or its constructor changes.
 
-The names (``engine.*``, ``attn.*``, ``ssm.*``, ``moe.*``) and their nesting are
-listed in :mod:`repro_torch.serving.engine`.
+The serving engine's spans (``engine.*``) are listed in
+:mod:`repro_torch.serving.engine`; inside its ``engine.prefill`` and
+``engine.decode`` the model's layers open ``attn.prefill`` and
+``attn.decode`` (each attention block), ``ssm.prefill`` (each Mamba
+block's mixer, ``ssm.scan`` around its SSD scan, kernel B6) and
+``ssm.decode``, and ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine`` (each MoE layer).
 
 The layers' host counters of the work a call puts on the device
-(``Moe.rows``, ``Mamba.scan_tokens`` and ``state_steps``) are plain
-integer attributes advanced through :func:`count`.  A call recorded into a
-CUDA graph runs its Python once, at the recording, and never at a replay:
-:func:`counts_made` collects what a recording counted, and
-:func:`add_counts` takes it back or adds it again, so a replayer keeps the
-counters true without naming any of them.  A kernel wrapper's
-``launches`` is not such a counter: it counts the wrapper's calls.
+(``Moe.rows``, the rows its expert products run; ``Mamba.scan_tokens``,
+the bucket tokens its prefills scanned, and ``state_steps``, the lanes its
+decode steps advanced) are plain integer attributes advanced through
+:func:`count`.  A call recorded into a CUDA graph runs its Python once, at
+the recording, and never at a replay: :func:`counts_made` collects what a
+recording counted, and :func:`add_counts` takes it back or adds it again,
+so a replayer keeps the counters true without naming any of them.  A
+kernel wrapper's ``launches`` is not such a counter: it counts the
+wrapper's calls.
 """
 from __future__ import annotations
 

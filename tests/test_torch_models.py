@@ -14,7 +14,8 @@ reference's parameters carried across by
 * ``decode_step`` at a per-batch position vector, logits and caches;
 * the reference's own contract inside the port: prefill(S) + decode(S)
   equals prefill(S + 1) at the last position (``tests/test_models.py``,
-  at capacity factor 16 as there, so no token is dropped);
+  at capacity factor 16 as there, so no token is dropped), also with a
+  prefix shorter than the window, decoding into a ring not yet filled;
 * a block kind that no config produces raises ``NotImplementedError``.
 
 Tolerance rtol 1e-4 / atol 1e-5: both sides compute in float32 but sum in
@@ -115,17 +116,25 @@ def test_prefill_and_ragged_decode_match_reference(arch_id, monkeypatch):
         np.testing.assert_array_equal(p, r, err_msg=f"MoE call {i}")
 
 
-@pytest.mark.parametrize("arch_id", ARCHS)
-def test_decode_matches_full_prefill(arch_id):
+# (arch, prefix S): every arch at S = 24, past the smoke windows of 16, so
+# the windowed ones decode into warm rings; and the two windowed ones at S
+# = 10, so decode writes into a ring of 16 slots that has not filled
+PREFIXES = [(a, SEQ) for a in ARCHS] + [("mixtral-8x7b", 10),
+                                        ("gemma3-1b", 10)]
+
+
+@pytest.mark.parametrize("arch_id, seq", PREFIXES,
+                         ids=ARCHS + ["mixtral-8x7b-short", "gemma3-1b-short"])
+def test_decode_matches_full_prefill(arch_id, seq):
     """prefill(S) + decode(S) == prefill(S + 1) at the last position, in
     the port alone (random weights from its own generator)."""
     _, cfg = _cfgs(arch_id)
     cfg = dataclasses.replace(cfg, capacity_factor=16.0)
     model = build_model(cfg, "cpu", seed=1)
-    toks = torch.from_numpy(_tokens(cfg, 3, SEQ + 1))
+    toks = torch.from_numpy(_tokens(cfg, 3, seq + 1))
     lg_full, _ = model.prefill(toks)
-    _, caches = model.prefill(toks[:, :SEQ], max_len=SEQ + 8)
-    lg_dec, _ = model.decode_step(toks[:, SEQ:], caches, SEQ)
+    _, caches = model.prefill(toks[:, :seq], max_len=SEQ + 8)
+    lg_dec, _ = model.decode_step(toks[:, seq:], caches, seq)
     a, d = t2n(lg_full), t2n(lg_dec)
     err = np.max(np.abs(a - d)) / (np.max(np.abs(a)) + 1e-9)
     assert err < 1e-4, f"{arch_id}: rel err {err:.2e}"

@@ -207,6 +207,46 @@ def test_moe_engine_matches_reference_engine():
     assert (port.steps, port.busy_steps) == (ref.steps, ref.busy_steps)
 
 
+@pytest.mark.parametrize("arch_id", ["mixtral-8x7b", "gemma3-1b"])
+def test_engine_whose_window_spans_its_cache_serves_full_attention(arch_id):
+    """At ``max_len`` <= W the engine's linear caches are read causally at
+    each lane's own position (ROADMAP C10), and a window that never cuts is
+    full attention: ragged requests, one reusing a retired lane, get the
+    tokens of the same weights with ``attn_type="full"``, every wave's
+    logits within 1e-5."""
+    max_len = 32
+    cfg = dataclasses.replace(get_arch(arch_id).smoke, sliding_window=max_len,
+                              param_dtype="float32", compute_dtype="float32")
+    windowed = ServingEngine(cfg, max_batch=3, max_len=max_len, seed=0,
+                             device="cpu")
+    full = ServingEngine(dataclasses.replace(cfg, attn_type="full"),
+                         windowed.model.state_dict(), max_batch=3,
+                         max_len=max_len, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [(rng.integers(1, cfg.vocab_size, n).tolist(), m)
+               for n, m in [(5, 12), (20, 16), (9, 3), (14, 18)]]
+    runs = []
+    for engine in (windowed, full):
+        logits = []
+        step = engine.model.decode_step
+
+        def recording(*args, step=step, logits=logits):
+            out = step(*args)
+            logits.append(out[0].clone())
+            return out
+        engine.model.decode_step = recording
+        reqs = [Request(id=i, tokens=t, max_new_tokens=m)
+                for i, (t, m) in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        while engine.queue or engine.active_count:
+            engine.step()
+        runs.append(([r.output for r in reqs], torch.stack(logits)))
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_allclose(runs[0][1].numpy(), runs[1][1].numpy(),
+                               rtol=0, atol=1e-5)
+
+
 def test_engine_random_weights_come_from_its_seed():
     cfg = ModelConfig(**TINY)
     a = ServingEngine(cfg, max_batch=1, seed=3, device="cpu")

@@ -4,14 +4,16 @@
 * the private range binding the spans rest on still imports, builds from
   a name alone and records a host range;
 * under a CPU profile, one engine step with an admission records the
-  ``engine.*``, ``attn.*`` and ``moe.*`` spans with the nesting the engine's
-  docstring lists;
+  ``engine.*``, ``attn.*`` and ``moe.*`` spans with the nesting the
+  docstrings of the engine and of ``repro_torch.tracing`` list;
 * the engine's counters equal the values worked out by hand from a scripted
   run's prompts, buckets and positions (retired and never-used lanes' keys
-  included; full causal, windowed and warm-ring layers; no wave replayed
-  from a CUDA graph on the CPU), and the MoE's rows
-  equal the N x top_k packed rows its grouped products run a call (E x N
-  on the dense switch);
+  included; full causal layers, windowed ones, and ones whose window is
+  as long as the engine's linear cache; no wave replayed from a CUDA graph
+  on the CPU), a ring cache's keys stopping at its filled slots, the
+  host's count of B5's keys equal to what the plain B5 reads, and the
+  MoE's rows equal the N x top_k packed rows its grouped products run a
+  call (E x N on the dense switch);
 * two identical scripted runs count the same.
 """
 import dataclasses
@@ -24,8 +26,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tracing
 from repro_torch.configs import get_arch
-from repro_torch.models import ModelConfig
+from repro_torch.kernels.attention.ref import decode_ref
+from repro_torch.models import ModelConfig, build_model
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.attention import KVLayout
 from repro_torch.serving import Request, ServingEngine
 
 TINY_MOE = dict(name="tiny-moe", family="moe", n_layers=2, d_model=32,
@@ -139,12 +143,13 @@ def test_one_step_records_the_spans_and_their_nesting():
 #   full causal: min(position + 1, max_len) a lane
 #     waves 6 + 21 + 1, 7 + 4 + 1, 8 + 5 + 1, 8 + 6 + 1; live 27, 11, 5, 6
 #   window 4: min(position + 1, 4) a lane; live 8, 8, 4, 4
-#   window >= max_len (a warm ring): every one of the 64 slots a lane
+#   window 64 = max_len: the engine's cache is linear, not a ring, and a
+#   window as long as it never cuts: the full case's keys
 KEYS = {"full": ({}, 28 + 12 + 14 + 15, 27 + 11 + 5 + 6),
         "window": (dict(attn_type="swa", sliding_window=4),
                    4 * (4 + 4 + 1), 8 + 8 + 4 + 4),
         "ring": (dict(attn_type="swa", sliding_window=64),
-                 4 * 3 * 64, 6 * 64)}
+                 28 + 12 + 14 + 15, 27 + 11 + 5 + 6)}
 
 
 @pytest.mark.parametrize("attn", sorted(KEYS))
@@ -192,6 +197,42 @@ def test_decode_keys_skip_mamba_layers_and_sum_the_others():
     pos = np.array([0, 9], dtype=np.int32)
     assert engine.model.decode_keys(engine.caches, pos).tolist() == [
         attn * 1, attn * 10]
+
+
+def test_decode_keys_of_ring_caches_stop_at_the_filled_slots():
+    """Ring caches of W = 4 slots (outside the engine, which keeps its
+    caches linear): a lane at position p reads slots 0..p until the ring
+    has filled, then all 4."""
+    cfg = ModelConfig(**dict(TINY_MOE, attn_type="swa", sliding_window=4))
+    model = build_model(cfg, "cpu")
+    caches = model.init_caches(3, 16)
+    assert {c["k"].shape[1] for c in caches} == {4}
+    pos = np.array([0, 2, 9], dtype=np.int32)
+    assert model.decode_keys(caches, pos).tolist() == [
+        cfg.n_layers * n for n in (1, 3, 4)]
+
+
+# layout, cache length: a full and a windowed linear cache, and a ring
+LAYOUTS = {"full": (KVLayout(0, False), 16),
+           "window": (KVLayout(4, False), 16),
+           "ring": (KVLayout(4, True), 4)}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_host_key_count_is_what_decode_ref_reads(name):
+    """The host's count of B5's keys against the keys the plain B5 leaves
+    unmasked for the same (position, window), at every position a cache
+    of 16 slots holds (a ring's past its 4 slots too): with equal scores,
+    values e_j give each unmasked key j 1/n of the output."""
+    layout, length = LAYOUTS[name]
+    pos = np.arange(16)
+    q = torch.zeros(len(pos), 1, 1, length)
+    k = torch.zeros(len(pos), length, 1, length)
+    v = torch.eye(length).expand(len(pos), length, length)[:, :, None]
+    p, w = layout.reads(length, torch.from_numpy(pos))
+    out = decode_ref(q, k, v, position=p, window=w)
+    assert layout.keys(length, pos).tolist() == (
+        out[:, 0, 0] > 0).sum(-1).tolist()
 
 
 @pytest.mark.parametrize("n", [1, 7, 40])
